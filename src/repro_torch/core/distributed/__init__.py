@@ -1,4 +1,7 @@
-"""The distributed engines of the port (the systolic ring for now)."""
-from .device import RingMesh, make_nng_mesh, systolic_run
+"""The distributed engines of the port: the systolic ring (tiles and cover
+trees) on logical ranks."""
+from .device import (DeviceForest, RingMesh, make_nng_mesh,
+                     plan_ring_schedule, systolic_run, tree_traverse)
 
-__all__ = ["RingMesh", "make_nng_mesh", "systolic_run"]
+__all__ = ["DeviceForest", "RingMesh", "make_nng_mesh", "plan_ring_schedule",
+           "systolic_run", "tree_traverse"]

@@ -1,9 +1,11 @@
 """The metric registry: one object per metric, every hookup in one place.
 
 A ``Metric`` bundles the float64 host reference (``HostMetric``), the
-device comparable-distance function ``cdist`` (torch), the fused tile's
-CUDA kernel and plain version, and the systolic engine's geometry hooks
-(block summary and centre distance for the triangle-inequality prune).
+device comparable-distance function ``cdist`` (torch), the row-aligned true
+distance the on-card forest builder uses (``rowwise``), the fused tile's and
+the tree frontier's CUDA kernels and plain versions, and the systolic
+engine's geometry hooks (block summary and centre distance for the
+triangle-inequality prune).
 
 Kernel hookups are optional: a metric registered with only ``cdist`` and
 its host reference runs end to end through the generic path in
@@ -25,6 +27,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.kernels import nng_tile as _nt
+from repro_torch.kernels import tree_frontier as _tf
 
 from .metrics_host import HostMetric, get_host_metric
 
@@ -41,10 +44,19 @@ class Metric:
     exact: bool = False              # integer distances: zero-slack compares
     # comparable -> true distance on device (None = identity fp32 cast)
     true_device: Callable | None = None
+    # row-aligned TRUE distance, (n, d), (n, d) -> (n,) fp32 — the on-card
+    # forest builder's distance primitive. Diff-form arithmetic where the
+    # metric allows it (no cancellation: builder radii stay ulp-exact at any
+    # coordinate scale); None = generic per-row cdist path
+    rowwise: Callable | None = None
     # fused bitmask tile (systolic): CUDA kernel + plain version, both
     # (x, y, y_valid, eps) -> (cnt, bits)
     tile_kernel: Callable | None = None
     tile_ref: Callable | None = None
+    # level-synchronous tree frontier (traversal="tree"): CUDA kernel +
+    # plain version, both (q, c, rad, leaf, act_bits, eps) -> (emit, expand)
+    frontier_kernel: Callable | None = None
+    frontier_ref: Callable | None = None
     # block summary: x -> (center, fp32 true radius); None = first-point
     # center (valid in ANY metric)
     block_summary: Callable | None = None
@@ -60,6 +72,17 @@ class Metric:
         if self.true_device is not None:
             return self.true_device(c)
         return torch.as_tensor(c).to(torch.float32)
+
+    def rowwise_true(self, x, y):
+        """Row-aligned true distances (the builder primitive); the generic
+        path takes the diagonal of ``cdist`` over blocks of aligned rows."""
+        if self.rowwise is not None:
+            return self.rowwise(x, y)
+        out = [self.true(self.cdist(x[i:i + 256], y[i:i + 256])).diagonal()
+               for i in range(0, x.shape[0], 256)]
+        if not out:
+            return torch.zeros(0, dtype=torch.float32, device=x.device)
+        return torch.cat(out).to(torch.float32)
 
     def summary(self, x):
         if self.block_summary is not None:
@@ -128,6 +151,12 @@ def _euclidean_true(c):
     return torch.sqrt(torch.clamp_min(c.to(torch.float32), 0.0))
 
 
+def _euclidean_rowwise(x, y):
+    # diff form: the builder's radii carry no cancellation error
+    diff = x.to(torch.float32) - y.to(torch.float32)
+    return torch.sqrt((diff * diff).sum(-1))
+
+
 def _euclidean_block_summary(x):
     xf = x.to(torch.float32)
     c = xf.mean(0)
@@ -146,8 +175,11 @@ register_metric(Metric(
     host=get_host_metric("euclidean"),
     cdist=_euclidean_cdist,
     true_device=_euclidean_true,
+    rowwise=_euclidean_rowwise,
     tile_kernel=_nt.nng_tile_cuda,
     tile_ref=_nt.nng_tile_ref,
+    frontier_kernel=_tf.tree_frontier_cuda,
+    frontier_ref=_tf.tree_frontier_ref,
     block_summary=_euclidean_block_summary,
     center_dist=_euclidean_center_dist,
 ))

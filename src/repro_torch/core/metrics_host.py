@@ -1,9 +1,11 @@
 """Host-side (numpy) metric helpers: the float64 ground truth.
 
 "Comparable" distances are any monotone transform of the true distance
-(squared L2 for euclidean). The brute-force oracle and the metric registry
-read them from here. The hamming and manhattan host metrics come with
-their device metrics (ROADMAP item 4).
+(squared L2 for euclidean); ``true`` maps them back, because cover-tree
+arithmetic is additive. The brute-force oracle, the metric registry and the
+float64 cover-tree builder (``covertree.py``, ``flat_tree.py``) read them
+from here. The hamming and manhattan host metrics come with their device
+metrics (ROADMAP item 4).
 """
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ import numpy as np
 
 class HostMetric:
     name: str
+    dtype = np.float32      # point-array dtype (device tables use it too)
 
     def cdist(self, x: np.ndarray, y: np.ndarray) -> np.ndarray:
         raise NotImplementedError
@@ -23,6 +26,9 @@ class HostMetric:
         raise NotImplementedError
 
     def comparable(self, eps: float) -> float:
+        raise NotImplementedError
+
+    def true(self, c):
         raise NotImplementedError
 
 
@@ -50,6 +56,9 @@ class HostEuclidean(HostMetric):
 
     def comparable(self, eps):
         return float(eps) ** 2
+
+    def true(self, c):
+        return np.sqrt(np.maximum(np.asarray(c, np.float64), 0.0))
 
 
 HOST_METRICS = {"euclidean": HostEuclidean()}

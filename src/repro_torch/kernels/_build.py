@@ -4,8 +4,8 @@ Each ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface and loaded with ``ctypes``. The
 build runs at first use, from the sources in this package only, into
 ``build/repro_torch/`` at the root of the checkout. A library's file name
-carries a hash of its source and flags, so an edited source is rebuilt and
-an unchanged one is reused. All sources are compiled at once, one ``nvcc``
+carries a hash of its source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited source is rebuilt and an unchanged one is reused. All sources are compiled at once, one ``nvcc``
 process each, started together.
 
 Nothing here runs at import: the CPU tests import every module, and this
@@ -29,12 +29,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
+_LL = ctypes.c_longlong
 # library -> (C entry point, argtypes); every entry point returns the
 # cudaGetLastError() code of its launch
 _ENTRY = {
     "nng_tile": ("nng_tile_launch",
-                 (_P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _P)),
+                 (_P, _P, _P, _P, _P, _I, _I, _I, _F, _P)),
     "bits_to_cols": ("bits_to_cols_launch", (_P, _P, _I, _I, _I, _P)),
+    "tree_frontier": ("tree_frontier_launch",
+                      (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P)),
+    "leaf_range_pack": ("leaf_range_pack_launch",
+                        (_P, _LL, _P, _P, _P, _P, _I, _I, _P)),
 }
 
 _loaded: dict = {}                     # library -> loaded entry point
@@ -54,6 +60,7 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{h}.so"
 

@@ -1,21 +1,28 @@
-"""Bitmask epilogue: packed hit words -> each row's lowest set columns.
+"""Bitmask epilogues: packed words -> neighbour columns and cover masks.
 
 ``bits_to_cols``  (m, W) int32 words -> (m, k) int32: the k lowest set
     column indices of each row, ascending, ``NOCOL``-padded. The output
     slot of a set column is its rank (the count of set columns below it),
     so no value is ever sorted.
 
-``bits_to_cols_cuda`` launches the hand-written kernel in
-``csrc/bits_to_cols.cu`` and takes CUDA tensors only; ``bits_to_cols_ref``
-is its plain PyTorch version. Both are deterministic functions of the
-words, so they agree bit for bit on every input.
+``leaf_range_pack``  (delta (nq, NL) int32 ±1 range deltas over DFS leaf
+    slots, leaf_ids (NL,), qids (nq,)) -> (cnt (nq,), bits (nq, NL/32)):
+    the tree traversal's leaf epilogue — running prefix sum of the deltas,
+    the > 0 cover test, leaf-slot validity and structural self-pair
+    exclusion, packed to words with per-row counts.
+
+``*_cuda`` launch the hand-written kernels in ``csrc/bits_to_cols.cu`` and
+``csrc/leaf_range_pack.cu`` and take CUDA tensors only; ``*_ref`` are their
+plain PyTorch versions. All are deterministic integer functions of their
+inputs, so each kernel agrees with its plain version bit for bit on every
+input.
 """
 from __future__ import annotations
 
 import torch
 
 from . import _build
-from .nng_tile import unpack_words
+from .nng_tile import pack_words, unpack_words
 
 NOCOL = 2**30        # "no more hit columns" padding
 SENTINEL = 2**31 - 1  # neighbour-table padding id
@@ -64,3 +71,58 @@ def bits_to_cols_cuda(bits, k: int):
 
 
 bits_to_cols_cuda.launches = 0
+
+
+def leaf_range_pack_ref(delta, leaf_ids, qids, sentinel=SENTINEL):
+    """Plain PyTorch version: delta (nq, NL) int32 ±1 range deltas, leaf_ids
+    (NL,) int32 global ids (``sentinel`` = padding), qids (nq,) int32, NL %
+    32 == 0 -> (cnt (nq,) int32, bits (nq, NL/32) int32 words)."""
+    cover = torch.cumsum(delta, dim=1, dtype=torch.int32) > 0
+    cover &= (leaf_ids != sentinel)[None, :]
+    cover &= qids[:, None] != leaf_ids[None, :]
+    cnt = cover.sum(1, dtype=torch.int32)
+    return cnt, pack_words(cover)
+
+
+def leaf_range_pack_cuda(delta, leaf_ids, qids):
+    """The CUDA kernel: delta (nq, >= NL) int32 with unit column stride (a
+    column slice of a wider table is fine: columns past NL are never read),
+    leaf_ids (NL,) and qids (nq,) contiguous int32, all on one CUDA device
+    -> (cnt (nq,) int32, bits (nq, ceil(NL/32)) int32), the same function
+    as ``leaf_range_pack_ref``."""
+    for name, t, nd in (("delta", delta, 2), ("leaf_ids", leaf_ids, 1),
+                        ("qids", qids, 1)):
+        if not t.is_cuda:
+            raise ValueError(f"leaf_range_pack_cuda: {name} must be a CUDA "
+                             f"tensor (got {t.device})")
+        if t.dtype != torch.int32 or t.dim() != nd:
+            raise ValueError(f"leaf_range_pack_cuda: {name} must be a {nd}-d "
+                             f"int32 tensor (got {t.dtype}, shape "
+                             f"{tuple(t.shape)})")
+    nq = delta.shape[0]
+    nl = leaf_ids.shape[0]
+    if (delta.shape[1] < nl or qids.shape[0] != nq or delta.stride(1) != 1
+            or not (leaf_ids.is_contiguous() and qids.is_contiguous())):
+        raise ValueError(f"leaf_range_pack_cuda: delta {tuple(delta.shape)} "
+                         f"(strides {delta.stride()}), leaf_ids "
+                         f"{tuple(leaf_ids.shape)}, qids {tuple(qids.shape)}")
+    if len({t.device for t in (delta, leaf_ids, qids)}) != 1:
+        raise ValueError("leaf_range_pack_cuda: operands on different devices")
+    cnt = torch.empty(nq, dtype=torch.int32, device=delta.device)
+    bits = torch.empty((nq, -(-nl // 32)), dtype=torch.int32,
+                       device=delta.device)
+    if nq == 0:
+        return cnt, bits
+    ld = delta.stride(0) if nq > 1 else delta.shape[1]
+    launch = _build.entry("leaf_range_pack")
+    with torch.cuda.device(delta.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = launch(delta.data_ptr(), ld, leaf_ids.data_ptr(),
+                      qids.data_ptr(), cnt.data_ptr(), bits.data_ptr(), nq,
+                      nl, stream)
+    _build.check("leaf_range_pack", code)
+    leaf_range_pack_cuda.launches += 1
+    return cnt, bits
+
+
+leaf_range_pack_cuda.launches = 0

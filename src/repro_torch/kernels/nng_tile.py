@@ -34,21 +34,27 @@ def eps2_f32(eps: float) -> float:
     return float(np.float32(eps) ** 2)
 
 
+# bit b of a byte as a uint8, for the byte-wise packing below
+_BYTE_BIT = torch.tensor([1 << b for b in range(8)], dtype=torch.uint8)
+
+
 def pack_words(hit: torch.Tensor) -> torch.Tensor:
     """(q, p) bool, p % 32 == 0 -> (q, p / 32) int32 words, little-endian
-    (column j lands in word j // 32, bit j % 32)."""
+    (column j lands in word j // 32, bit j % 32). Packs 8 columns a byte
+    and reads four bytes as one word, so no temporary is wider than a
+    byte per column."""
     q, p = hit.shape
     assert p % 32 == 0, p
-    bit = _BIT.to(device=hit.device, dtype=torch.int64)
-    s = (hit.reshape(q, p // 32, 32).to(torch.int64) * bit).sum(-1)
-    # s is the unsigned word in [0, 2^32); fold into int32's range exactly
-    return (s - ((s >> 31) << 32)).to(torch.int32)
+    bytes_ = hit.contiguous().view(torch.uint8).reshape(q, p // 8, 8)
+    bytes_ = (bytes_ * _BYTE_BIT.to(hit.device)).sum(-1, dtype=torch.uint8)
+    return bytes_.view(torch.int32)
 
 
 def unpack_words(bits: torch.Tensor) -> torch.Tensor:
     """(q, W) int32 words -> (q, 32 W) bool, the inverse of ``pack_words``."""
-    bit = _BIT.to(bits.device)
-    return ((bits[:, :, None] & bit) != 0).reshape(bits.shape[0], -1)
+    bytes_ = bits.contiguous().view(torch.uint8)
+    out = (bytes_[:, :, None] & _BYTE_BIT.to(bits.device)) != 0
+    return out.reshape(bits.shape[0], 32 * bits.shape[1])
 
 
 def nng_tile_ref(x, y, y_valid, eps: float):

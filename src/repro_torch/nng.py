@@ -1,13 +1,13 @@
 """The public NNG front-end: ``build_nng`` — "build me the ε-graph of these
 points under this metric on this ring".
 
-The port's first slice carries the reference's default path:
-``partition="point"`` (Algorithm 4, the systolic ring over point blocks),
-``traversal="tiles"`` (fused bitmask distance tiles) and any registered
-metric (``euclidean`` has CUDA kernels; a user ``Metric`` with only
-``cdist`` runs the generic path). ``partition="spatial"`` and
-``traversal="tree"`` raise ``NotImplementedError`` until their ROADMAP
-items land.
+The port carries ``partition="point"`` (Algorithm 4, the systolic ring
+over point blocks) with both traversals: ``traversal="tiles"`` (fused
+bitmask distance tiles) and ``traversal="tree"`` (per-block cover trees,
+built on the card by default, traversed level by level). Any registered
+metric runs (``euclidean`` has CUDA kernels; a user ``Metric`` with only
+``cdist`` runs the generic path). ``partition="spatial"`` raises
+``NotImplementedError`` until its ROADMAP item lands.
 
 The engine runs under ONE plan → run → grow-on-overflow driver (``drive``)
 behind the small ``Engine`` interface. The result is a CSR ``NNGraph``
@@ -28,7 +28,10 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.core.distributed import make_nng_mesh, systolic_run
+from repro_torch.core.distributed import (DeviceForest, make_nng_mesh,
+                                          plan_ring_schedule, systolic_run)
+from repro_torch.core.flat_tree import (build_block_forests,
+                                        stack_device_forests)
 from repro_torch.core.graph import NNGraph, RunStats
 from repro_torch.core.metrics import Metric, get_metric, register_metric  # noqa: F401 (re-export)
 
@@ -115,7 +118,9 @@ class PointPartitionEngine(Engine):
     name = "point"
 
     def __init__(self, points, eps, mesh, metric, *, k_cap: int = 64,
-                 prune: bool = True, overlap: bool = True):
+                 prune: bool = True, overlap: bool = True,
+                 traversal: str = "tiles", forest: dict | None = None,
+                 forest_backend: str = "device"):
         self.metric = get_metric(metric)
         self.mesh = mesh
         self.device = mesh.device
@@ -125,6 +130,36 @@ class PointPartitionEngine(Engine):
         self.k_cap = int(k_cap)
         self.prune = prune
         self.overlap = bool(overlap)
+        self.traversal = traversal
+        self.forest_backend = forest_backend
+        self.build_s = 0.0
+        if traversal == "tree" and forest is None:
+            t0 = time.perf_counter()
+            if forest_backend == "device":
+                forest = build_block_forests(
+                    self.points, mesh.size, self.metric, backend="device",
+                    device=mesh.device)
+            elif forest_backend == "host":
+                forest = stack_device_forests(build_block_forests(
+                    self.points.cpu().numpy(), mesh.size, self.metric.host))
+            else:
+                raise ValueError(f"unknown forest_backend {forest_backend!r} "
+                                 "(want 'device' or 'host')")
+            forest = {k: torch.as_tensor(v, device=mesh.device)
+                      for k, v in forest.items()}
+            _wait(self.device)
+            self.build_s = time.perf_counter() - t0
+        self.forest = forest
+        # the traversal's tables (with their child ranges) once per engine
+        self.device_forest = (None if forest is None else
+                              DeviceForest.from_tables(forest, mesh.device))
+        # the split ring schedule is planned once per engine: the grow loop
+        # changes only k_cap
+        self.ring_schedule = None
+        if traversal == "tree" and self.overlap:
+            self.ring_schedule = plan_ring_schedule(
+                self.points, mesh.size, self.eps, metric=self.metric,
+                prune=self.prune)
 
     def initial_plan(self):
         return self.k_cap
@@ -132,7 +167,9 @@ class PointPartitionEngine(Engine):
     def run(self, k_cap):
         return systolic_run(
             self.points, self.eps, self.mesh, metric=self.metric,
-            k_cap=k_cap, prune=self.prune, overlap=self.overlap)
+            k_cap=k_cap, prune=self.prune, overlap=self.overlap,
+            traversal=self.traversal, forest=self.device_forest,
+            ring_schedule=self.ring_schedule)
 
     def overflowed(self, out):
         return bool(out[2].any())
@@ -147,11 +184,17 @@ class PointPartitionEngine(Engine):
 
     def _ring_comm_bytes(self, k_cap: int) -> dict:
         """Per-channel ring bytes, summed over ranks for the full run (the
-        reference's formulas; hop counts follow ``_systolic_local``):
+        reference's formulas; hop counts follow the ring bodies):
 
         - ``ring_points``: the visiting block each hop — point rows plus
-          the int32 ``id0`` scalar. Double buffering pays one extra
-          priming hop.
+          the block-id payload (one int32 ``id0`` scalar on the tiles
+          flavour, the (n_loc,) id vector on the tree flavour). Double
+          buffering pays one extra priming hop on the tiles flavour; the
+          tree flavours make exactly ``rounds`` point hops.
+        - ``ring_forest`` (tree only): the levelized forest tables — every
+          hop on the serial schedule, one jump per "forest" round on the
+          split schedule (a jump costs one hop's bytes however far it
+          goes).
         - ``ring_mirror``: the visiting block's neighbour accumulator
           ((n_loc, k_cap) ids + (n_loc,) counts) — ``rounds`` in-loop hops
           plus the final shift-``rounds`` return home.
@@ -170,9 +213,20 @@ class PointPartitionEngine(Engine):
         bytes_ = {"ring_mirror": float(nranks * (rounds + 1) * mirror_hop)}
         if self.prune:
             bytes_["ring_summary"] = float(nranks * (dim * item + 4))
-        pt_hop = n_loc * dim * item + 4
-        hops = rounds + 1 if self.overlap else rounds
-        bytes_["ring_points"] = float(nranks * hops * pt_hop)
+        if self.traversal == "tree":
+            pt_hop = n_loc * dim * item + n_loc * 4
+            bytes_["ring_points"] = float(nranks * rounds * pt_hop)
+            forest_hop = sum(v.numel() * v.element_size()
+                             for v in self.forest.values()) / nranks
+            if self.overlap:
+                fhops = sum(m == "forest" for m in self.ring_schedule)
+            else:
+                fhops = rounds
+            bytes_["ring_forest"] = float(nranks * fhops * forest_hop)
+        else:
+            pt_hop = n_loc * dim * item + 4
+            hops = rounds + 1 if self.overlap else rounds
+            bytes_["ring_points"] = float(nranks * hops * pt_hop)
         return bytes_
 
     def run_stats(self, out, k_cap) -> RunStats:
@@ -206,6 +260,7 @@ def build_nng(
     prune: bool = True,
     max_grows: int = 8,
     overlap: bool = True,
+    forest_backend: str = "device",
     device=None,
 ) -> NNGraph:
     """Build the exact ε-neighbour graph of ``points`` (numpy or torch,
@@ -217,7 +272,11 @@ def build_nng(
     (grown automatically on overflow); any ``n`` is accepted (duplicate
     padding up to the ring size, stripped from the result). ``overlap``
     selects the double-buffered ring schedule — ``False`` is the strict
-    rotate-then-evaluate schedule, kept for A/B comparison."""
+    rotate-then-evaluate schedule, kept for A/B comparison.
+    ``forest_backend`` ("device", the default, or "host") picks who builds
+    the cover forest for ``traversal="tree"``: the torch builder on the
+    mesh's device (``flat_tree_device``) or the float64 numpy oracle; the
+    build is timed apart, in ``RunStats.build_s``."""
     if partition == "spatial":
         raise NotImplementedError(
             "partition='spatial' (the landmark engine, Algorithms 5+6) is "
@@ -225,11 +284,7 @@ def build_nng(
     if partition != "point":
         raise ValueError(
             f"unknown partition {partition!r} (want 'point' or 'spatial')")
-    if traversal == "tree":
-        raise NotImplementedError(
-            "traversal='tree' (device cover-tree traversal) is not ported "
-            "to PyTorch yet: ROADMAP items 5 and 6")
-    if traversal != "tiles":
+    if traversal not in ("tiles", "tree"):
         raise ValueError(
             f"unknown traversal {traversal!r} (want 'tiles' or 'tree')")
     met = get_metric(metric)
@@ -251,15 +306,22 @@ def build_nng(
         points = torch.cat([points, points[idx]])
 
     engine = PointPartitionEngine(points, eps, mesh, met, k_cap=k_cap or 64,
-                                  prune=prune, overlap=overlap)
+                                  prune=prune, overlap=overlap,
+                                  traversal=traversal,
+                                  forest_backend=forest_backend)
     out, plan, replans, elapsed = drive(engine, max_grows=max_grows)
     stats = engine.run_stats(out, plan)
     stats.replans = replans
     stats.elapsed_s = elapsed
+    stats.build_s = engine.build_s
     meta = {
         "metric": met.name, "eps": float(eps), "partition": partition,
         "traversal": traversal, "nranks": mesh.size, "padded": pad,
         "plan": plan, "overlap": bool(overlap),
     }
+    if traversal == "tree":
+        meta["forest_backend"] = forest_backend
+    if engine.ring_schedule is not None:
+        meta["ring_schedule"] = tuple(engine.ring_schedule)
     return NNGraph.from_neighbor_tables(
         n, engine.neighbor_tables(out), stats=stats, meta=meta)

@@ -174,11 +174,21 @@ def test_cdist_only_metric_end_to_end():
 
 
 def test_unported_paths_raise():
+    from repro_torch.core.distributed import DeviceForest, tree_traverse
+    from repro_torch.core.flat_tree import (build_block_forests,
+                                            stack_device_forests)
     pts = synthetic_pointset(16, 3, seed=0)
     with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
         build_nng(pts, 1.0, partition="spatial", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP items 5"):
-        build_nng(pts, 1.0, traversal="tree", device="cpu")
+    forest = DeviceForest.from_tables(
+        stack_device_forests(build_block_forests(pts, 1))).rank(0)
+    x = torch.from_numpy(pts)
+    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
+        tree_traverse(x, torch.arange(16, dtype=torch.int32), None, forest,
+                      1.0, 4, "euclidean",
+                      qghost_bits=torch.zeros((16, 1), dtype=torch.int32))
+    with pytest.raises(ValueError, match="traversal"):
+        build_nng(pts, 1.0, traversal="no-such-traversal", device="cpu")
     for name in ("hamming", "manhattan"):
         with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
             get_metric(name)
