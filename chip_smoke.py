@@ -36,7 +36,26 @@ each printed as it runs; any failed check raises and exits non-zero:
      kernels' times at the path's shapes beside their bounds, each
      bound from the launch's own inputs [6e]; a Gaussian block whose
      traversal takes the dense branch, its passes timed dense and from
-     pair lists, all equal, and its counts equal to the tile kernel's [6f].
+     pair lists, all equal, and its counts equal to the tile kernel's [6f];
+  7. Hamming at the ``nng-word2bits`` configuration's full size (399360 x
+     25 words, synthetic stand-in from seed 0), eps = 40, 8 logical ranks:
+     ``nng_tile_hamming`` and ``tree_frontier_hamming`` bit-identical to
+     their plain versions at the path's inputs and at ragged shapes (and an
+     all-inactive mask) [7a]; ``build_nng`` with both traversals, each
+     kernel's launches from its own call, profiled [7b]; the tree graph
+     equal to the tiles graph and 1024 sampled rows equal to exact integer
+     distances to all n points [7c]; both kernels' times beside their
+     bounds [7d];
+  8. L1 on the ``nng-sift-1m`` shape (the points of [3]), eps in the widest
+     gap near 26.5 of the sampled rows' float64 distances: ``nng_tile_l1``
+     and ``tree_frontier_l1`` against their plain versions off the L1
+     knife [8a]; ``build_nng`` with both traversals [8b]; the tree graph
+     against the tiles graph off the knife and 1024 sampled rows against
+     float64 inside ``HostManhattan.band_slack`` [8c]; times [8d].
+
+Hamming distances are exact integers: no knife. Two fp32 L1 sums in
+different orders are each within d·u·D of the float64 sum D (u = 2^-24),
+so they may split a pair only on the L1 knife |D − eps| <= d·u·eps.
 
 Two fp32 evaluations of ‖x‖² + ‖y‖² − 2x·y that sum in different orders
 may classify a pair differently only on the knife edge: float64
@@ -69,13 +88,22 @@ SAMPLE_SEED = 1
 KNIFE_REL = 1e-4       # knife edge: 1e-4·eps², or KNIFE_ULPS units of
 KNIFE_ULPS = 20        # 2^-24·(‖x‖² + ‖y‖²), whichever is wider
 U32 = 2.0 ** -24       # fp32 unit roundoff
-DENSE_N = 32768        # [6f]: points of the Gaussian block, all queries
-DENSE_EPS = 13.0       # [6f]: about 36 neighbours a point there
+DENSE_N = 16384        # [6f]: points of the Gaussian block, all queries
+DENSE_N_FULL = 32768   # [6f]: its size before [7] and [8] joined the script
+DENSE_EPS = 13.0       # [6f]: about 19 neighbours a point there
 DENSE_CHUNK = 1024     # [6f]: rows a pass where the pair lists fit
+HAM_CONFIG = "nng-word2bits"  # [7]: 399360 x 800 bits (configs/paper_nng.py)
+HAM_EPS = 40.0         # [7]: the config's 250 links every cluster mate here
+L1_TARGET = 26.5       # [8]: mean degree ~70 on the [3] points under L1
+METRIC_K_CAP = 1024    # [7], [8]: above the max degree, so no grow
 
 # H100 SXM data sheet: fp32 outside the tensor cores, HBM3 bandwidth
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
+# CUDA C++ Programming Guide, arithmetic instruction throughput for compute
+# capability 9.0: 32-bit population counts a clock per SM (times the SMs
+# and clocks.max.sm from nvidia-smi gives the card's popcount rate)
+POPC_PER_CLK_SM = 16
 
 
 class SmokeFailure(Exception):
@@ -87,12 +115,16 @@ def check(cond, msg):
         raise SmokeFailure(msg)
 
 
-def nvidia_smi_line() -> str:
-    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                        "--format=csv,noheader"], capture_output=True,
-                       text=True, timeout=60)
+def nvidia_smi(fields: str, fmt: str = "csv,noheader") -> str:
+    r = subprocess.run(["nvidia-smi", f"--query-gpu={fields}",
+                        f"--format={fmt}"], capture_output=True, text=True,
+                       timeout=60)
     check(r.returncode == 0, f"nvidia-smi failed: {r.stderr.strip()}")
     return r.stdout.strip().splitlines()[0]
+
+
+def nvidia_smi_line() -> str:
+    return nvidia_smi("name,power.limit")
 
 
 def cuda_ms(torch, fn, reps):
@@ -110,6 +142,18 @@ def cuda_ms(torch, fn, reps):
         torch.cuda.synchronize()
         times.append(e0.elapsed_time(e1))
     return statistics.median(times)
+
+
+def events_ms(torch, fn):
+    """(fn()'s result, milliseconds of that one run by CUDA events)."""
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    e0.record()
+    out = fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return out, e0.elapsed_time(e1)
 
 
 def main() -> int:
@@ -130,6 +174,7 @@ def main() -> int:
     from repro_torch.core.distributed import device as tdev
     from repro_torch.core.flat_tree import build_block_forests
     from repro_torch.core.graph import NNGraph
+    from repro_torch.core.metrics import get_metric
     from repro_torch.data import synthetic_pointset
     from repro_torch.kernels import _build
     from repro_torch.kernels.bits_epilogue import (SENTINEL,
@@ -137,13 +182,19 @@ def main() -> int:
                                                    bits_to_cols_ref,
                                                    leaf_range_pack_cuda,
                                                    leaf_range_pack_ref)
-    from repro_torch.kernels.nng_tile import (eps2_f32, nng_tile_cuda,
-                                              nng_tile_ref, pack_words,
-                                              unpack_words)
+    from repro_torch.kernels.nng_tile import (eps2_f32, eps_int,
+                                              hamming_dist, l1_dist,
+                                              nng_tile_cuda,
+                                              nng_tile_hamming_cuda,
+                                              nng_tile_hamming_ref,
+                                              nng_tile_l1_cuda,
+                                              nng_tile_l1_ref, nng_tile_ref,
+                                              pack_words, unpack_words)
     from repro_torch.kernels.ops import _pad_rows
-    from repro_torch.kernels.tree_frontier import (TN, TQ,
-                                                   tree_frontier_cuda,
-                                                   tree_frontier_ref)
+    from repro_torch.kernels.tree_frontier import (
+        TN, TQ, tree_frontier_cuda, tree_frontier_hamming_cuda,
+        tree_frontier_hamming_ref, tree_frontier_l1_cuda,
+        tree_frontier_l1_ref, tree_frontier_ref)
     from repro_torch.nng import PointPartitionEngine, build_nng
 
     cfg = NNG_CONFIGS[CONFIG]
@@ -183,7 +234,7 @@ def main() -> int:
                             f"edge (wider of 1e-4·eps² and {KNIFE_ULPS} "
                             "units)")
 
-    def profiled_run(label, fn):
+    def profiled_run(label, fn, what="engine run"):
         """Run ``fn()`` once under torch.profiler, tracing the card only
         (recording every host op slowed the tree run by a third); print its
         device busy time and idle share and the top 8 kernels by device
@@ -210,7 +261,7 @@ def main() -> int:
             e0 = max(e0, e1)
         busy += e0 - s0
         window = spans[-1][1] - spans[0][0]
-        print(f"{label} profiled engine run {run_s:.3f} s; device busy "
+        print(f"{label} profiled {what} {run_s:.3f} s; device busy "
               f"{busy / 1e3:.1f} ms of {window / 1e3:.1f} ms (idle share "
               f"{1 - busy / window:.4f})")
         for kname, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
@@ -286,7 +337,8 @@ def main() -> int:
                                     (0, -nw % (TN // 32), 0, -m % TQ))
         return a.view(-(-m // TQ), TQ, -1, TN // 32).amax((1, 3)).sum()
 
-    def traced_traverse(qp, qids, forest_r, eps, k, q_chunk=None):
+    def traced_traverse(qp, qids, forest_r, eps, k, q_chunk=None,
+                        metric="euclidean"):
         """``tree_traverse`` of ``qp`` against one rank's forest, each
         frontier launch timed in place (CUDA events) and its inputs' sizes,
         active pairs and active blocks kept; also the first pass's kernel
@@ -319,7 +371,7 @@ def main() -> int:
         try:
             t0 = time.perf_counter()
             res = tree_traverse(qp, qids, torch.zeros_like(qids), forest_r,
-                                eps, k, "euclidean", q_chunk=q_chunk)
+                                eps, k, metric, q_chunk=q_chunk)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         finally:
@@ -368,17 +420,21 @@ def main() -> int:
             out.append((int(tdev._popcount(act)), mask, emission))
         return out
 
-    def front_bound(rows, nodes, pairs):
-        """tree_frontier's least time for one launch, in ms, and its two
-        terms: 2·d fp32 flops for each active pair's distance against
-        PEAK_FP32, and q, c, rad, leaf and the active words read once and
-        the emit and expand words written once against PEAK_BYTES."""
+    def level_bound(rows, nodes, pairs, feat, pair_ops, rate):
+        """A frontier launch's least time in ms, and its two terms:
+        ``pair_ops`` operations for each active pair's distance against
+        ``rate``, and q, c (``feat`` 4-byte values a row), rad, leaf and the
+        active words read once and the emit and expand words written once
+        against PEAK_BYTES."""
         words = -(-nodes // 32)
-        nbytes = 4 * (rows * DIM + nodes * DIM + 2 * nodes
+        nbytes = 4 * (rows * feat + nodes * feat + 2 * nodes
                       + 3 * rows * words)
-        ops = 2 * DIM * pairs
-        return (max(ops / PEAK_FP32, nbytes / PEAK_BYTES) * 1e3, ops,
-                nbytes)
+        ops = pair_ops * pairs
+        return (max(ops / rate, nbytes / PEAK_BYTES) * 1e3, ops, nbytes)
+
+    def front_bound(rows, nodes, pairs):
+        """tree_frontier's bound: 2·d fp32 flops a pair at PEAK_FP32."""
+        return level_bound(rows, nodes, pairs, DIM, 2 * DIM, PEAK_FP32)
 
     # -- 1. the card and the build -------------------------------------------
     print(f"[1] card: {smi}")
@@ -876,6 +932,9 @@ def main() -> int:
     g_br = branches(g_first, GF)
     g_pairs = max(a for a, _, _ in g_br)
     g_rows = g_first[0][0].shape[0]
+    print(f"[6f] depth cut: {DENSE_N} Gaussian points, not {DENSE_N_FULL}, "
+          f"to keep the whole script near 600 s (its builder's time grows "
+          f"with the square of the points)")
     print(f"[6f] Gaussian block ({DENSE_N}x{DIM}, seed {SEED}), eps "
           f"{DENSE_EPS}: forest built in {g_build_s:.3f} s, L "
           f"{GF.radius.shape[0]}, N {GF.radius.shape[1]}; {DENSE_N} "
@@ -922,6 +981,480 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"[6f] script wall {time.perf_counter() - t_start:.1f} s")
 
+    # -- 7, 8. the other metrics: shared checks ------------------------------
+    KERNELS = (nng_tile_cuda, bits_to_cols_cuda, tree_frontier_cuda,
+               leaf_range_pack_cuda, nng_tile_hamming_cuda, nng_tile_l1_cuda,
+               tree_frontier_hamming_cuda, tree_frontier_l1_cuda)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    clk_mhz = float(nvidia_smi("clocks.max.sm", "csv,noheader,nounits"))
+    popc_rate = POPC_PER_CLK_SM * n_sm * clk_mhz * 1e6
+    l1_rate = PEAK_FP32 / 2     # fp32 instructions a second (FMA = 2 flops)
+
+    def l1_d64(a, b):
+        """Row-aligned float64 L1 distances."""
+        return (a.double() - b.double()).abs().sum(1)
+
+    def tile_vs_plain(label, kern, plain, x, y, yv, eps, rows=4096):
+        """A tile kernel against its plain version (row chunks, timed
+        together by CUDA events) on the same inputs. Hamming: bit-identical.
+        L1: every differing pair within d·u·eps of eps in float64. Returns
+        (cnt, bits, plain ms, max |cnt diff|)."""
+        cnt, bits = kern(x, y, yv, eps)
+        yp, yvp = _pad_rows(y, 32)[0], _pad_rows(yv, 32)[0]
+        nw = bits.shape[1]
+        di, dj, err, plain_ms = [], [], 0, 0.0
+        for r0 in range(0, x.shape[0], rows):
+            sl = slice(r0, r0 + rows)
+            (c0, b0), ms = events_ms(torch, lambda: plain(x[sl], yp, yvp, eps))
+            plain_ms += ms
+            err = max(err, int((cnt[sl] - c0).abs().max()))
+            u = unpack_words(bits[sl])
+            check(torch.equal(cnt[sl], u.sum(1, dtype=torch.int32)),
+                  f"{label}: cnt is not the popcount of bits")
+            check(not u[:, y.shape[0]:].any(), f"{label}: bits past column p")
+            i, j = differing_pairs(bits[sl], b0[:, :nw])
+            di.append(i + r0)
+            dj.append(j)
+            del c0, b0, u
+        i, j = torch.cat(di), torch.cat(dj)
+        if x.dtype == torch.int32:
+            check(len(i) == 0 and err == 0, f"{label}: {len(i)} pairs differ "
+                                            "from the plain version")
+            print(f"{label}: bit-identical to its plain version, "
+                  f"{int(cnt.sum())} hits, plain version {plain_ms:.3f} ms")
+        else:
+            off = (l1_d64(x[i], y[j]) - eps).abs() / (U32 * eps)
+            far = float(off.max()) if len(off) else 0.0
+            print(f"{label}: {int(cnt.sum())} hits; {len(i)} pairs differ "
+                  f"from the plain version, the farthest at |d64-eps| = "
+                  f"{far:.4g} u·eps (knife {x.shape[1]} u·eps); max |cnt "
+                  f"diff| {err}; plain version {plain_ms:.3f} ms")
+            check(far <= x.shape[1], f"{label}: pairs differ off the L1 knife")
+        return cnt, bits, plain_ms, err
+
+    def frontier_vs_plain_m(label, kern, plain, q, c, rad, leaf, act, eps):
+        """A Hamming or L1 frontier kernel against its plain version.
+        Hamming: bit-identical. L1: every differing pair within d·u of the
+        threshold its decision tests (eps at a leaf; the nearer of
+        eps - slack - r and r + eps + slack at an internal node), by its
+        float64 distance. Returns the largest per-row emit-count
+        difference."""
+        e1, x1 = kern(q, c, rad, leaf, act, eps)
+        cp, radp, leafp = (_pad_rows(t, 32)[0] for t in (c, rad, leaf))
+        di, dj, err = [], [], 0
+        for r0 in range(0, q.shape[0], 1024):
+            sl = slice(r0, r0 + 1024)
+            e0, x0 = plain(q[sl], cp, radp, leafp, act[sl], eps)
+            err = max(err, int((unpack_words(e1[sl]).sum(1)
+                                - unpack_words(e0).sum(1)).abs().max()))
+            i, j = differing_pairs((e1[sl] ^ e0) | (x1[sl] ^ x0),
+                                   torch.zeros_like(e0))
+            di.append(i + r0)
+            dj.append(j)
+        i, j = torch.cat(di), torch.cat(dj)
+        if q.dtype == torch.int32:
+            check(len(i) == 0, f"{label}: {len(i)} pairs differ from the "
+                               "plain version")
+            print(f"{label}: bit-identical to its plain version (emit "
+                  f"{int(unpack_words(e1).sum())}, expand "
+                  f"{int(unpack_words(x1).sum())})")
+            return err
+        d = l1_d64(q[i], c[j])
+        r = rad[j].double()
+        slack = (d + r + eps) * 1e-5 + 1e-6
+        t_in, t_ex = eps - slack - r, r + eps + slack
+        thr = torch.where((d - t_in).abs() <= (d - t_ex).abs(), t_in, t_ex)
+        thr = torch.where(leaf[j] != 0, torch.full_like(thr, eps), thr)
+        off = (d - thr).abs() / (U32 * thr.abs().clamp_min(d))
+        far = float(off.max()) if len(off) else 0.0
+        print(f"{label}: {len(i)} pairs differ from the plain version, the "
+              f"farthest at |d64-threshold| = {far:.4g} u·threshold (knife "
+              f"{q.shape[1]} u)")
+        check(far <= q.shape[1], f"{label}: pairs differ off the L1 knife")
+        return err
+
+    def graph_call(label, pts_, eps, metric, traversal):
+        """``build_nng`` on the 8 logical ranks under torch.profiler, with
+        every kernel's launches counted from this call alone."""
+        for fn in KERNELS:
+            fn.launches = 0
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        g_, wall_ = profiled_run(label, lambda: build_nng(
+            pts_, eps, metric=metric, mesh=mesh, traversal=traversal,
+            k_cap=METRIC_K_CAP), what="build_nng call")
+        st_ = g_.stats
+        launches_ = {fn.__name__[:-5]: fn.launches for fn in KERNELS
+                     if fn.launches}
+        print(f"{label} build_nng(metric={metric!r}, traversal={traversal!r}"
+              f", eps={eps:.9g}, nranks={NRANKS}): {g_.num_edges} edges, mean "
+              f"degree {g_.avg_degree:.2f}, max degree "
+              f"{int(g_.degrees().max())}; elapsed_s {st_.elapsed_s:.3f} "
+              f"(steady-state run), build_s {st_.build_s:.3f}, replans "
+              f"{st_.replans}, plan {g_.meta['plan']}, ring_schedule "
+              f"{list(g_.meta.get('ring_schedule', ()))}")
+        print(f"{label} tiles_scheduled {st_.tiles_scheduled:.0f} "
+              f"tiles_skipped {st_.tiles_skipped:.0f} dists_evaluated "
+              f"{st_.dists_evaluated:.6g} nodes_pruned {st_.nodes_pruned:.6g};"
+              f" comm_bytes {json.dumps(st_.comm_bytes)}; "
+              f"max_memory_allocated {torch.cuda.max_memory_allocated()} B")
+        print(f"{label} launches {json.dumps(launches_)}")
+        tag = "hamming" if metric == "hamming" else "l1"
+        need = ([f"nng_tile_{tag}", "bits_to_cols"] if traversal == "tiles"
+                else [f"tree_frontier_{tag}", "leaf_range_pack",
+                      "bits_to_cols"])
+        if "points" in g_.meta.get("ring_schedule", ()):
+            need.append(f"nng_tile_{tag}")
+        check(all(launches_.get(k, 0) > 0 for k in need),
+              f"{label}: a kernel of the path never launched: {launches_}")
+        check(g_.num_edges > 0, f"{label}: no edges")
+        return g_, launches_
+
+    def library_rows(fn, x, y, rows=8192):
+        """Milliseconds of the library yardstick ``fn(x_rows, y)`` over row
+        chunks of x, outputs dropped as they come (torch.cdist refuses a
+        whole 49920² tile with cudaErrorInvalidConfiguration, and a
+        131072² output would not fit beside the inputs)."""
+        def run():
+            for r0 in range(0, x.shape[0], rows):
+                fn(x[r0:r0 + rows], y)
+        return events_ms(torch, run)[1]
+
+    def edge_diff(ga, gb, n):
+        """Edges in one graph and not the other, as (i, j) on the card."""
+        ka = torch.from_numpy(ga.edge_key()).to(dev)
+        kb = torch.from_numpy(gb.edge_key()).to(dev)
+        only = []
+        for a, b in ((ka, kb), (kb, ka)):
+            pos = torch.searchsorted(b, a).clamp_max(len(b) - 1)
+            only.append(a[b[pos] != a])
+        k = torch.cat(only)
+        return k // n, k % n, [len(o) for o in only]
+
+    def traversal_inputs(label, X, n_loc, eps, metric):
+        """The forest of X on the card, then one traced traversal (block 0's
+        points against block 1's tree) -> (launch records, first pass's
+        kernel inputs per level, forest L)."""
+        t0 = time.perf_counter()
+        fo = build_block_forests(X, NRANKS, metric, backend="device")
+        torch.cuda.synchronize()
+        build_s_ = time.perf_counter() - t0
+        Lm, Wm = fo["radius"].shape[1:]
+        F1_ = DeviceForest.from_tables(fo).rank(1)
+        ids = torch.arange(n_loc, dtype=torch.int32, device=dev)
+        _, wall_, lin, fst, _ = traced_traverse(X[:n_loc], ids, F1_, eps,
+                                                METRIC_K_CAP, metric=metric)
+        print(f"{label} forest built on the card in {build_s_:.3f} s: L {Lm},"
+              f" N {Wm}, NL {fo['leaf_ids'].shape[1]}; one traversal "
+              f"({n_loc} queries in passes of {fst[0][0].shape[0]}, "
+              f"{len(lin)} frontier launches) {wall_:.3f} s wall, frontier "
+              f"{sum(e0.elapsed_time(e1) for *_, e0, e1 in lin):.2f} ms; "
+              f"first pass per level (active pairs, mask, emission) "
+              f"{branches(fst, F1_)}")
+        del fo
+        return lin, fst, Lm
+
+    def frontier_times(label, kern, plain, lin, fst, eps, feat, pair_ops,
+                       rate, library, prep=lambda t: t):
+        """The frontier kernel at the first pass's busiest level, its bound
+        from that launch's inputs, the plain version (row chunks) and the
+        library call ``library(prep(q), prep(c))`` (``prep`` untimed); and
+        per traversal, the sum of each launch's bound. Returns (ms, plain
+        ms, bound ms, bound_by, library ms)."""
+        lv = max(range(len(fst)), key=lambda l: int(tdev._popcount(fst[l][4])))
+        q, c, rad, leaf, act = fst[lv][:5]
+        pairs = int(tdev._popcount(act))
+        ms = cuda_ms(torch, lambda: kern(q, c, rad, leaf, act, eps), 10)
+        bound, ops, nbytes = level_bound(q.shape[0], c.shape[0], pairs, feat,
+                                         pair_ops, rate)
+        by = "operations" if ops / rate >= nbytes / PEAK_BYTES else "bytes"
+
+        def run_plain():
+            for r0 in range(0, q.shape[0], 1024):
+                plain(q[r0:r0 + 1024], c, rad, leaf, act[r0:r0 + 1024], eps)
+        plain_ms = events_ms(torch, run_plain)[1]
+        lib_ms = library_rows(library, prep(q), prep(c))
+        trav = [level_bound(r_, n_, int(pr), feat, pair_ops, rate)
+                for r_, n_, pr, _, _, _ in lin]
+        trav_ms = sum(e0.elapsed_time(e1) for *_, e0, e1 in lin)
+        print(f"{label} level {lv} ({q.shape[0]}x{c.shape[0]}x{feat}, "
+              f"{pairs} active pairs in {int(active_blocks(act))} of "
+              f"{-(-q.shape[0] // TQ) * -(-c.shape[0] // TN)} blocks): "
+              f"{ms:.3f} ms median; bound {bound:.3f} ms ({by}: {ops:.4g} "
+              f"operations at {rate:.4g}/s, {nbytes} bytes at "
+              f"{PEAK_BYTES / 1e12:g} TB/s); plain version {plain_ms:.3f} ms "
+              f"({-(-q.shape[0] // 1024)} row chunks, one run); library "
+              f"{lib_ms:.3f} ms (distances only, one run in rows of 8192)")
+        print(f"{label} per traversal: {trav_ms:.2f} ms over {len(lin)} "
+              f"launches, bound {sum(b for b, _, _ in trav):.3f} ms (the sum "
+              f"of each launch's: {sum(o for _, o, _ in trav):.4g} operations"
+              f", {sum(nb for _, _, nb in trav)} bytes)")
+        return ms, plain_ms, bound, by, lib_ms
+
+    print(f"[7] popcount rate {popc_rate:.4g}/s = {POPC_PER_CLK_SM} a clock "
+          f"per SM (CUDA C++ Programming Guide, compute capability 9.0) x "
+          f"{n_sm} SMs x clocks.max.sm {clk_mhz:g} MHz (nvidia-smi)")
+
+    # -- 7a. Hamming: the kernels against their plain versions ---------------
+    hcfg = NNG_CONFIGS[HAM_CONFIG]
+    check(hcfg.metric == "hamming", f"{HAM_CONFIG} is not hamming")
+    HN, HW = hcfg.n, hcfg.dim
+    hn_loc = HN // NRANKS
+    t0 = time.perf_counter()
+    hpts = synthetic_pointset(HN, HW, "hamming", seed=SEED)
+    H = get_metric("hamming").as_device(hpts, dev)
+    print(f"[7a] {HAM_CONFIG}: {HN} x {HW} words (synthetic_pointset seed "
+          f"{SEED}, {time.perf_counter() - t0:.2f} s), eps {HAM_EPS} (the "
+          f"configuration's eps {hcfg.eps} links every cluster mate on this "
+          f"stand-in), {NRANKS} ranks of {hn_loc}")
+    hx = H[:hn_loc].contiguous()
+    hy = H[hn_loc:2 * hn_loc].contiguous()
+    hones = torch.ones(hn_loc, dtype=torch.int32, device=dev)
+    _, hbits, ham_plain_ms, ham_err = tile_vs_plain(
+        f"[7a] nng_tile_hamming ({hn_loc},{hn_loc},{HW}) at the path's "
+        f"inputs", nng_tile_hamming_cuda, nng_tile_hamming_ref, hx, hy, hones,
+        HAM_EPS)
+    del hbits
+    for q, p, w in ((1000, 777, 25), (37, 64, 3), (130, 300, 9)):
+        x = torch.from_numpy(rng.integers(-2**31, 2**31, size=(q, w))
+                             .astype(np.int32)).to(dev)
+        y = torch.from_numpy(rng.integers(-2**31, 2**31, size=(p, w))
+                             .astype(np.int32)).to(dev)
+        x[::7] = -1                       # all ones: 0xFFFFFFFF
+        y[::5] = x[0]
+        yv = torch.from_numpy((rng.random(p) > 0.1).astype(np.int32)).to(dev)
+        eps = float(torch.quantile(hamming_dist(x, y).flatten().float(),
+                                   0.05)) + 0.5
+        tile_vs_plain(f"[7a] nng_tile_hamming ragged ({q},{p},{w}) eps={eps}",
+                      nng_tile_hamming_cuda, nng_tile_hamming_ref, x, y, yv,
+                      eps)
+    h_launch, h_first, hL = traversal_inputs("[7a]", H, hn_loc, HAM_EPS,
+                                             "hamming")
+    leaf_lv = max(range(hL), key=lambda l: int(h_first[l][3].sum()))
+    for lv in sorted({hL // 2, leaf_lv}):
+        q, c, rad, leaf, act = h_first[lv][:5]
+        ham_err = max(ham_err, frontier_vs_plain_m(
+            f"[7a] tree_frontier_hamming level {lv} ({q.shape[0]}x"
+            f"{c.shape[0]}, {int(tdev._popcount(act))} active pairs)",
+            tree_frontier_hamming_cuda, tree_frontier_hamming_ref, q, c, rad,
+            leaf, act, HAM_EPS))
+    gq = torch.from_numpy(rng.integers(-2**31, 2**31, size=(1000, 9))
+                          .astype(np.int32)).to(dev)
+    gc = torch.cat([gq[:500] ^ 1, torch.from_numpy(rng.integers(
+        -2**31, 2**31, size=(277, 9)).astype(np.int32)).to(dev)])
+    grad = torch.from_numpy((rng.random(777) * 150).astype(np.float32)).to(dev)
+    gleaf = torch.from_numpy((rng.random(777) < 0.4).astype(np.int32)).to(dev)
+    gact = torch.from_numpy(rng.random((1000, 800)) < 0.7)
+    gact[:128, :256] = False
+    gact[:, 777:] = False
+    gact = pack_words(gact).to(dev)
+    frontier_vs_plain_m("[7a] tree_frontier_hamming ragged (1000x777x9)",
+                        tree_frontier_hamming_cuda, tree_frontier_hamming_ref,
+                        gq, gc, grad, gleaf, gact, 100.0)
+    ze, zx = tree_frontier_hamming_cuda(gq, gc, grad, gleaf,
+                                        torch.zeros_like(gact), 100.0)
+    check(not ze.any() and not zx.any(),
+          "tree_frontier_hamming: an all-inactive mask emitted or expanded")
+    print("[7a] tree_frontier_hamming with an all-inactive mask: zero words")
+    print(f"[7a] script wall {time.perf_counter() - t_start:.1f} s")
+
+    # -- 7b. the calls --------------------------------------------------------
+    gh, h_tiles_l = graph_call("[7b] tiles", hpts, HAM_EPS, "hamming",
+                               "tiles")
+    ght, h_tree_l = graph_call("[7b] tree", hpts, HAM_EPS, "hamming", "tree")
+    print(f"[7b] script wall {time.perf_counter() - t_start:.1f} s")
+
+    # -- 7c. exactness: tree = tiles, and sampled rows exact ------------------
+    check(np.array_equal(ght.edge_key(), gh.edge_key()),
+          "[7c] the tree graph differs from the tiles graph")
+    print(f"[7c] the tree graph equals the tiles graph ({gh.num_edges} edges,"
+          f" mean degree {gh.avg_degree:.2f})")
+    # exact integer distances by an independent route: the bits as 0/1 fp32
+    # and d = |x| + |y| - 2 x·y (every sum below 2^24, so exact in fp32)
+    U = unpack_words(H).to(torch.float32)
+    un = U.sum(1)
+    hrows = np.sort(np.random.default_rng(SAMPLE_SEED).choice(
+        HN, SAMPLE, replace=False))
+    for r0 in range(0, SAMPLE, 64):
+        r = torch.from_numpy(hrows[r0:r0 + 64]).to(dev)
+        dd = un[r][:, None] + un[None, :] - 2.0 * (U[r] @ U.T)
+        truth = dd <= eps_int(HAM_EPS)
+        truth[torch.arange(len(r), device=dev), r] = False
+        got = torch.zeros_like(truth)
+        for i, row in enumerate(hrows[r0:r0 + 64].tolist()):
+            got[i, torch.from_numpy(gh.neighbors(row).astype(np.int64))
+                .to(dev)] = True
+        check(torch.equal(truth, got), f"[7c] sampled rows {r0}.. differ "
+                                       "from the exact distances")
+        del dd, truth, got
+    print(f"[7c] {SAMPLE} sampled rows equal the exact integer distances to "
+          f"all {HN} points (computed on the card from the unpacked bits)")
+
+    # -- 7d. times at the path's shapes ---------------------------------------
+    hnw = -(-hn_loc // 32)
+    ham_ms = cuda_ms(torch, lambda: nng_tile_hamming_cuda(hx, hy, hones,
+                                                          HAM_EPS), 5)
+    ham_pops = hn_loc * hn_loc * HW
+    ham_b_ops = ham_pops / popc_rate * 1e3
+    ham_bytes = 4 * (2 * hn_loc * HW + 2 * hn_loc + hn_loc * hnw)
+    ham_b_bytes = ham_bytes / PEAK_BYTES * 1e3
+    ub = U[:hn_loc]
+    vb = U[hn_loc:2 * hn_loc]
+    ham_lib_ms = library_rows(lambda a, b: torch.cdist(a, b, p=0), ub, vb)
+    print(f"[7d] nng_tile_hamming ({hn_loc}x{hn_loc}x{HW}): {ham_ms:.3f} ms "
+          f"median; bound {max(ham_b_ops, ham_b_bytes):.3f} ms (operations: "
+          f"{ham_pops:.4g} popcounts at {popc_rate:.4g}/s = {ham_b_ops:.3f} "
+          f"ms; bytes {ham_bytes} at {PEAK_BYTES / 1e12:g} TB/s = "
+          f"{ham_b_bytes:.3f} ms); {ham_pops / ham_ms / 1e9:.4g} Tpopc/s; "
+          f"plain version {ham_plain_ms:.3f} ms (one run, rows of 4096); "
+          f"torch.cdist(p=0) on the unpacked fp32 bits, distances only, one "
+          f"run in rows of 8192, {ham_lib_ms:.3f} ms; launches on the tiles call "
+          f"{h_tiles_l['nng_tile_hamming']}")
+    del U, un, ub, vb
+    torch.cuda.empty_cache()
+
+    hf_ms, hf_plain_ms, hf_bound, hf_by, hf_lib_ms = frontier_times(
+        "[7d] tree_frontier_hamming", tree_frontier_hamming_cuda,
+        tree_frontier_hamming_ref, h_launch, h_first, HAM_EPS, HW, HW,
+        popc_rate, lambda a, b: torch.cdist(a, b, p=0),
+        prep=lambda t: unpack_words(t).float())
+    del H, hx, hy, hones, h_first, h_launch, gh, ght
+    torch.cuda.empty_cache()
+    print(f"[7d] script wall {time.perf_counter() - t_start:.1f} s")
+
+    # -- 8a. L1: eps, and the kernels against their plain versions -----------
+    P = torch.from_numpy(pts).to(dev)
+    P64 = P.double()
+    lrows = np.sort(np.random.default_rng(SAMPLE_SEED).choice(
+        N, SAMPLE, replace=False))
+    near = []
+    for r0 in range(0, SAMPLE, 64):
+        r = torch.from_numpy(lrows[r0:r0 + 64]).to(dev)
+        d64 = torch.cdist(P64[r], P64, p=1)
+        near.append(d64[(d64 - L1_TARGET).abs() <= 0.5])
+        del d64
+    vals = torch.sort(torch.cat(near)).values
+    j = int(torch.argmax(vals[1:] - vals[:-1]))
+    EPS8 = float(0.5 * (vals[j] + vals[j + 1]))
+    gap = float(0.5 * (vals[j + 1] - vals[j]))
+    print(f"[8a] L1 on the {CONFIG} shape (the [3] points): eps {EPS8:.9g}, "
+          f"the middle of the widest gap within 0.5 of {L1_TARGET} among the "
+          f"{SAMPLE} sampled rows' float64 distances; the nearest sampled "
+          f"pair lies {gap / (U32 * EPS8):.4g} u·eps from it (L1 knife "
+          f"{DIM} u·eps)")
+    lx = P[:n_loc].contiguous()
+    ly = P[n_loc:2 * n_loc].contiguous()
+    lones = torch.ones(n_loc, dtype=torch.int32, device=dev)
+    _, lbits, l1_plain_ms, l1_err = tile_vs_plain(
+        f"[8a] nng_tile_l1 ({n_loc},{n_loc},{DIM}) at the path's inputs",
+        nng_tile_l1_cuda, nng_tile_l1_ref, lx, ly, lones, EPS8, rows=8192)
+    del lbits
+    for q, p, d in ((1000, 777, 100), (37, 64, 3)):
+        x, y = (torch.from_numpy(rng.normal(size=(m, d)).astype(np.float32))
+                .to(dev) for m in (q, p))
+        yv = torch.from_numpy((rng.random(p) > 0.1).astype(np.int32)).to(dev)
+        eps = float(torch.quantile(torch.cdist(x, y, p=1).flatten(), 0.01))
+        _, _, _, e_ = tile_vs_plain(
+            f"[8a] nng_tile_l1 ragged ({q},{p},{d}) eps={eps:.6g}",
+            nng_tile_l1_cuda, nng_tile_l1_ref, x, y, yv, eps)
+        l1_err = max(l1_err, e_)
+    l_launch, l_first, lL = traversal_inputs("[8a]", P, n_loc, EPS8,
+                                             "manhattan")
+    leaf_lv = max(range(lL), key=lambda l: int(l_first[l][3].sum()))
+    for lv in sorted({lL // 2, leaf_lv}):
+        q, c, rad, leaf, act = l_first[lv][:5]
+        l1_err = max(l1_err, frontier_vs_plain_m(
+            f"[8a] tree_frontier_l1 level {lv} ({q.shape[0]}x{c.shape[0]}, "
+            f"{int(tdev._popcount(act))} active pairs)", tree_frontier_l1_cuda,
+            tree_frontier_l1_ref, q, c, rad, leaf, act, EPS8))
+    gq = torch.from_numpy(rng.normal(size=(1000, 100)).astype(np.float32))
+    gc = torch.from_numpy(rng.normal(size=(777, 100)).astype(np.float32))
+    grad = torch.from_numpy(np.abs(rng.normal(size=777)).astype(np.float32)
+                            * 20)
+    gleaf = torch.from_numpy((rng.random(777) < 0.4).astype(np.int32))
+    geps = float(torch.quantile(torch.cdist(gq, gc, p=1).flatten(), 0.01))
+    l1_err = max(l1_err, frontier_vs_plain_m(
+        f"[8a] tree_frontier_l1 ragged (1000x777x100) eps={geps:.6g}",
+        tree_frontier_l1_cuda, tree_frontier_l1_ref, gq.to(dev), gc.to(dev),
+        grad.to(dev), gleaf.to(dev), gact, geps))
+    ze, zx = tree_frontier_l1_cuda(gq.to(dev), gc.to(dev), grad.to(dev),
+                                   gleaf.to(dev), torch.zeros_like(gact), geps)
+    check(not ze.any() and not zx.any(),
+          "tree_frontier_l1: an all-inactive mask emitted or expanded")
+    print("[8a] tree_frontier_l1 with an all-inactive mask: zero words")
+    print(f"[8a] script wall {time.perf_counter() - t_start:.1f} s")
+
+    # -- 8b. the calls --------------------------------------------------------
+    torch.cuda.empty_cache()
+    gl, l_tiles_l = graph_call("[8b] tiles", pts, EPS8, "manhattan", "tiles")
+    glt, l_tree_l = graph_call("[8b] tree", pts, EPS8, "manhattan", "tree")
+    print(f"[8b] script wall {time.perf_counter() - t_start:.1f} s")
+
+    # -- 8c. exactness: tree vs tiles off the knife, sampled rows in band -----
+    i, j, (n_tree, n_tiles) = edge_diff(glt, gl, N)
+    off = (l1_d64(P[i], P[j]) - EPS8).abs() / (U32 * EPS8)
+    far = float(off.max()) if len(off) else 0.0
+    print(f"[8c] tree graph vs tiles graph: {glt.num_edges} vs "
+          f"{gl.num_edges} edges, {n_tree} only in the tree graph, "
+          f"{n_tiles} only in the tiles graph, the farthest at |d64-eps| = "
+          f"{far:.4g} u·eps (knife {DIM} u·eps)")
+    check(far <= DIM, "[8c] the tree and tiles graphs differ off the knife")
+    pn = P.abs().sum(1).double()
+    mism = band_pairs = 0
+    wit = []
+    for r0 in range(0, SAMPLE, 64):
+        r = torch.from_numpy(lrows[r0:r0 + 64]).to(dev)
+        d64 = torch.cdist(P64[r], P64, p=1)
+        truth = d64 <= EPS8
+        truth[torch.arange(len(r), device=dev), r] = False
+        got = torch.zeros_like(truth)
+        for k, row in enumerate(lrows[r0:r0 + 64].tolist()):
+            got[k, torch.from_numpy(gl.neighbors(row).astype(np.int64))
+                .to(dev)] = True
+        band = ((d64 - EPS8).abs()
+                <= (pn[r][:, None] + pn[None, :] + EPS8) * 1e-6 + 1e-9)
+        check(int(((truth ^ got) & ~band).sum()) == 0,
+              "[8c] sampled pairs differ from float64 outside the band")
+        mism += int((truth ^ got).sum())
+        band_pairs += int(band.sum())
+        plain = l1_dist(P[r], P) <= float(np.float32(EPS8))
+        plain[torch.arange(len(r), device=dev), r] = False
+        wit.append(((plain ^ got) & ~((d64 - EPS8).abs()
+                                      <= DIM * U32 * EPS8)).sum())
+        del d64, truth, got, band, plain
+    check(int(sum(wit)) == 0, "[8c] sampled rows differ from the plain fp32 "
+                              "distances off the knife")
+    print(f"[8c] {SAMPLE} sampled rows vs float64 over all {N} points: "
+          f"{mism} pairs differ, all inside HostManhattan.band_slack "
+          f"((|x|_1+|y|_1+eps)·1e-6, {band_pairs} pairs in it); against the "
+          f"plain fp32 distances on the card, none differ off the knife")
+    del P64, pn, gl, glt
+
+    # -- 8d. times at the path's shapes ---------------------------------------
+    l1_ms = cuda_ms(torch, lambda: nng_tile_l1_cuda(lx, ly, lones, EPS8), 3)
+    l1_ops = 2 * n_loc * n_loc * DIM
+    l1_b_ops = l1_ops / l1_rate * 1e3
+    l1_bytes = 4 * (2 * n_loc * DIM + 2 * n_loc + n_loc * (n_loc // 32))
+    l1_b_bytes = l1_bytes / PEAK_BYTES * 1e3
+    torch.cuda.empty_cache()
+    l1_lib_ms = library_rows(lambda a, b: torch.cdist(a, b, p=1), lx, ly)
+    torch.cuda.empty_cache()
+    print(f"[8d] nng_tile_l1 ({n_loc}x{n_loc}x{DIM}): {l1_ms:.3f} ms median; "
+          f"bound {max(l1_b_ops, l1_b_bytes):.3f} ms (operations: {l1_ops:.4g}"
+          f" fp32 instructions at {l1_rate:.4g}/s = {l1_b_ops:.3f} ms; bytes "
+          f"{l1_bytes} at {PEAK_BYTES / 1e12:g} TB/s = {l1_b_bytes:.3f} ms); "
+          f"{l1_ops / l1_ms / 1e9:.4g} T instructions/s; plain version "
+          f"{l1_plain_ms:.3f} ms (one run, rows of 8192); torch.cdist(p=1), "
+          f"distances only, one run in rows of 8192, {l1_lib_ms:.3f} ms; "
+          f"launches on the tiles call {l_tiles_l['nng_tile_l1']}")
+    lf_ms, lf_plain_ms, lf_bound, lf_by, lf_lib_ms = frontier_times(
+        "[8d] tree_frontier_l1", tree_frontier_l1_cuda, tree_frontier_l1_ref,
+        l_launch, l_first, EPS8, DIM, 2 * DIM, l1_rate,
+        lambda q, c: torch.cdist(q, c, p=1))
+    del P, lx, ly, lones, l_first, l_launch
+    torch.cuda.empty_cache()
+    print(f"[8d] script wall {time.perf_counter() - t_start:.1f} s")
+
     record = {"kernels": [
         {"name": "nng_tile", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/nng_tile.cu",
@@ -951,6 +1484,35 @@ def main() -> int:
          "launches": tree_launches["leaf_range_pack"],
          "max_abs_err": pack_err, "ms": pack_ms, "plain_ms": pack_plain_ms,
          "bound_ms": pack_bound_ms, "bound_by": "bytes", "library_ms": None},
+        {"name": "nng_tile_hamming", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/nng_tile_hamming.cu",
+         "replaces": "src/repro/kernels/nng_tile.py:202",
+         "launches": h_tiles_l["nng_tile_hamming"], "max_abs_err": ham_err,
+         "ms": ham_ms, "plain_ms": ham_plain_ms,
+         "bound_ms": max(ham_b_ops, ham_b_bytes),
+         "bound_by": ("operations" if ham_b_ops >= ham_b_bytes
+                      else "bytes"),
+         "library_ms": ham_lib_ms},
+        {"name": "nng_tile_l1", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/nng_tile_l1.cu",
+         "replaces": "src/repro/kernels/nng_tile.py:265",
+         "launches": l_tiles_l["nng_tile_l1"], "max_abs_err": l1_err,
+         "ms": l1_ms, "plain_ms": l1_plain_ms,
+         "bound_ms": max(l1_b_ops, l1_b_bytes),
+         "bound_by": ("operations" if l1_b_ops >= l1_b_bytes else "bytes"),
+         "library_ms": l1_lib_ms},
+        {"name": "tree_frontier_hamming", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/tree_frontier_hamming.cu",
+         "replaces": "src/repro/kernels/tree_frontier.py:196",
+         "launches": h_tree_l["tree_frontier_hamming"],
+         "max_abs_err": ham_err, "ms": hf_ms, "plain_ms": hf_plain_ms,
+         "bound_ms": hf_bound, "bound_by": hf_by, "library_ms": hf_lib_ms},
+        {"name": "tree_frontier_l1", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/tree_frontier_l1.cu",
+         "replaces": "src/repro/kernels/tree_frontier.py:264",
+         "launches": l_tree_l["tree_frontier_l1"], "max_abs_err": l1_err,
+         "ms": lf_ms, "plain_ms": lf_plain_ms, "bound_ms": lf_bound,
+         "bound_by": lf_by, "library_ms": lf_lib_ms},
     ]}
     print(json.dumps(record))
     print(smi)

@@ -41,7 +41,8 @@ import torch
 
 from repro_torch.core.metrics import get_metric
 from repro_torch.kernels.bits_epilogue import SENTINEL
-from repro_torch.kernels.nng_tile import _BIT, pack_words, unpack_words
+from repro_torch.kernels.nng_tile import (_BIT, pack_words, popcount32,
+                                          unpack_words)
 from repro_torch.kernels.ops import bits_to_gathered_ids as _bits_to_gathered_ids
 from repro_torch.kernels.ops import bits_to_ids as _bits_to_ids
 from repro_torch.kernels.ops import leaf_range_pack as _leaf_range_pack
@@ -167,11 +168,7 @@ def pair_limit(rows: int, nodes: int) -> int:
 
 def _popcount(words):
     """Set bits of int32 words, summed -> int64 0-d tensor."""
-    x = words.to(torch.int64) & 0xFFFFFFFF
-    x = x - ((x >> 1) & 0x55555555)
-    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
-    x = (x + (x >> 4)) & 0x0F0F0F0F
-    return (((x * 0x01010101) & 0xFFFFFFFF) >> 24).sum()
+    return popcount32(words).sum()
 
 
 def _set_bits(words, limit: int):
@@ -697,7 +694,7 @@ def plan_ring_schedule(points, nranks: int, eps: float, *,
     rounds = nranks // 2
     if rounds == 0:
         return ()
-    pts = torch.as_tensor(points).to(met.dtype)
+    pts = met.as_device(points)
     n = pts.shape[0]
     assert n % nranks == 0, (n, nranks)
     n_loc = n // nranks
@@ -748,7 +745,7 @@ def systolic_run(points, eps: float, mesh: RingMesh, *, metric="euclidean",
     n = points.shape[0]
     if n % nranks != 0:
         raise ValueError(f"n={n} is not a multiple of the ring size {nranks}")
-    x = torch.as_tensor(points).to(device=mesh.device, dtype=met.dtype)
+    x = met.as_device(points, mesh.device)
     xs = list(x.contiguous().chunk(nranks))
     kw = dict(nranks=nranks, eps=float(eps), metric=met, k_cap=int(k_cap),
               prune=prune)

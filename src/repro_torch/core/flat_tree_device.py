@@ -336,7 +336,7 @@ def build_block_forests_device(points, nranks: int, metric="euclidean",
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available: pass device='cpu' "
                            "to build the forest with torch on the CPU")
-    pts = torch.as_tensor(points).to(device=dev, dtype=met.dtype)
+    pts = met.as_device(points, dev)
     if max_levels is None:
         max_levels = estimate_max_levels(pts, met)
     n = pts.shape[0]

@@ -16,6 +16,12 @@ its host reference runs end to end through the generic path in
 (squared L2 for euclidean); ``true_device`` maps them back. ``exact``
 marks integer-valued metrics whose comparisons need no fp32 slack.
 
+Three metrics are built in: ``euclidean`` and ``manhattan`` over fp32 rows,
+and ``hamming`` over rows of packed 32-bit words, held on the device as
+int32 (the uint32 bit pattern: torch's uint32 lacks the bit operations).
+``Metric.as_device`` is the one entry of user points into the engine, and
+views uint32 words as int32 rather than converting their values.
+
 Metrics are identity-hashed (``eq=False``): the registry returns the same
 object every call.
 """
@@ -65,6 +71,15 @@ class Metric:
     center_dist: Callable | None = None
 
     # -- derived helpers (metric-generic) -----------------------------------
+    def as_device(self, points, device=None) -> torch.Tensor:
+        """User points (numpy or torch) -> a ``self.dtype`` tensor on
+        ``device`` (None: where they are). A metric over words (int32)
+        takes uint32 data as a bit view; float data converts by value."""
+        t = torch.as_tensor(points)
+        if self.dtype == torch.int32 and t.dtype == torch.uint32:
+            t = t.view(torch.int32)
+        return t.to(device=device, dtype=self.dtype)
+
     def comparable(self, eps: float) -> float:
         return self.host.comparable(eps)
 
@@ -103,13 +118,6 @@ class Metric:
 
 _REGISTRY: dict[str, Metric] = {}
 
-# reference metrics whose kernels are not ported yet, and where they land
-_NOT_PORTED = {
-    "hamming": "ROADMAP item 4 (the other metrics on the main path)",
-    "manhattan": "ROADMAP item 4 (the other metrics on the main path)",
-}
-
-
 def register_metric(metric: Metric, *, overwrite: bool = False) -> Metric:
     """Register a metric under ``metric.name``; returns it for chaining."""
     if metric.name in _REGISTRY and not overwrite:
@@ -125,10 +133,6 @@ def get_metric(metric: str | Metric) -> Metric:
         return metric
     if metric in _REGISTRY:
         return _REGISTRY[metric]
-    if metric in _NOT_PORTED:
-        raise NotImplementedError(
-            f"metric {metric!r} is not ported to PyTorch yet: "
-            f"{_NOT_PORTED[metric]}")
     raise ValueError(f"unknown metric {metric!r}; registered: "
                      f"{sorted(_REGISTRY)}")
 
@@ -182,4 +186,46 @@ register_metric(Metric(
     frontier_ref=_tf.tree_frontier_ref,
     block_summary=_euclidean_block_summary,
     center_dist=_euclidean_center_dist,
+))
+
+
+# ---------------------------------------------------------------------------
+# hamming (packed words) and manhattan (L1)
+# ---------------------------------------------------------------------------
+
+def _hamming_cdist(x, y):
+    return _nt.hamming_dist(x, y).to(torch.float32)
+
+
+def _hamming_rowwise(x, y):
+    return _nt.popcount32(x ^ y).sum(-1).to(torch.float32)
+
+
+def _l1_rowwise(x, y):
+    # diff form, as euclidean's
+    return (x.to(torch.float32) - y.to(torch.float32)).abs().sum(-1)
+
+
+register_metric(Metric(
+    name="hamming",
+    host=get_host_metric("hamming"),
+    cdist=_hamming_cdist,
+    rowwise=_hamming_rowwise,
+    dtype=torch.int32,
+    exact=True,
+    tile_kernel=_nt.nng_tile_hamming_cuda,
+    tile_ref=_nt.nng_tile_hamming_ref,
+    frontier_kernel=_tf.tree_frontier_hamming_cuda,
+    frontier_ref=_tf.tree_frontier_hamming_ref,
+))
+register_metric(Metric(
+    name="manhattan",
+    host=get_host_metric("manhattan"),
+    cdist=_nt.l1_dist,
+    rowwise=_l1_rowwise,
+    dtype=torch.float32,
+    tile_kernel=_nt.nng_tile_l1_cuda,
+    tile_ref=_nt.nng_tile_l1_ref,
+    frontier_kernel=_tf.tree_frontier_l1_cuda,
+    frontier_ref=_tf.tree_frontier_l1_ref,
 ))

@@ -12,16 +12,25 @@ def synthetic_pointset(n: int, dim: int, metric: str = "euclidean",
                        seed: int = 0, n_clusters: int | None = None,
                        cluster_std: float = 0.3,
                        intrinsic_dim: int | None = None):
-    """Clustered low-intrinsic-dimension float32 cloud (the paper's sparsity
-    regime): clusters on an ``intrinsic_dim``-dimensional manifold embedded
-    in ``dim``. Packed binary rows (``metric="hamming"``) are not ported
-    yet (ROADMAP item 4)."""
-    if metric == "hamming":
-        raise NotImplementedError(
-            "hamming point sets come with the hamming metric (ROADMAP "
-            "item 4)")
+    """Clustered low-intrinsic-dimension cloud (the paper's sparsity
+    regime).
+
+    ``metric == "hamming"`` yields packed uint32 bit rows (``dim`` words a
+    row): cluster centres of random bits, each point its centre with 3% of
+    its bits flipped. Every other metric shares the float32 generator:
+    clusters on an ``intrinsic_dim``-dimensional manifold embedded in
+    ``dim``."""
     rng = np.random.default_rng(seed)
     n_clusters = n_clusters or max(8, int(np.sqrt(n) / 4))
+    if metric == "hamming":
+        ctrs = rng.integers(0, 2**32, size=(n_clusters, dim), dtype=np.uint32)
+        assign = rng.integers(0, n_clusters, n)
+        pts = ctrs[assign].copy()
+        for _ in range(max(1, int(dim * 32 * 0.03))):
+            word = rng.integers(0, dim, n)
+            bit = rng.integers(0, 32, n).astype(np.uint32)
+            pts[np.arange(n), word] ^= np.uint32(1) << bit
+        return pts
     idim = intrinsic_dim or max(2, dim // 8)
     basis = rng.normal(size=(idim, dim)).astype(np.float32)
     ctrs = rng.normal(size=(n_clusters, idim)).astype(np.float32) * 6.0

@@ -5,8 +5,8 @@ shared library with a plain C interface and loaded with ``ctypes``. The
 build runs at first use, from the sources in this package only, into
 ``build/repro_torch/`` at the root of the checkout. A library's file name
 carries a hash of its source, the shared headers (``csrc/*.cuh``) and the
-flags, so an edited source is rebuilt and an unchanged one is reused. All sources are compiled at once, one ``nvcc``
-process each, started together.
+flags, so an edited source is rebuilt and an unchanged one is reused. All
+sources are compiled at once, one ``nvcc`` process each, started together.
 
 Nothing here runs at import: the CPU tests import every module, and this
 machine may have no ``nvcc``.
@@ -36,9 +36,18 @@ _LL = ctypes.c_longlong
 _ENTRY = {
     "nng_tile": ("nng_tile_launch",
                  (_P, _P, _P, _P, _P, _I, _I, _I, _F, _P)),
+    "nng_tile_hamming": ("nng_tile_hamming_launch",
+                         (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P)),
+    "nng_tile_l1": ("nng_tile_l1_launch",
+                    (_P, _P, _P, _P, _P, _I, _I, _I, _F, _P)),
     "bits_to_cols": ("bits_to_cols_launch", (_P, _P, _I, _I, _I, _P)),
     "tree_frontier": ("tree_frontier_launch",
                       (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P)),
+    "tree_frontier_hamming": ("tree_frontier_hamming_launch",
+                              (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                               _P)),
+    "tree_frontier_l1": ("tree_frontier_l1_launch",
+                         (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P)),
     "leaf_range_pack": ("leaf_range_pack_launch",
                         (_P, _LL, _P, _P, _P, _P, _I, _I, _P)),
 }

@@ -1,35 +1,27 @@
 // The fp32 L2 tile shared by nng_tile.cu and tree_frontier.cu.
 //
-// One 256-thread block owns a 128 x 128 (query row x candidate column)
-// tile. x and y are staged through shared memory in chunks of 16 features
-// (transposed, padded rows against bank conflicts). Warp w owns rows
-// [16w, 16w + 16) and lane l owns columns l, l + 32, l + 64, l + 96, so each
-// thread keeps a 16 x 4 register tile of fp32 FMAs and reads its 16 x values
-// as broadcast float4 loads. The row norms are summed in the same pass over
-// the staged chunks. In the epilogue the 32 lanes of a warp hold 32
-// consecutive columns of one row, so __ballot_sync packs a bitmask word
-// directly.
+// The block geometry and epilogues are tile_io.cuh's: one 256-thread block
+// owns a 128 x 128 (query row x candidate column) tile. x and y are staged
+// through shared memory in chunks of 16 features (transposed, padded rows
+// against bank conflicts). Warp w owns rows [16w, 16w + 16) and lane l owns
+// columns l, l + 32, l + 64, l + 96, so each thread keeps a 16 x 4 register
+// tile of fp32 FMAs and reads its 16 x values as broadcast float4 loads.
+// The row norms are summed in the same pass over the staged chunks.
 //
-// Both kernels get d2 from l2_tile_d2 over the same products and norms, so
+// Both kernels get d2 from l2tile::d2 over the same products and norms, so
 // a pair's d2 is bit-identical in the two, and a leaf's `d2 <= eps2` test in
 // the tree frontier is the tile's own hit test. The arithmetic is IEEE fp32
 // on the CUDA cores (no TF32, no tensor cores). Ragged q, p and d are masked:
 // out-of-range features load as 0, which adds exactly 0 to every sum.
 #pragma once
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "tile_io.cuh"
 
 namespace l2tile {
 
-constexpr int BM = 128;            // query rows per block
-constexpr int BN = 128;            // candidate columns per block (4 words)
+using namespace tile;
+
 constexpr int BK = 16;             // features staged per chunk
-constexpr int THREADS = 256;       // 8 warps
-constexpr int TM = BM / (THREADS / 32);   // 16 rows per warp
-constexpr int TN = BN / 32;        // 4 columns per lane
-constexpr int LDT = BM + 4;        // padded row of the transposed tiles
-constexpr unsigned FULL = 0xffffffffu;
 
 static_assert(BM + BN == THREADS, "one thread sums each staged row's norm");
 static_assert(BM * BK % THREADS == 0, "staging loop covers the chunk");

@@ -16,11 +16,9 @@
 //
 // What the simple design does about it: the shared 128 x 128 fp32 tile of
 // l2_tile.cuh (shared-memory staging, a 16 x 4 register tile per thread,
-// row norms summed in the same pass). In the epilogue the 32 lanes of a
-// warp hold 32 consecutive columns of one row, so __ballot_sync packs the
-// word directly. Blocks run in no order, so each block adds its rows'
-// popcounts to cnt with one atomicAdd per row (cnt starts at zero).
-// Out-of-range columns never hit.
+// row norms summed in the same pass), and tile_io.cuh's epilogue: each
+// warp's __ballot_sync packs a word, and one atomicAdd a row adds the
+// block's hits to cnt. Out-of-range columns never hit.
 #include "l2_tile.cuh"
 
 namespace {
@@ -54,18 +52,12 @@ nng_tile_kernel(const float* __restrict__ x, const float* __restrict__ y,
   const int w0 = n0 >> 5;
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
-    const int row = m0 + warp * TM + i;
     const float xn = s.xnorm[warp * TM + i];
-    int rc = 0;
+    bool hit[TN];
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const float v = l2tile::d2(xn, yn[j], acc[i][j]);
-      const unsigned word = __ballot_sync(FULL, yok[j] && v <= eps2);
-      if (lane == j && row < q && w0 + j < nw)
-        bits[(size_t)row * nw + w0 + j] = word;
-      rc += __popc(word);
-    }
-    if (lane == 0 && row < q && rc != 0) atomicAdd(&cnt[row], rc);
+    for (int j = 0; j < TN; ++j)
+      hit[j] = yok[j] && l2tile::d2(xn, yn[j], acc[i][j]) <= eps2;
+    store_hits(hit, m0 + warp * TM + i, q, w0, nw, bits, cnt);
   }
 }
 

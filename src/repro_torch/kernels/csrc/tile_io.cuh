@@ -1,0 +1,105 @@
+// Block geometry and the packed-bitmask epilogues shared by the distance
+// tiles (l2_tile.cuh, hamming_tile.cuh, l1_tile.cuh), the fused ε-tile
+// kernels and the tree frontier kernels.
+//
+// One 256-thread block owns a 128 x 128 (query row x candidate column)
+// tile. Warp w owns rows [16w, 16w + 16) and lane l owns columns l, l + 32,
+// l + 64, l + 96, so in an epilogue the 32 lanes of a warp hold 32
+// consecutive columns of one row and __ballot_sync packs a bitmask word
+// directly (column j is word j / 32, bit j % 32). Rows past q and columns
+// past p still vote (every lane of the warp must), but their words are
+// never stored.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace tile {
+
+constexpr int BM = 128;            // query rows per block
+constexpr int BN = 128;            // candidate columns per block
+constexpr int THREADS = 256;       // 8 warps
+constexpr int TM = BM / (THREADS / 32);   // 16 rows per warp
+constexpr int TN = BN / 32;        // 4 columns per lane
+constexpr int WPB = BN / 32;       // mask words per tile row
+constexpr int LDT = BM + 4;        // padded row of a transposed staging tile
+constexpr unsigned FULL = 0xffffffffu;
+
+// The ε-tile epilogue of one row: lane l's hit flags for its TN columns
+// become the row's WPB words (lane j stores word j), and lane 0 adds the
+// row's hits to cnt[row]. Blocks run in no order, hence the atomicAdd (cnt
+// starts at zero).
+__device__ __forceinline__ void store_hits(const bool (&hit)[TN], int row,
+                                           int q, int w0, int nw,
+                                           uint32_t* __restrict__ bits,
+                                           int32_t* __restrict__ cnt) {
+  const int lane = threadIdx.x & 31;
+  int rc = 0;
+#pragma unroll
+  for (int j = 0; j < TN; ++j) {
+    const unsigned word = __ballot_sync(FULL, hit[j]);
+    if (lane == j && row < q && w0 + j < nw)
+      bits[(size_t)row * nw + w0 + j] = word;
+    rc += __popc(word);
+  }
+  if (lane == 0 && row < q && rc != 0) atomicAdd(&cnt[row], rc);
+}
+
+// A frontier block's prologue: its BM x WPB active words into shared
+// memory (zero past nq rows and nw words). Returns, to every thread,
+// whether any of them is set.
+__device__ __forceinline__ bool stage_active(const uint32_t* __restrict__ act,
+                                             int nq, int nw, int m0, int w0,
+                                             uint32_t (&sact)[BM][WPB]) {
+  int any = 0;
+  for (int e = threadIdx.x; e < BM * WPB; e += THREADS) {
+    const int r = e / WPB;
+    const int j = e % WPB;
+    const int row = m0 + r;
+    const uint32_t v = (row < nq && w0 + j < nw)
+                           ? act[(size_t)row * nw + w0 + j] : 0u;
+    sact[r][j] = v;
+    any |= v != 0u;
+  }
+  return __syncthreads_or(any);
+}
+
+// A frontier block with no active pair writes zero emit and expand words.
+__device__ __forceinline__ void zero_masks(int nq, int nw, int m0, int w0,
+                                           uint32_t* __restrict__ emit,
+                                           uint32_t* __restrict__ expand) {
+  for (int e = threadIdx.x; e < BM * WPB; e += THREADS) {
+    const int row = m0 + e / WPB;
+    const int w = w0 + e % WPB;
+    if (row < nq && w < nw) {
+      emit[(size_t)row * nw + w] = 0u;
+      expand[(size_t)row * nw + w] = 0u;
+    }
+  }
+}
+
+// Whether the calling lane's column slot j is active for tile row r.
+__device__ __forceinline__ bool active_bit(const uint32_t (&sact)[BM][WPB],
+                                           int r, int j) {
+  return (sact[r][j] >> (threadIdx.x & 31)) & 1u;
+}
+
+// The frontier epilogue of one row: emit and expand words, as store_hits.
+__device__ __forceinline__ void store_masks(const bool (&e)[TN],
+                                            const bool (&x)[TN], int row,
+                                            int nq, int w0, int nw,
+                                            uint32_t* __restrict__ emit,
+                                            uint32_t* __restrict__ expand) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int j = 0; j < TN; ++j) {
+    const unsigned we = __ballot_sync(FULL, e[j]);
+    const unsigned wx = __ballot_sync(FULL, x[j]);
+    if (lane == j && row < nq && w0 + j < nw) {
+      emit[(size_t)row * nw + w0 + j] = we;
+      expand[(size_t)row * nw + w0 + j] = wx;
+    }
+  }
+}
+
+}  // namespace tile

@@ -31,16 +31,15 @@
 // memory; if all of them are zero (__syncthreads_or), it writes zero emit
 // and expand words and leaves without touching the points. Otherwise it
 // runs the same fp32 tile as nng_tile.cu (l2_tile.cuh), so a leaf's d2 is
-// bit-identical to the tile kernel's. The 32 lanes of a warp hold 32 consecutive nodes of one row, so
-// __ballot_sync packs each emit and expand word. Ragged nq and n are masked
-// in the kernel: out-of-range nodes are never active.
+// bit-identical to the tile kernel's. The prologue and the epilogue that
+// packs each emit and expand word with __ballot_sync are tile_io.cuh's, as
+// in the Hamming and L1 frontiers. Ragged nq and n are masked in the
+// kernel: out-of-range nodes are never active.
 #include "l2_tile.cuh"
 
 namespace {
 
 using namespace l2tile;
-
-constexpr int WPB = BN / 32;       // active words per tile row
 
 __global__ void __launch_bounds__(THREADS, 2)
 tree_frontier_kernel(const float* __restrict__ q, const float* __restrict__ c,
@@ -60,25 +59,8 @@ tree_frontier_kernel(const float* __restrict__ q, const float* __restrict__ c,
   const int n0 = blockIdx.x * BN;
   const int w0 = n0 >> 5;
 
-  int any = 0;
-  for (int e = tid; e < BM * WPB; e += THREADS) {
-    const int r = e / WPB;
-    const int j = e % WPB;
-    const int row = m0 + r;
-    const uint32_t v = (row < nq && w0 + j < nw)
-                           ? act[(size_t)row * nw + w0 + j] : 0u;
-    sact[r][j] = v;
-    any |= v != 0u;
-  }
-  if (!__syncthreads_or(any)) {
-    for (int e = tid; e < BM * WPB; e += THREADS) {
-      const int row = m0 + e / WPB;
-      const int w = w0 + e % WPB;
-      if (row < nq && w < nw) {
-        emit[(size_t)row * nw + w] = 0u;
-        expand[(size_t)row * nw + w] = 0u;
-      }
-    }
+  if (!stage_active(act, nq, nw, m0, w0, sact)) {
+    zero_masks(nq, nw, m0, w0, emit, expand);
     return;
   }
   float acc[TM][TN];
@@ -98,32 +80,27 @@ tree_frontier_kernel(const float* __restrict__ q, const float* __restrict__ c,
   }
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
-    const int row = m0 + warp * TM + i;
     const float xn = s.xnorm[warp * TM + i];
+    bool e_bit[TN];
+    bool x_bit[TN];
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
-      const bool a = ok[j] && ((sact[warp * TM + i][j] >> lane) & 1u);
+      const bool a = ok[j] && active_bit(sact, warp * TM + i, j);
       const float v = l2tile::d2(xn, yn[j], acc[i][j]);
       const float dist = sqrtf(fmaxf(v, 0.f));
       const float slack =
           __fadd_rn(__fmul_rn(__fadd_rn(__fadd_rn(dist, r[j]), eps), 1e-5f),
                     1e-6f);
-      bool e_bit;
-      bool x_bit = false;
+      x_bit[j] = false;
       if (lf[j]) {
-        e_bit = a && v <= eps2;
+        e_bit[j] = a && v <= eps2;
       } else {
-        e_bit = a && __fadd_rn(dist, r[j]) <= __fsub_rn(eps, slack);
-        x_bit = a && !e_bit &&
-                dist <= __fadd_rn(__fadd_rn(r[j], eps), slack);
-      }
-      const unsigned we = __ballot_sync(FULL, e_bit);
-      const unsigned wx = __ballot_sync(FULL, x_bit);
-      if (lane == j && row < nq && w0 + j < nw) {
-        emit[(size_t)row * nw + w0 + j] = we;
-        expand[(size_t)row * nw + w0 + j] = wx;
+        e_bit[j] = a && __fadd_rn(dist, r[j]) <= __fsub_rn(eps, slack);
+        x_bit[j] = a && !e_bit[j] &&
+                   dist <= __fadd_rn(__fadd_rn(r[j], eps), slack);
       }
     }
+    store_masks(e_bit, x_bit, m0 + warp * TM + i, nq, w0, nw, emit, expand);
   }
 }
 

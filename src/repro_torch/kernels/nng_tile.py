@@ -1,19 +1,26 @@
-"""Fused ε-NNG tile: fp32 L2 distances, threshold and bit-packed adjacency.
+"""Fused ε-NNG tiles: distances, threshold and bit-packed adjacency.
 
-The systolic ring evaluates each (local × visiting) block pair through this
-tile. It returns
+The systolic ring evaluates each (local × visiting) block pair through a
+tile of its metric. Each returns
 
   - cnt  (q,)          exact per-row ε-neighbour counts, int32,
   - bits (q, p / 32)   the hit mask packed 32 columns per word,
 
-and the fp32 distance tile never reaches device memory on the kernel path.
+and the distance tile never reaches device memory on the kernel path.
 
 Words are int32 tensors holding the uint32 bit pattern (column j is word
-j // 32, bit j % 32, little-endian), because torch's uint32 lacks shifts.
+j // 32, bit j % 32, little-endian), because torch's uint32 lacks shifts;
+so are Hamming points, rows of packed 32-bit words.
 
-``nng_tile_cuda`` launches the hand-written kernel in ``csrc/nng_tile.cu``
-and takes CUDA tensors only; ``nng_tile_ref`` is its plain PyTorch version
-with the same ‖x‖² + ‖y‖² − 2x·y expansion and threshold.
+Three metrics, each a hand-written CUDA kernel that takes CUDA tensors only
+and its plain PyTorch version with the same arithmetic:
+
+  - L2: ``nng_tile_cuda`` (``csrc/nng_tile.cu``) / ``nng_tile_ref``, the
+    fp32 ‖x‖² + ‖y‖² − 2x·y expansion against ``eps2_f32(eps)``;
+  - Hamming: ``nng_tile_hamming_cuda`` (``csrc/nng_tile_hamming.cu``) /
+    ``nng_tile_hamming_ref``, exact XOR + popcount against ``int(eps)``;
+  - L1: ``nng_tile_l1_cuda`` (``csrc/nng_tile_l1.cu``) / ``nng_tile_l1_ref``,
+    fp32 sums of |x − y| in ``l1_dist``'s order against fp32 eps.
 """
 from __future__ import annotations
 
@@ -57,6 +64,11 @@ def unpack_words(bits: torch.Tensor) -> torch.Tensor:
     return out.reshape(bits.shape[0], 32 * bits.shape[1])
 
 
+def _hits(hit):
+    """(q, p) bool hit mask, p % 32 == 0 -> (cnt, packed words)."""
+    return hit.sum(1, dtype=torch.int32), pack_words(hit)
+
+
 def nng_tile_ref(x, y, y_valid, eps: float):
     """Plain PyTorch version: x (q, d), y (p, d), y_valid (p,) with
     p % 32 == 0 -> (cnt (q,) int32, bits (q, p / 32) int32)."""
@@ -64,47 +76,148 @@ def nng_tile_ref(x, y, y_valid, eps: float):
     y = y.to(torch.float32)
     d2 = ((x * x).sum(1)[:, None] + (y * y).sum(1)[None, :]
           - 2.0 * x @ y.T)
-    hit = (d2 <= eps2_f32(eps)) & (y_valid != 0)[None, :]
-    cnt = hit.sum(1, dtype=torch.int32)
-    return cnt, pack_words(hit)
+    return _hits((d2 <= eps2_f32(eps)) & (y_valid != 0)[None, :])
 
 
-def nng_tile_cuda(x, y, y_valid, eps: float):
-    """The CUDA kernel: x (q, d), y (p, d) fp32, y_valid (p,) int32, all
-    contiguous on one CUDA device -> (cnt (q,) int32, bits (q, ceil(p/32))
-    int32). Any q, p and d: the kernel masks ragged edges, and bits past
-    column p - 1 are zero."""
-    for name, t, dt, nd in (("x", x, torch.float32, 2), ("y", y, torch.float32, 2),
-                            ("y_valid", y_valid, torch.int32, 1)):
+def eps_int(eps: float) -> int:
+    """The Hamming threshold: ``int(eps)`` (truncated, as the reference),
+    clamped to ±2^30 so that d + r and r + eps stay in int32. Distances are
+    at most 32 bits a word, so the clamp changes no decision."""
+    return max(-(1 << 30), min(int(eps), 1 << 30))
+
+
+def popcount32(words: torch.Tensor) -> torch.Tensor:
+    """Set bits of each int32 word's uint32 pattern -> int64, elementwise
+    (a SWAR count: torch has no popcount and its uint32 no shifts)."""
+    x = words.to(torch.int64) & 0xFFFFFFFF
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) & 0xFFFFFFFF) >> 24
+
+
+# elements of the plain Hamming distance's (rows, p, w) int64 temporaries
+_CUBE = 1 << 24
+
+
+def hamming_dist(x, y) -> torch.Tensor:
+    """(q, w), (p, w) int32 words -> (q, p) int32 exact Hamming distances,
+    in row chunks that keep the (rows, p, w) temporaries near _CUBE
+    elements."""
+    q, w = x.shape
+    p = y.shape[0]
+    out = torch.empty((q, p), dtype=torch.int32, device=x.device)
+    step = max(1, _CUBE // max(p * w, 1))
+    for i in range(0, q, step):
+        xor = x[i:i + step, None, :] ^ y[None, :, :]
+        out[i:i + step] = popcount32(xor).sum(-1)
+    return out
+
+
+L1_CHUNK = 8      # features a partial sum (the reference's cchunk)
+
+
+def l1_dist(x, y) -> torch.Tensor:
+    """(q, d), (p, d) fp32 -> (q, p) fp32 sums of |x − y| in the kernels'
+    order: within each chunk of L1_CHUNK features a partial sum left to
+    right, then d += partial. Spelled out feature by feature, because a
+    torch sum over a chunk fixes no order."""
+    x = x.to(torch.float32)
+    y = y.to(torch.float32)
+    dim = x.shape[1]
+    d = torch.zeros((x.shape[0], y.shape[0]), dtype=torch.float32,
+                    device=x.device)
+    for c0 in range(0, dim, L1_CHUNK):
+        part = (x[:, c0, None] - y[None, :, c0]).abs()
+        for k in range(c0 + 1, min(c0 + L1_CHUNK, dim)):
+            part += (x[:, k, None] - y[None, :, k]).abs()
+        d += part
+    return d
+
+
+def nng_tile_hamming_ref(x, y, y_valid, eps: float):
+    """Plain PyTorch version: x (q, w), y (p, w) int32 words, y_valid (p,)
+    with p % 32 == 0 -> (cnt (q,) int32, bits (q, p / 32) int32)."""
+    return _hits((hamming_dist(x, y) <= eps_int(eps))
+                 & (y_valid != 0)[None, :])
+
+
+def nng_tile_l1_ref(x, y, y_valid, eps: float):
+    """Plain PyTorch version: x (q, d), y (p, d) fp32, y_valid (p,) with
+    p % 32 == 0 -> (cnt (q,) int32, bits (q, p / 32) int32)."""
+    return _hits((l1_dist(x, y) <= float(np.float32(eps)))
+                 & (y_valid != 0)[None, :])
+
+
+def check_operands(fn: str, *specs) -> None:
+    """Raise unless every (name, tensor, dtype, ndim) of ``specs`` is a
+    contiguous CUDA tensor of that dtype and rank, all on one device."""
+    for name, t, dt, nd in specs:
         if not t.is_cuda:
-            raise ValueError(f"nng_tile_cuda: {name} must be a CUDA tensor "
+            raise ValueError(f"{fn}: {name} must be a CUDA tensor "
                              f"(got {t.device})")
         if t.dtype != dt or t.dim() != nd or not t.is_contiguous():
-            raise ValueError(f"nng_tile_cuda: {name} must be a contiguous "
-                             f"{nd}-d {dt} tensor (got {t.dtype}, "
-                             f"shape {tuple(t.shape)})")
+            raise ValueError(f"{fn}: {name} must be a contiguous {nd}-d "
+                             f"{dt} tensor (got {t.dtype}, shape "
+                             f"{tuple(t.shape)})")
+    if len({t.device for _, t, _, _ in specs}) != 1:
+        raise ValueError(f"{fn}: operands on different devices")
+
+
+def _launch_tile(lib: str, x, y, y_valid, dtype, thr):
+    """Check the operands of tile kernel ``lib`` and launch it with
+    threshold ``thr`` -> (cnt, bits, launched)."""
+    check_operands(f"{lib}_cuda", ("x", x, dtype, 2), ("y", y, dtype, 2),
+                   ("y_valid", y_valid, torch.int32, 1))
     q, d = x.shape
     p = y.shape[0]
     if y.shape[1] != d or y_valid.shape[0] != p:
-        raise ValueError(f"nng_tile_cuda: shapes x {tuple(x.shape)}, "
+        raise ValueError(f"{lib}_cuda: shapes x {tuple(x.shape)}, "
                          f"y {tuple(y.shape)}, y_valid {tuple(y_valid.shape)}")
-    if not (x.device == y.device == y_valid.device):
-        raise ValueError("nng_tile_cuda: operands on different devices")
     nw = -(-p // 32)
     cnt = torch.zeros(q, dtype=torch.int32, device=x.device)
     bits = torch.empty((q, nw), dtype=torch.int32, device=x.device)
     if q == 0 or p == 0:
         bits.zero_()
-        return cnt, bits
-    launch = _build.entry("nng_tile")
+        return cnt, bits, False
+    launch = _build.entry(lib)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = launch(x.data_ptr(), y.data_ptr(), y_valid.data_ptr(),
-                      cnt.data_ptr(), bits.data_ptr(), q, p, d,
-                      eps2_f32(eps), stream)
-    _build.check("nng_tile", code)
-    nng_tile_cuda.launches += 1
+                      cnt.data_ptr(), bits.data_ptr(), q, p, d, thr, stream)
+    _build.check(lib, code)
+    return cnt, bits, True
+
+
+def nng_tile_cuda(x, y, y_valid, eps: float):
+    """The L2 CUDA kernel: x (q, d), y (p, d) fp32, y_valid (p,) int32, all
+    contiguous on one CUDA device -> (cnt (q,) int32, bits (q, ceil(p/32))
+    int32). Any q, p and d: the kernel masks ragged edges, and bits past
+    column p - 1 are zero."""
+    cnt, bits, launched = _launch_tile("nng_tile", x, y, y_valid,
+                                       torch.float32, eps2_f32(eps))
+    nng_tile_cuda.launches += launched
+    return cnt, bits
+
+
+def nng_tile_hamming_cuda(x, y, y_valid, eps: float):
+    """The Hamming CUDA kernel: x (q, w), y (p, w) int32 words, y_valid
+    (p,) int32, as ``nng_tile_cuda`` otherwise."""
+    cnt, bits, launched = _launch_tile("nng_tile_hamming", x, y, y_valid,
+                                       torch.int32, eps_int(eps))
+    nng_tile_hamming_cuda.launches += launched
+    return cnt, bits
+
+
+def nng_tile_l1_cuda(x, y, y_valid, eps: float):
+    """The L1 CUDA kernel: x (q, d), y (p, d) fp32, y_valid (p,) int32, as
+    ``nng_tile_cuda`` otherwise."""
+    cnt, bits, launched = _launch_tile("nng_tile_l1", x, y, y_valid,
+                                       torch.float32, float(np.float32(eps)))
+    nng_tile_l1_cuda.launches += launched
     return cnt, bits
 
 
 nng_tile_cuda.launches = 0
+nng_tile_hamming_cuda.launches = 0
+nng_tile_l1_cuda.launches = 0

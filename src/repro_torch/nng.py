@@ -5,8 +5,9 @@ The port carries ``partition="point"`` (Algorithm 4, the systolic ring
 over point blocks) with both traversals: ``traversal="tiles"`` (fused
 bitmask distance tiles) and ``traversal="tree"`` (per-block cover trees,
 built on the card by default, traversed level by level). Any registered
-metric runs (``euclidean`` has CUDA kernels; a user ``Metric`` with only
-``cdist`` runs the generic path). ``partition="spatial"`` raises
+metric runs: ``euclidean``, ``manhattan`` and ``hamming`` (numpy uint32 or
+int32 words) have CUDA kernels, and a user ``Metric`` with only ``cdist``
+runs the generic path. ``partition="spatial"`` raises
 ``NotImplementedError`` until its ROADMAP item lands.
 
 The engine runs under ONE plan → run → grow-on-overflow driver (``drive``)
@@ -124,8 +125,7 @@ class PointPartitionEngine(Engine):
         self.metric = get_metric(metric)
         self.mesh = mesh
         self.device = mesh.device
-        self.points = torch.as_tensor(points).to(device=mesh.device,
-                                                 dtype=self.metric.dtype)
+        self.points = self.metric.as_device(points, mesh.device)
         self.eps = float(eps)
         self.k_cap = int(k_cap)
         self.prune = prune
@@ -145,7 +145,9 @@ class PointPartitionEngine(Engine):
             else:
                 raise ValueError(f"unknown forest_backend {forest_backend!r} "
                                  "(want 'device' or 'host')")
-            forest = {k: torch.as_tensor(v, device=mesh.device)
+            forest = {k: (self.metric.as_device(v, mesh.device)
+                          if k == "coords"
+                          else torch.as_tensor(v, device=mesh.device))
                       for k, v in forest.items()}
             _wait(self.device)
             self.build_s = time.perf_counter() - t0
@@ -293,7 +295,7 @@ def build_nng(
     elif device is not None and torch.device(device) != mesh.device:
         raise ValueError(f"device {device!r} differs from the mesh's "
                          f"{mesh.device}")
-    points = torch.as_tensor(points).to(device=mesh.device, dtype=met.dtype)
+    points = met.as_device(points, mesh.device)
     n = len(points)
     if n == 0:
         return NNGraph(0, np.zeros(1, np.int64), np.zeros(0, np.int32),

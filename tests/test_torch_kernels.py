@@ -3,10 +3,10 @@
 The same numpy inputs, made from a seed, go through the reference's
 ``*_ref`` oracle and its Pallas kernel in interpret mode, and through the
 port's plain PyTorch version (the path every CPU tensor takes). Float tiles
-use a gap-safe eps — no pair distance within 1e-4·eps of it — so the
-different fp32 summation orders cannot flip a pair; the bit-only epilogue
-must agree on every input. The CUDA kernels themselves are tested on the
-card in ``test_torch_kernels_gpu.py``.
+(L2, L1) use a gap-safe eps — no pair distance within 1e-4·eps of it — so
+the different fp32 summation orders cannot flip a pair; the Hamming tiles
+and the bit-only epilogue must agree bit for bit on every input. The CUDA
+kernels themselves are tested on the card in ``test_torch_kernels_gpu.py``.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -21,8 +21,12 @@ from repro_torch.kernels import bits_epilogue as tbe
 from repro_torch.kernels import nng_tile as tnt
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import tree_frontier as ttf
-from tests.test_torch_kernels_gpu import (frontier_case, gap_safe_eps,
-                                          random_words, range_deltas)
+from tests.test_torch_kernels_gpu import (as_words, frontier_case,
+                                          gap_safe_eps, hamming_points,
+                                          pair_dists, random_words,
+                                          range_deltas)
+
+U32 = 2.0 ** -24        # fp32 unit roundoff
 
 
 def as_u32(words):
@@ -230,6 +234,112 @@ def test_nng_tile_bits_pair_matches_reference():
 
 
 # ---------------------------------------------------------------------------
+# the Hamming and L1 tiles and frontiers
+# ---------------------------------------------------------------------------
+
+def _reference_modes(monkeypatch, fn):
+    """``fn()`` under the reference's plain jnp oracle and under its Pallas
+    kernel in interpret mode."""
+    out = []
+    for mode in ("jnp", "interpret"):
+        monkeypatch.setenv("REPRO_PALLAS", mode)
+        out.append(fn())
+    return out
+
+
+@pytest.mark.parametrize("q,p,w", [(64, 256, 8), (37, 70, 3),
+                                   (130, 300, 25)])
+def test_hamming_tile_matches_reference(monkeypatch, q, p, w):
+    """Bit for bit on every input: words with the sign bit set and all
+    ones included, eps a pair distance plus 0.5 (``int(eps)``)."""
+    rng = np.random.default_rng(q + w)
+    x, y = hamming_points(rng, q, w), hamming_points(rng, p, w)
+    assert (x == 0xFFFFFFFF).any() and (x >= 2**31).any()
+    yv = (rng.random(p) > 0.1).astype(np.int32)
+    eps = float(np.quantile(pair_dists(x, y, "hamming"), 0.1)) + 0.5
+    got = tops.nng_tile_bits(as_words(x), as_words(y), torch.from_numpy(yv),
+                             eps, metric="hamming")
+    pad = -p % 32
+    plain = tnt.nng_tile_hamming_ref(
+        as_words(x), as_words(np.pad(y, ((0, pad), (0, 0)))),
+        torch.from_numpy(np.pad(yv, (0, pad))), eps)
+    want = jnt.nng_tile_hamming_ref(jnp.asarray(x), jnp.asarray(y),
+                                    jnp.asarray(yv), eps) if pad == 0 else None
+    refs = _reference_modes(monkeypatch, lambda: jops.nng_tile_bits(
+        x, y, yv, eps, metric="hamming"))
+    assert int(got[0].sum()) > 0
+    for rc, rb in refs + ([want] if want is not None else []):
+        for ours in (got, plain):
+            np.testing.assert_array_equal(ours[0].numpy(), np.asarray(rc))
+            np.testing.assert_array_equal(as_u32(ours[1])[:, :rb.shape[1]],
+                                          np.asarray(rb))
+
+
+@pytest.mark.parametrize("q,p,d", [(64, 256, 16), (37, 70, 3),
+                                   (130, 300, 20)])
+def test_l1_tile_matches_reference(monkeypatch, q, p, d):
+    """Hit masks equal at a gap-safe eps (1e-4·eps from every pair, far
+    beyond the d·u·eps two fp32 summation orders can differ by); prints
+    the largest distance difference from the reference's ``_l1_tile_d``
+    in units of u·d."""
+    rng = np.random.default_rng(q + d)
+    x = rng.normal(size=(q, d)).astype(np.float32)
+    y = rng.normal(size=(p, d)).astype(np.float32)
+    yv = (rng.random(p) > 0.1).astype(np.int32)
+    eps = gap_safe_eps(x, y, 0.05, metric="manhattan")
+    dp = tnt.l1_dist(torch.from_numpy(x), torch.from_numpy(y)).numpy()
+    dr = np.asarray(jnt._l1_tile_d(jnp.asarray(x), jnp.asarray(y), 8))
+    print(f"max |d_port - d_ref| = {np.max(np.abs(dp - dr) / (U32 * dr)):.3g}"
+          f" u·d_ref")
+    assert np.max(np.abs(dp - dr)) <= 2 * d * U32 * dr.max()
+    got = tops.nng_tile_bits(torch.from_numpy(x), torch.from_numpy(y),
+                             torch.from_numpy(yv), eps, metric="manhattan")
+    pad = -p % 32
+    plain = tnt.nng_tile_l1_ref(
+        torch.from_numpy(x), torch.from_numpy(np.pad(y, ((0, pad), (0, 0)))),
+        torch.from_numpy(np.pad(yv, (0, pad))), eps)
+    refs = _reference_modes(monkeypatch, lambda: jops.nng_tile_bits(
+        x, y, yv, eps, metric="manhattan"))
+    assert int(got[0].sum()) > 0
+    for rc, rb in refs:
+        for ours in (got, plain):
+            np.testing.assert_array_equal(ours[0].numpy(), np.asarray(rc))
+            np.testing.assert_array_equal(as_u32(ours[1])[:, :rb.shape[1]],
+                                          np.asarray(rb))
+
+
+@pytest.mark.parametrize("metric", ["hamming", "manhattan"])
+@pytest.mark.parametrize("nq,n,d", [(7, 32, 5), (70, 96, 3), (300, 544, 16),
+                                    (45, 100, 4)])
+def test_metric_frontier_matches_reference(monkeypatch, metric, nq, n, d):
+    """Plain versions and wrapper against the reference's oracle and its
+    Pallas kernel (interpret mode), bit for bit: Hamming on every input,
+    L1 on inputs whose every decision is 1e-4·eps off its threshold. N =
+    100 is ragged, as in the L2 test."""
+    q, c, rad, leaf, act, eps = frontier_case(nq, n, d, nq + n,
+                                              metric=metric)
+    pad = -n % 32
+    cp = np.pad(c, ((0, pad), (0, 0)))
+    radp, leafp = np.pad(rad, (0, pad)), np.pad(leaf, (0, pad))
+    words = np.asarray(jnt._pack_words(jnp.asarray(
+        np.pad(act, ((0, 0), (0, pad))))))
+    refs = _reference_modes(monkeypatch, lambda: jops.tree_frontier_step(
+        q, cp, radp, leafp, words, eps, metric=metric))
+    got = tops.tree_frontier_step(
+        as_words(q), as_words(c), torch.from_numpy(rad),
+        torch.from_numpy(leaf), as_words(words), eps, metric=metric)
+    plain_fn = {"hamming": ttf.tree_frontier_hamming_ref,
+                "manhattan": ttf.tree_frontier_l1_ref}[metric]
+    plain = plain_fn(as_words(q), as_words(cp), torch.from_numpy(radp),
+                     torch.from_numpy(leafp), as_words(words), eps)
+    assert np.asarray(refs[0][0]).any() and np.asarray(refs[0][1]).any()
+    for ref in refs:
+        for ours in (got, plain):
+            for a, b in zip(ours, ref):
+                np.testing.assert_array_equal(as_u32(a), np.asarray(b))
+
+
+# ---------------------------------------------------------------------------
 # dispatch: CPU tensors take the plain versions, the wrappers refuse them
 # ---------------------------------------------------------------------------
 
@@ -246,13 +356,26 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensor"):
         tbe.leaf_range_pack_cuda(torch.zeros((4, 33), dtype=torch.int32),
                                  torch.zeros(32, dtype=torch.int32), i4)
+    w = torch.zeros((4, 3), dtype=torch.int32)
+    for fn, pts in ((tnt.nng_tile_hamming_cuda, w), (tnt.nng_tile_l1_cuda, x)):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            fn(pts, pts, i4, 1.0)
+    for fn, pts in ((ttf.tree_frontier_hamming_cuda, w),
+                    (ttf.tree_frontier_l1_cuda, x)):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            fn(pts, pts, torch.zeros(4), i4,
+               torch.zeros((4, 1), dtype=torch.int32), 1.0)
 
 
 def test_cpu_dispatch_takes_plain_version():
     def counts():
         return (tnt.nng_tile_cuda.launches, tbe.bits_to_cols_cuda.launches,
                 ttf.tree_frontier_cuda.launches,
-                tbe.leaf_range_pack_cuda.launches)
+                tbe.leaf_range_pack_cuda.launches,
+                tnt.nng_tile_hamming_cuda.launches,
+                tnt.nng_tile_l1_cuda.launches,
+                ttf.tree_frontier_hamming_cuda.launches,
+                ttf.tree_frontier_l1_cuda.launches)
     before = counts()
     x = torch.randn(10, 3)
     cnt, bits = tops.nng_tile_bits(x, x, torch.ones(10, dtype=torch.int32), 1.0)
@@ -263,4 +386,12 @@ def test_cpu_dispatch_takes_plain_version():
     tops.leaf_range_pack(torch.zeros((10, 33), dtype=torch.int32),
                          torch.arange(32, dtype=torch.int32),
                          torch.arange(10, dtype=torch.int32))
+    w = torch.randint(-2**31, 2**31 - 1, (10, 3), dtype=torch.int32)
+    for metric, pts in (("hamming", w), ("manhattan", x)):
+        tops.nng_tile_bits(pts, pts, torch.ones(10, dtype=torch.int32), 1.0,
+                           metric=metric)
+        tops.tree_frontier_step(pts, pts[:8], torch.ones(8),
+                                torch.zeros(8, dtype=torch.int32),
+                                torch.full((10, 1), -1, dtype=torch.int32),
+                                1.0, metric=metric)
     assert counts() == before

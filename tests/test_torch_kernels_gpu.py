@@ -6,8 +6,15 @@ reference package, so it runs on a GPU machine that has neither:
 
     python -m pytest -m gpu tests/test_torch_kernels_gpu.py
 
-``gap_safe_eps``, ``random_words``, ``frontier_case`` and ``range_deltas``
-are shared with the CPU tests in ``test_torch_kernels.py``.
+``gap_safe_eps``, ``random_words``, ``hamming_points``, ``frontier_case``
+and ``range_deltas`` are shared with the CPU tests in
+``test_torch_kernels.py``.
+
+Tolerances: the Hamming kernels are exact integer arithmetic and must equal
+their plain versions bit for bit on every input. The float kernels must
+equal theirs on inputs whose every decision lies at least 1e-4·eps from its
+threshold in float64: two fp32 summation orders differ by a few d·u·eps
+(u = 2^-24; 7.6e-6·eps at d = 128), far inside that gap.
 """
 import numpy as np
 import pytest
@@ -21,12 +28,24 @@ from repro_torch.kernels import tree_frontier as ttf
 SENTINEL = 2**31 - 1
 
 
-def gap_safe_eps(x, y, quantile, rel=1e-4):
+def pair_dists(x, y, metric="euclidean"):
+    """(q, p) float64 true distances: euclidean, manhattan, or hamming over
+    uint32 word rows."""
+    if metric == "hamming":
+        xor = np.bitwise_xor(x.astype(np.uint32)[:, None, :],
+                             y.astype(np.uint32)[None, :, :])
+        return np.unpackbits(xor.view(np.uint8), axis=-1).sum(-1).astype(
+            np.float64)
+    diff = x.astype(np.float64)[:, None, :] - y.astype(np.float64)[None, :, :]
+    if metric == "manhattan":
+        return np.abs(diff).sum(-1)
+    return np.sqrt((diff ** 2).sum(-1))
+
+
+def gap_safe_eps(x, y, quantile, rel=1e-4, metric="euclidean"):
     """An eps in the widest gap between float64 pair distances near the
     quantile, at least ``rel``·eps away from every pair."""
-    x64 = x.astype(np.float64)
-    y64 = y.astype(np.float64)
-    d = np.sqrt(((x64[:, None, :] - y64[None, :, :]) ** 2).sum(-1)).ravel()
+    d = pair_dists(x, y, metric).ravel()
     d.sort()
     k = int(quantile * len(d))
     lo, hi = max(k - 200, 0), min(k + 200, len(d) - 1)
@@ -47,21 +66,48 @@ def random_words(seed, m, w):
     return words
 
 
-def frontier_case(nq, n, d, seed, margin=1e-4):
-    """One frontier level's inputs (numpy) whose every decision lies at
-    least ``margin``·eps from its threshold in float64: eps sits in a gap of
-    the pair distances (leaf test), and each internal node's radius is
-    redrawn until no d ± radius lies near eps (inclusion and expansion
-    tests). Active bits are random, with an all-zero block (a whole 128 x
-    128 kernel block where the shape has one) and all-zero rows."""
+def hamming_points(rng, n, w, flip=0.08):
+    """(n, w) uint32 word rows in 4 clusters, each point its centre with
+    each bit flipped at rate ``flip``. Two centres are all ones and all
+    sign bits (0xFFFFFFFF, 0x80000000: the words a uint32 -> int32 value
+    cast would break), and some rows are all zero or all ones."""
+    ctrs = rng.integers(0, 2**32, size=(4, w), dtype=np.uint64).astype(
+        np.uint32)
+    ctrs[0] = 0xFFFFFFFF
+    ctrs[1] = 0x80000000
+    flips = np.packbits(rng.random((n, w, 32)) < flip, axis=-1,
+                        bitorder="little").view(np.uint32)[..., 0]
+    pts = ctrs[rng.integers(0, 4, n)] ^ flips
+    pts[3::17] = 0
+    pts[5::19] = 0xFFFFFFFF
+    return pts
+
+
+def frontier_case(nq, n, d, seed, margin=1e-4, metric="euclidean"):
+    """One frontier level's inputs (numpy) under ``metric``. Float metrics:
+    every decision lies at least ``margin``·eps from its threshold in
+    float64 — eps sits in a gap of the pair distances (leaf test), and each
+    internal node's radius is redrawn until no d ± radius lies near eps
+    (inclusion and expansion tests). Hamming (d words a row): exact, so eps
+    is a pair distance plus 0.5 (``int(eps)`` truncates) and the radii are
+    any fp32 values (the kernels truncate them). Active bits are random,
+    with an all-zero block (a whole 128 x 128 kernel block where the shape
+    has one) and all-zero rows."""
     rng = np.random.default_rng(seed)
-    q = rng.normal(size=(nq, d)).astype(np.float32)
-    c = rng.normal(size=(n, d)).astype(np.float32)
-    dist = np.sqrt(((q.astype(np.float64)[:, None, :]
-                     - c.astype(np.float64)[None, :, :]) ** 2).sum(-1))
-    # low in the distance distribution where pairs are many: gaps are wider
-    eps = gap_safe_eps(q, c, 0.01 if nq * n < 200_000 else 3e-4,
-                       rel=margin)
+    if metric == "hamming":
+        q = hamming_points(rng, nq, d)
+        c = hamming_points(rng, n, d)
+    else:
+        q = rng.normal(size=(nq, d)).astype(np.float32)
+        c = rng.normal(size=(n, d)).astype(np.float32)
+    dist = pair_dists(q, c, metric)
+    if metric == "hamming":
+        eps = float(np.quantile(dist, 0.05)) + 0.5
+    else:
+        # low in the distance distribution where pairs are many: gaps are
+        # wider
+        eps = gap_safe_eps(q, c, 0.01 if nq * n < 200_000 else 3e-4,
+                           rel=margin, metric=metric)
     leaf = (rng.random(n) < 0.4).astype(np.int32)
     rad = np.zeros(n, np.float32)
     for j in np.flatnonzero(leaf == 0):
@@ -69,7 +115,7 @@ def frontier_case(nq, n, d, seed, margin=1e-4):
             r = np.float32(abs(rng.normal()) * eps)
             near = np.minimum(np.abs(dist[:, j] + r - eps),
                               np.abs(dist[:, j] - r - eps))
-            if near.min() > margin * eps:
+            if metric == "hamming" or near.min() > margin * eps:
                 rad[j] = r
                 break
     act = rng.random((nq, n)) < 0.7
@@ -168,3 +214,82 @@ def test_leaf_range_pack_cuda_matches_plain(cuda_device, nq, nl):
                                       qids.to(cuda_device))
     assert int(c0.sum()) > 0
     assert torch.equal(c1.cpu(), c0) and torch.equal(b1.cpu(), b0)
+
+
+# ---------------------------------------------------------------------------
+# the Hamming and L1 kernels
+# ---------------------------------------------------------------------------
+
+def tile_case(metric, q, p, d, seed):
+    """x, y, y_valid (numpy) and an eps for one ε-tile under ``metric``:
+    Hamming word rows (d words) with eps a pair distance plus 0.5, or fp32
+    rows with a gap-safe eps low in the distance distribution."""
+    rng = np.random.default_rng(seed)
+    if metric == "hamming":
+        x, y = hamming_points(rng, q, d), hamming_points(rng, p, d)
+        eps = float(np.quantile(pair_dists(x, y, metric), 0.1)) + 0.5
+    else:
+        x = rng.normal(size=(q, d)).astype(np.float32)
+        y = rng.normal(size=(p, d)).astype(np.float32)
+        eps = gap_safe_eps(x, y, 0.01 if q * p < 200_000 else 0.001,
+                           metric=metric)
+    yv = (rng.random(p) > 0.1).astype(np.int32)
+    return x, y, yv, eps
+
+
+def as_words(a):
+    """numpy uint32 words -> the port's int32 tensor (a bit view)."""
+    return torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a)
+
+
+TILE_KERNELS = {"hamming": tnt.nng_tile_hamming_cuda,
+                "manhattan": tnt.nng_tile_l1_cuda}
+FRONTIER_KERNELS = {"hamming": ttf.tree_frontier_hamming_cuda,
+                    "manhattan": ttf.tree_frontier_l1_cuda}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", ["hamming", "manhattan"])
+@pytest.mark.parametrize("q,p,d", [(37, 64, 3), (1000, 777, 25),
+                                   (512, 1024, 128), (130, 300, 9)])
+def test_metric_tile_cuda_matches_plain(cuda_device, metric, q, p, d):
+    """Hamming bit for bit; L1 off the knife (gap-safe eps)."""
+    x, y, yv, eps = tile_case(metric, q, p, d, q + d)
+    xt, yt, yvt = (as_words(a) for a in (x, y, yv))
+    before = TILE_KERNELS[metric].launches
+    cnt, bits = TILE_KERNELS[metric](*(t.to(cuda_device) for t in
+                                       (xt, yt, yvt)), eps)
+    assert TILE_KERNELS[metric].launches == before + 1
+    rc, rb = tops.nng_tile_bits(xt, yt, yvt, eps, metric=metric)
+    assert int(rc.sum()) > 0
+    assert torch.equal(cnt.cpu(), rc)
+    assert torch.equal(bits.cpu(), rb)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", ["hamming", "manhattan"])
+@pytest.mark.parametrize("nq,n,d", [(7, 32, 5), (300, 544, 16), (45, 100, 3),
+                                    (1000, 1300, 25)])
+def test_metric_frontier_cuda_matches_plain(cuda_device, metric, nq, n, d):
+    q, c, rad, leaf, act, eps = frontier_case(nq, n, d, nq + n,
+                                              metric=metric)
+    tq, tc, trad, tleaf = (as_words(a) for a in (q, c, rad, leaf))
+    tact = tnt.pack_words(torch.from_numpy(np.pad(act, ((0, 0),
+                                                         (0, -n % 32)))))
+    e0, x0 = tops.tree_frontier_step(tq, tc, trad, tleaf, tact, eps,
+                                     metric=metric)
+    e1, x1 = FRONTIER_KERNELS[metric](*(a.to(cuda_device) for a in
+                                        (tq, tc, trad, tleaf, tact)), eps)
+    assert int(tnt.unpack_words(e0).sum()) > 0
+    assert int(tnt.unpack_words(x0).sum()) > 0
+    assert torch.equal(e1.cpu(), e0) and torch.equal(x1.cpu(), x0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", ["hamming", "manhattan"])
+def test_metric_frontier_cuda_all_inactive(cuda_device, metric):
+    q, c, rad, leaf, _, eps = frontier_case(300, 544, 9, 3, metric=metric)
+    act = torch.zeros((300, 17), dtype=torch.int32, device=cuda_device)
+    e, x = FRONTIER_KERNELS[metric](
+        *(as_words(a).to(cuda_device) for a in (q, c, rad, leaf)), act, eps)
+    assert not e.any() and not x.any()

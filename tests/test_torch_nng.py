@@ -189,9 +189,12 @@ def test_unported_paths_raise():
                       qghost_bits=torch.zeros((16, 1), dtype=torch.int32))
     with pytest.raises(ValueError, match="traversal"):
         build_nng(pts, 1.0, traversal="no-such-traversal", device="cpu")
-    for name in ("hamming", "manhattan"):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
-            get_metric(name)
+    for name, dtype, exact in (("hamming", torch.int32, True),
+                               ("manhattan", torch.float32, False)):
+        met = get_metric(name)
+        assert met.name == name and met is get_metric(name)
+        assert met.dtype == dtype and met.exact == exact
+        assert met.tile_kernel is not None and met.frontier_kernel is not None
     with pytest.raises(ValueError):
         get_metric("no-such-metric")
 

@@ -40,6 +40,7 @@ from repro_torch.core.metrics_host import HostMetric
 from repro_torch.data import blocked_clusters, synthetic_pointset
 from repro_torch.nng import build_nng
 from tests.helpers import run_subprocess
+from tests.test_torch_kernels_gpu import pair_dists
 from tests.test_torch_nng import gap_safe_eps
 
 SENTINEL = 2**31 - 1
@@ -167,6 +168,69 @@ def test_device_forest_structural_parity(n, d, nranks, leaf_size, seed):
                                atol=0)
 
 
+@pytest.mark.parametrize("metric,d", [("hamming", 3), ("manhattan", 6)])
+def test_metric_forests_match_reference(metric, d):
+    """The host builder, its flat tables and the on-card builder under the
+    new metrics: the reference's tables (Hamming words compared as uint32;
+    L1 radii to fp32 tolerance on the card)."""
+    pts = synthetic_pointset(300, d, metric, seed=6)
+    ours = tct.build_covertree(pts, metric, 8)
+    ref = rct.build_covertree(pts, metric, 8)
+    for key in ("node_pt", "node_radius", "node_parent", "is_leaf",
+                "leaf_lo", "leaf_hi", "leaf_pts"):
+        np.testing.assert_array_equal(getattr(ours, key), getattr(ref, key),
+                                      err_msg=key)
+    ours.check_invariants()
+    host = rft.build_block_forests(pts, 3, metric, leaf_size=8)
+    stacked = tft.stack_device_forests(tft.build_block_forests(
+        pts, 3, metric, leaf_size=8))
+    for key, want in rft.stack_device_forests(host).items():
+        assert stacked[key].dtype == want.dtype, key
+        np.testing.assert_array_equal(stacked[key], want, err_msg=key)
+    dev = build_block_forests_device(pts, 3, metric, leaf_size=8,
+                                     include_child_ranges=True, device="cpu")
+    assert dev["coords"].dtype == get_metric(metric).dtype
+    if metric == "hamming":
+        dev = dict(dev, coords=dev["coords"].numpy().view(np.uint32))
+    _assert_forest_parity(host, dev, metric)
+    refd = as_numpy(ref_build_device(pts, 3, metric, leaf_size=8,
+                                     include_child_ranges=True))
+    for key in refd:
+        ours_k = np.asarray(dev[key])
+        if key == "radius":
+            np.testing.assert_allclose(ours_k, refd[key], rtol=1e-6, atol=0)
+        else:
+            np.testing.assert_array_equal(ours_k, refd[key], err_msg=key)
+
+
+@pytest.mark.parametrize("metric", ["hamming", "manhattan"])
+def test_metric_tree_traverse_matches_reference(metric):
+    """One traversal under the new metrics against the reference's, on one
+    forest: neighbours, counts and both counters equal."""
+    pts = synthetic_pointset(400, 8, metric, seed=31)
+    eps = 40.0 if metric == "hamming" else tree_safe_eps(pts, 2, 3.0,
+                                                         metric=metric)
+    tabs = rft.stack_device_forests(rft.build_block_forests(pts, 2, metric))
+    one = {k: v[1] for k, v in tabs.items()}
+    q = pts[:200]
+    qids = np.arange(200, dtype=np.int32)
+    qcells = np.zeros(200, np.int32)
+    rn, rc, rd, rp = ref_traverse(jnp.asarray(q), jnp.asarray(qids),
+                                  jnp.asarray(qcells),
+                                  RefForest.from_tables(one), eps, 64, metric)
+    met = get_metric(metric)
+    ours = {k: (met.as_device(v) if k == "coords" else torch.as_tensor(v))
+            for k, v in one.items()}
+    tn, tc, td, tp = tree_traverse(met.as_device(q), torch.from_numpy(qids),
+                                   torch.from_numpy(qcells),
+                                   DeviceForest.from_tables(ours), eps, 64,
+                                   metric)
+    assert int(np.asarray(rc).sum()) > 100 and int(tp) > 0
+    np.testing.assert_array_equal(tn.numpy(), np.asarray(rn))
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(rc))
+    assert int(td) == float(rd) and int(tp) == float(rp)
+
+
 def test_device_forest_regrows_levels():
     """A first table of 2 levels is too shallow; the build regrows it and
     gives the same forest as a deep enough start."""
@@ -288,27 +352,28 @@ def _mixed_blocks():
     return pts.astype(np.float32)
 
 
-def tree_safe_eps(pts, nranks, target, rel=5e-5):
+def tree_safe_eps(pts, nranks, target, rel=5e-5, metric="euclidean"):
     """An eps near ``target`` that no tree decision of the ring sits near.
 
     Leaves and dense tiles decide d(q, p) <= eps; an internal node v
     decides d(q, v) + r_v <= eps - slack (emit) and d(q, v) - r_v <= eps +
     slack (expand), slack ~ 2e-5·eps. Two fp32 evaluations of d (the
     port's eager torch and the reference's fused XLA program) differ by a
-    few rounding units of ‖q‖² + ‖v‖², which is ~1e-5·eps on these points,
-    so a pair whose d ± r_v lies that close to eps may be decided
-    differently and move the work counters (not the edges). This eps keeps
-    every such value — all pair distances, and d ± r_v for every point
-    against every internal node of every rank's forest — at least
+    few rounding units: for L2 of ‖q‖² + ‖v‖², which is ~1e-5·eps on these
+    points, for L1 of d itself. So a pair whose d ± r_v lies that close to
+    eps may be decided differently and move the work counters (not the
+    edges). This eps keeps every such value — all pair distances, and
+    d ± r_v for every point against every internal node of every rank's
+    forest, under ``metric`` (euclidean or manhattan) — at least
     ``rel``·eps away."""
-    x = pts.astype(np.float64)
-    vals = [np.sqrt(((x[:, None, :] - x[None, :, :]) ** 2).sum(-1)).ravel()]
-    tabs = tft.stack_device_forests(tft.build_block_forests(pts, nranks))
+    vals = [pair_dists(pts, pts, metric).ravel()]
+    tabs = tft.stack_device_forests(tft.build_block_forests(pts, nranks,
+                                                            metric))
     for f in range(nranks):
         inner = (tabs["cell"][f] >= 0) & (tabs["leaf"][f] == 0)
-        ctr = tabs["coords"][f][inner].astype(np.float64)
+        ctr = tabs["coords"][f][inner]
         rad = tabs["radius"][f][inner].astype(np.float64)
-        d = np.sqrt(((x[:, None, :] - ctr[None, :, :]) ** 2).sum(-1))
+        d = pair_dists(pts, ctr, metric)
         vals += [(d + rad).ravel(), (d - rad).ravel()]
     v = np.unique(np.concatenate(vals))
     i = int(np.searchsorted(v, target))
