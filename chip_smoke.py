@@ -46,12 +46,25 @@ each printed as it runs; any failed check raises and exits non-zero:
      equal to the tiles graph and 1024 sampled rows equal to exact integer
      distances to all n points [7c]; both kernels' times beside their
      bounds [7d];
-  8. L1 on the ``nng-sift-1m`` shape (the points of [3]), eps in the widest
-     gap near 26.5 of the sampled rows' float64 distances: ``nng_tile_l1``
+  8. L1 on the first 2^19 of the points of [3] (a depth cut, printed with
+     its reason), eps in the widest gap near 26.5 of the sampled rows'
+     float64 distances: ``nng_tile_l1``
      and ``tree_frontier_l1`` against their plain versions off the L1
      knife [8a]; ``build_nng`` with both traversals [8b]; the tree graph
      against the tiles graph off the knife and 1024 sampled rows against
      float64 inside ``HostManhattan.band_slack`` [8c]; times [8d].
+  9. the spatial engine (``partition="spatial"``, Algorithms 5+6, the
+     collective ghost exchange, the grouped tiles): the plan on the [3]
+     points (cells, capacities, ghost copies, W and G rows a rank) and the
+     three grouped kernels against their plain versions on ragged and
+     all-disjoint inputs and on rank 0's W x W and G x W [9a]; the call at
+     n = 2^20 with its launches, and one profiled engine run [9b]; its
+     graph against [3]'s off the knife and the sampled rows against
+     float64 [9c]; the grouped L2 kernel's times beside its bound [9d];
+     Hamming (the [7] stand-in, a depth cut printed with its reason: the
+     ghost fanout) and L1 (the [8] points and eps) through the engine,
+     their graphs against the point partition's, their kernels against
+     their plain versions and timed [9e].
 
 Hamming distances are exact integers: no knife. Two fp32 L1 sums in
 different orders are each within d·u·D of the float64 sum D (u = 2^-24),
@@ -94,8 +107,15 @@ DENSE_EPS = 13.0       # [6f]: about 19 neighbours a point there
 DENSE_CHUNK = 1024     # [6f]: rows a pass where the pair lists fit
 HAM_CONFIG = "nng-word2bits"  # [7]: 399360 x 800 bits (configs/paper_nng.py)
 HAM_EPS = 40.0         # [7]: the config's 250 links every cluster mate here
-L1_TARGET = 26.5       # [8]: mean degree ~70 on the [3] points under L1
+L1_TARGET = 26.5       # [8]: eps is taken from the widest gap near here
+L1_N = 1 << 19         # [8], [9e]: the L1 depth cut (first rows of [3])
+TIME_BUDGET_S = 670    # the whole script's time on an H100 before [9]
 METRIC_K_CAP = 1024    # [7], [8]: above the max degree, so no grow
+SP_CENTERS = 32        # [9]: the engine's default m for 8 ranks
+SP_K_CAP = 1024        # [9]: above [3]'s max degree 966, so no grow (a
+                       # grow doubles every capacity of the plan too)
+HAM_SP_N = 131072      # [9e]: the Hamming depth cut (first rows of [7])
+TABLE_BUDGET = 24 << 30  # [9e]: all ranks' W and G id tables on the card
 
 # H100 SXM data sheet: fp32 outside the tensor cores, HBM3 bandwidth
 PEAK_FP32 = 67e12
@@ -185,17 +205,24 @@ def main() -> int:
     from repro_torch.kernels.nng_tile import (eps2_f32, eps_int,
                                               hamming_dist, l1_dist,
                                               nng_tile_cuda,
+                                              nng_tile_grouped_cuda,
+                                              nng_tile_grouped_hamming_cuda,
+                                              nng_tile_grouped_hamming_ref,
+                                              nng_tile_grouped_l1_cuda,
+                                              nng_tile_grouped_l1_ref,
+                                              nng_tile_grouped_ref,
                                               nng_tile_hamming_cuda,
                                               nng_tile_hamming_ref,
                                               nng_tile_l1_cuda,
                                               nng_tile_l1_ref, nng_tile_ref,
                                               pack_words, unpack_words)
-    from repro_torch.kernels.ops import _pad_rows
+    from repro_torch.kernels.ops import _pad_rows, grouped_block_active
     from repro_torch.kernels.tree_frontier import (
         TN, TQ, tree_frontier_cuda, tree_frontier_hamming_cuda,
         tree_frontier_hamming_ref, tree_frontier_l1_cuda,
         tree_frontier_l1_ref, tree_frontier_ref)
-    from repro_torch.nng import PointPartitionEngine, build_nng
+    from repro_torch.nng import (PointPartitionEngine,
+                                 SpatialPartitionEngine, build_nng)
 
     cfg = NNG_CONFIGS[CONFIG]
     check(cfg.metric == "euclidean", f"{CONFIG} is not euclidean")
@@ -984,7 +1011,9 @@ def main() -> int:
     # -- 7, 8. the other metrics: shared checks ------------------------------
     KERNELS = (nng_tile_cuda, bits_to_cols_cuda, tree_frontier_cuda,
                leaf_range_pack_cuda, nng_tile_hamming_cuda, nng_tile_l1_cuda,
-               tree_frontier_hamming_cuda, tree_frontier_l1_cuda)
+               tree_frontier_hamming_cuda, tree_frontier_l1_cuda,
+               nng_tile_grouped_cuda, nng_tile_grouped_hamming_cuda,
+               nng_tile_grouped_l1_cuda)
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     clk_mhz = float(nvidia_smi("clocks.max.sm", "csv,noheader,nounits"))
     popc_rate = POPC_PER_CLK_SM * n_sm * clk_mhz * 1e6
@@ -1318,15 +1347,24 @@ def main() -> int:
         tree_frontier_hamming_ref, h_launch, h_first, HAM_EPS, HW, HW,
         popc_rate, lambda a, b: torch.cdist(a, b, p=0),
         prep=lambda t: unpack_words(t).float())
+    h_max_deg = int(gh.degrees().max())
     del H, hx, hy, hones, h_first, h_launch, gh, ght
     torch.cuda.empty_cache()
     print(f"[7d] script wall {time.perf_counter() - t_start:.1f} s")
 
+    # -- 8. L1 at a depth cut -------------------------------------------------
+    N8 = L1_N
+    pts8, n8 = pts[:N8], N8 // NRANKS
+    print(f"[8] depth cut: the first {N8} of the {N} [3] points, to keep the "
+          f"whole script near {TIME_BUDGET_S} s: [8]'s plain versions, "
+          f"library yardsticks and two profiled calls grow with the square "
+          f"of the points and took about 280 s at {N}")
+
     # -- 8a. L1: eps, and the kernels against their plain versions -----------
-    P = torch.from_numpy(pts).to(dev)
+    P = torch.from_numpy(pts8).to(dev)
     P64 = P.double()
     lrows = np.sort(np.random.default_rng(SAMPLE_SEED).choice(
-        N, SAMPLE, replace=False))
+        N8, SAMPLE, replace=False))
     near = []
     for r0 in range(0, SAMPLE, 64):
         r = torch.from_numpy(lrows[r0:r0 + 64]).to(dev)
@@ -1337,16 +1375,16 @@ def main() -> int:
     j = int(torch.argmax(vals[1:] - vals[:-1]))
     EPS8 = float(0.5 * (vals[j] + vals[j + 1]))
     gap = float(0.5 * (vals[j + 1] - vals[j]))
-    print(f"[8a] L1 on the {CONFIG} shape (the [3] points): eps {EPS8:.9g}, "
+    print(f"[8a] L1 on the first {N8} of the [3] points: eps {EPS8:.9g}, "
           f"the middle of the widest gap within 0.5 of {L1_TARGET} among the "
           f"{SAMPLE} sampled rows' float64 distances; the nearest sampled "
           f"pair lies {gap / (U32 * EPS8):.4g} u·eps from it (L1 knife "
           f"{DIM} u·eps)")
-    lx = P[:n_loc].contiguous()
-    ly = P[n_loc:2 * n_loc].contiguous()
-    lones = torch.ones(n_loc, dtype=torch.int32, device=dev)
+    lx = P[:n8].contiguous()
+    ly = P[n8:2 * n8].contiguous()
+    lones = torch.ones(n8, dtype=torch.int32, device=dev)
     _, lbits, l1_plain_ms, l1_err = tile_vs_plain(
-        f"[8a] nng_tile_l1 ({n_loc},{n_loc},{DIM}) at the path's inputs",
+        f"[8a] nng_tile_l1 ({n8},{n8},{DIM}) at the path's inputs",
         nng_tile_l1_cuda, nng_tile_l1_ref, lx, ly, lones, EPS8, rows=8192)
     del lbits
     for q, p, d in ((1000, 777, 100), (37, 64, 3)):
@@ -1358,7 +1396,7 @@ def main() -> int:
             f"[8a] nng_tile_l1 ragged ({q},{p},{d}) eps={eps:.6g}",
             nng_tile_l1_cuda, nng_tile_l1_ref, x, y, yv, eps)
         l1_err = max(l1_err, e_)
-    l_launch, l_first, lL = traversal_inputs("[8a]", P, n_loc, EPS8,
+    l_launch, l_first, lL = traversal_inputs("[8a]", P, n8, EPS8,
                                              "manhattan")
     leaf_lv = max(range(lL), key=lambda l: int(l_first[l][3].sum()))
     for lv in sorted({lL // 2, leaf_lv}):
@@ -1386,12 +1424,12 @@ def main() -> int:
 
     # -- 8b. the calls --------------------------------------------------------
     torch.cuda.empty_cache()
-    gl, l_tiles_l = graph_call("[8b] tiles", pts, EPS8, "manhattan", "tiles")
-    glt, l_tree_l = graph_call("[8b] tree", pts, EPS8, "manhattan", "tree")
+    gl, l_tiles_l = graph_call("[8b] tiles", pts8, EPS8, "manhattan", "tiles")
+    glt, l_tree_l = graph_call("[8b] tree", pts8, EPS8, "manhattan", "tree")
     print(f"[8b] script wall {time.perf_counter() - t_start:.1f} s")
 
     # -- 8c. exactness: tree vs tiles off the knife, sampled rows in band -----
-    i, j, (n_tree, n_tiles) = edge_diff(glt, gl, N)
+    i, j, (n_tree, n_tiles) = edge_diff(glt, gl, N8)
     off = (l1_d64(P[i], P[j]) - EPS8).abs() / (U32 * EPS8)
     far = float(off.max()) if len(off) else 0.0
     print(f"[8c] tree graph vs tiles graph: {glt.num_edges} vs "
@@ -1424,22 +1462,22 @@ def main() -> int:
         del d64, truth, got, band, plain
     check(int(sum(wit)) == 0, "[8c] sampled rows differ from the plain fp32 "
                               "distances off the knife")
-    print(f"[8c] {SAMPLE} sampled rows vs float64 over all {N} points: "
+    print(f"[8c] {SAMPLE} sampled rows vs float64 over all {N8} points: "
           f"{mism} pairs differ, all inside HostManhattan.band_slack "
           f"((|x|_1+|y|_1+eps)·1e-6, {band_pairs} pairs in it); against the "
           f"plain fp32 distances on the card, none differ off the knife")
-    del P64, pn, gl, glt
+    del P64, pn, glt
 
     # -- 8d. times at the path's shapes ---------------------------------------
     l1_ms = cuda_ms(torch, lambda: nng_tile_l1_cuda(lx, ly, lones, EPS8), 3)
-    l1_ops = 2 * n_loc * n_loc * DIM
+    l1_ops = 2 * n8 * n8 * DIM
     l1_b_ops = l1_ops / l1_rate * 1e3
-    l1_bytes = 4 * (2 * n_loc * DIM + 2 * n_loc + n_loc * (n_loc // 32))
+    l1_bytes = 4 * (2 * n8 * DIM + 2 * n8 + n8 * (n8 // 32))
     l1_b_bytes = l1_bytes / PEAK_BYTES * 1e3
     torch.cuda.empty_cache()
     l1_lib_ms = library_rows(lambda a, b: torch.cdist(a, b, p=1), lx, ly)
     torch.cuda.empty_cache()
-    print(f"[8d] nng_tile_l1 ({n_loc}x{n_loc}x{DIM}): {l1_ms:.3f} ms median; "
+    print(f"[8d] nng_tile_l1 ({n8}x{n8}x{DIM}): {l1_ms:.3f} ms median; "
           f"bound {max(l1_b_ops, l1_b_bytes):.3f} ms (operations: {l1_ops:.4g}"
           f" fp32 instructions at {l1_rate:.4g}/s = {l1_b_ops:.3f} ms; bytes "
           f"{l1_bytes} at {PEAK_BYTES / 1e12:g} TB/s = {l1_b_bytes:.3f} ms); "
@@ -1454,6 +1492,382 @@ def main() -> int:
     del P, lx, ly, lones, l_first, l_launch
     torch.cuda.empty_cache()
     print(f"[8d] script wall {time.perf_counter() - t_start:.1f} s")
+
+    # -- 9. the spatial engine (Algorithms 5+6) -----------------------------
+    GROUPED = {"euclidean": (nng_tile_grouped_cuda, nng_tile_grouped_ref),
+               "hamming": (nng_tile_grouped_hamming_cuda,
+                           nng_tile_grouped_hamming_ref),
+               "manhattan": (nng_tile_grouped_l1_cuda,
+                             nng_tile_grouped_l1_ref)}
+
+    def spatial_setup(label, X, eps, metric, k_cap):
+        """The spatial engine on X: the host Voronoi argmin and LPT, the
+        device planner, and one exchange (Phases 1, 2 and 4's all-to-alls)
+        whose cell-sorted per-rank buffers the kernels are checked on.
+        Prints the cells, the plan, the ghost copies and the W and G rows a
+        rank. Returns (engine, plan, per-rank (W, Wids, Wgrp, G, Gids,
+        Ggrp))."""
+        t0 = time.perf_counter()
+        eng = SpatialPartitionEngine(X, eps, mesh, metric, k_cap=k_cap)
+        host_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        plan = eng.initial_plan()
+        plan_s = time.perf_counter() - t0
+        n_ = eng.points.shape[0]
+        sizes = np.bincount(eng.cell, minlength=plan.m_centers)
+        loads = np.bincount(eng.f, weights=sizes, minlength=NRANKS)
+        xs = list(eng.points.chunk(NRANKS))
+        ids = list(torch.arange(n_, dtype=torch.int32,
+                                device=dev).chunk(NRANKS))
+        t0 = time.perf_counter()
+        bufs, dropped = tdev._landmark_exchange(
+            xs, ids, eng.centers, torch.as_tensor(eng.f, dtype=torch.int64,
+                                                  device=dev),
+            nranks=NRANKS, two_eps_c=2.0 * eps, metric=get_metric(metric),
+            plan=plan)
+        torch.cuda.synchronize()
+        ex_s = time.perf_counter() - t0
+        check(not bool(dropped.any()), f"{label} the exact plan dropped rows")
+        w_rows = [int((b[2] >= 0).sum()) for b in bufs]
+        g_rows = [int((b[5] >= 0).sum()) for b in bufs]
+        tables = (NRANKS * (plan.cap_coal + plan.cap_ghost) * k_cap * 4)
+        print(f"{label} {metric}, n {n_}, eps {eps:.9g}, {NRANKS} ranks, "
+              f"m {plan.m_centers}: host Voronoi argmin + LPT {host_s:.3f} s, "
+              f"device planner {plan_s:.3f} s, one exchange {ex_s:.3f} s")
+        print(f"{label} cell sizes {int(sizes.min())}..{int(sizes.max())} "
+              f"{sorted(sizes.tolist())}; rank loads (LPT) "
+              f"{int(loads.min())}..{int(loads.max())}")
+        print(f"{label} plan: cap_coal {plan.cap_coal}, cap_ghost "
+              f"{plan.cap_ghost}, g_per_pt {plan.g_per_pt}, k_cap "
+              f"{plan.k_cap}, cap_rank {plan.cap_rank}")
+        print(f"{label} ghost copies {sum(g_rows)} ({sum(g_rows) / n_:.3f} "
+              f"a point); valid W rows a rank {w_rows}, G rows {g_rows}; "
+              f"capacity-padded W {NRANKS * plan.cap_coal} and G "
+              f"{NRANKS * plan.cap_ghost} rows a rank; W and G id tables at "
+              f"k_cap {k_cap}: {tables} B a rank, {NRANKS * tables} B for "
+              f"all ranks")
+        return eng, plan, bufs
+
+    def grouped_vs_plain(label, metric, x, y, xg, yg, xid, yid, eps,
+                         rows=4096, limit=None):
+        """A grouped kernel against its plain version (row chunks, the
+        first ``limit`` rows where given), on the same inputs. Hamming:
+        bit-identical. L2: differing pairs only on the knife. L1: only on
+        the L1 knife. Returns (cnt, bits, plain ms of the rows compared,
+        max |cnt diff|)."""
+        kern, plain = GROUPED[metric]
+        cnt, bits = kern(x, y, xg, yg, xid, yid, eps)
+        yp, ygp, yidp = (_pad_rows(t, 32, v)[0]
+                         for t, v in ((y, 0), (yg, -1), (yid, -1)))
+        nw = bits.shape[1]
+        q_ = x.shape[0] if limit is None else min(limit, x.shape[0])
+        di, dj, err, plain_ms = [], [], 0, 0.0
+        for r0 in range(0, q_, rows):
+            sl = slice(r0, min(r0 + rows, q_))
+            (c0, b0), ms = events_ms(torch, lambda: plain(
+                x[sl], yp, xg[sl], ygp, xid[sl], yidp, eps))
+            plain_ms += ms
+            err = max(err, int((cnt[sl] - c0).abs().max()))
+            u = unpack_words(bits[sl])
+            check(torch.equal(cnt[sl], u.sum(1, dtype=torch.int32)),
+                  f"{label}: cnt is not the popcount of bits")
+            check(not u[:, y.shape[0]:].any(), f"{label}: bits past column p")
+            i, j = differing_pairs(bits[sl], b0[:, :nw])
+            di.append(i + r0)
+            dj.append(j)
+            del c0, b0, u
+        i, j = torch.cat(di), torch.cat(dj)
+        what = (f"{label}: {int(cnt[:q_].sum())} hits in {q_} rows, plain "
+                f"version {plain_ms:.3f} ms")
+        if metric == "hamming":
+            check(len(i) == 0 and err == 0,
+                  f"{label}: {len(i)} pairs differ from the plain version")
+            print(f"{what}; bit-identical")
+        elif metric == "manhattan":
+            off = (l1_d64(x[i], y[j]) - eps).abs() / (U32 * eps)
+            far = float(off.max()) if len(off) else 0.0
+            print(f"{what}; {len(i)} pairs differ, the farthest at "
+                  f"|d64-eps| = {far:.4g} u·eps (knife {x.shape[1]} u·eps)")
+            check(far <= x.shape[1], f"{label}: pairs differ off the knife")
+        else:
+            print(f"{what}; max |cnt diff| {err}")
+            knife_check(f"{label} vs plain", x, y, i, j, eps2_f32(eps))
+        return cnt, bits, plain_ms, err
+
+    def live_pairs(xg, yg, q_, p_):
+        """Pairs in the live 128 x 128 blocks of the grouped kernel (its
+        own block geometry and skip rule), and those blocks' count."""
+        live = grouped_block_active(_pad_rows(xg, 128, -1)[0],
+                                    _pad_rows(yg, 128, -1)[0], 128, 128)
+        rq = torch.full((live.shape[0],), 128, device=dev)
+        rp = torch.full((live.shape[1],), 128, device=dev)
+        rq[-1] = q_ - 128 * (live.shape[0] - 1)
+        rp[-1] = p_ - 128 * (live.shape[1] - 1)
+        return (int((live * rq[:, None] * rp[None, :]).sum()),
+                int(live.sum()))
+
+    def same_cell_pairs(xg, yg):
+        """The pairs the grouped function needs: same valid cell."""
+        cx = torch.bincount(xg[xg >= 0], minlength=SP_CENTERS)
+        cy = torch.bincount(yg[yg >= 0], minlength=SP_CENTERS)
+        return int((cx.long() * cy.long()).sum())
+
+    def grouped_times(label, metric, x, y, xg, yg, xid, yid, eps, feat,
+                      pair_ops, rate, library, plain_ms, prep=lambda t: t):
+        """The grouped kernel at one of the path's launches: CUDA-event
+        median, bound from its live blocks' pairs (``pair_ops`` operations
+        each at ``rate``) and from its bytes (x, y, four int32 vectors in;
+        cnt and the words out), the plain version's time (measured by the
+        caller), and the library call on the same operands in rows of 8192.
+        Returns (ms, bound ms, bound_by, library ms)."""
+        kern = GROUPED[metric][0]
+        q_, p_ = x.shape[0], y.shape[0]
+        ms = cuda_ms(torch, lambda: kern(x, y, xg, yg, xid, yid, eps), 5)
+        pairs, blocks = live_pairs(xg, yg, q_, p_)
+        need = same_cell_pairs(xg, yg)
+        ops = pair_ops * pairs
+        nbytes = 4 * ((q_ + p_) * feat + 2 * (q_ + p_) + q_
+                      + q_ * -(-p_ // 32))
+        b_ops, b_bytes = ops / rate * 1e3, nbytes / PEAK_BYTES * 1e3
+        by = "operations" if b_ops >= b_bytes else "bytes"
+        lib_ms = library_rows(library, prep(x), prep(y))
+        total = -(-q_ // 128) * -(-p_ // 128)
+        print(f"{label} ({q_}x{p_}x{feat}): {ms:.3f} ms median; {blocks} of "
+              f"{total} kernel blocks live, {pairs} pairs in them "
+              f"({need} same-cell pairs); bound {max(b_ops, b_bytes):.3f} ms "
+              f"({by}: {ops:.4g} operations of the live pairs at "
+              f"{rate:.4g}/s = {b_ops:.3f} ms, {nbytes} bytes at "
+              f"{PEAK_BYTES / 1e12:g} TB/s = {b_bytes:.3f} ms); "
+              f"{ops / ms / 1e9:.4g} T operations/s; plain version "
+              f"{plain_ms:.3f} ms (one run, row chunks); library "
+              f"{lib_ms:.3f} ms (one run in rows of 8192)")
+        return ms, max(b_ops, b_bytes), by, lib_ms
+
+    def spatial_call(label, pts_, eps, metric, k_cap, profile_run=False):
+        """``build_nng(partition="spatial")`` on the 8 logical ranks, every
+        kernel's launches counted from this call alone."""
+        for fn in KERNELS:
+            fn.launches = 0
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        g_ = build_nng(pts_, eps, metric=metric, partition="spatial",
+                       mesh=mesh, k_cap=k_cap)
+        wall_ = time.perf_counter() - t0
+        st_ = g_.stats
+        launches_ = {fn.__name__[:-5]: fn.launches for fn in KERNELS
+                     if fn.launches}
+        print(f"{label} build_nng(metric={metric!r}, partition='spatial', "
+              f"n={len(pts_)}, eps={eps:.9g}, nranks={NRANKS}, "
+              f"k_cap={k_cap}): {g_.num_edges} edges, mean degree "
+              f"{g_.avg_degree:.2f}, max degree {int(g_.degrees().max())}; "
+              f"call wall {wall_:.3f} s, elapsed_s {st_.elapsed_s:.3f} "
+              f"(steady-state run), replans {st_.replans}, ghost_mode "
+              f"{g_.meta['ghost_mode']}, planner {g_.meta['planner']}")
+        print(f"{label} plan {g_.meta['plan']}")
+        print(f"{label} tiles_scheduled {st_.tiles_scheduled:.0f} "
+              f"tiles_skipped {st_.tiles_skipped:.0f} dists_evaluated "
+              f"{st_.dists_evaluated:.6g} nodes_pruned "
+              f"{st_.nodes_pruned:.6g}; comm_bytes "
+              f"{json.dumps(st_.comm_bytes)}; max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated()} B")
+        print(f"{label} launches {json.dumps(launches_)}")
+        kname = GROUPED[metric][0].__name__[:-5]
+        check(launches_.get(kname, 0) > 0
+              and launches_.get("bits_to_cols", 0) > 0,
+              f"{label}: a kernel of the spatial path never launched: "
+              f"{launches_}")
+        check(st_.replans == 0, f"{label}: {st_.replans} grows")
+        check(g_.num_edges > 0, f"{label}: no edges")
+        return g_, launches_
+
+    # -- 9a. the plan, and the grouped kernels against their plain versions
+    torch.cuda.empty_cache()
+    eng9, plan9, bufs9 = spatial_setup("[9a]", pts, EPS, "euclidean",
+                                       SP_K_CAP)
+    W0, Wids0, Wgrp0, G0, Gids0, Ggrp0 = bufs9[0]
+    del bufs9
+    grp_err = {"euclidean": 0, "hamming": 0, "manhattan": 0}
+    for metric in ("euclidean", "hamming", "manhattan"):
+        for q, p, d, pattern in ((37, 64, 3, "random"),
+                                 (1000, 777, 25, "random"),
+                                 (600, 1200, 9, "sorted"),
+                                 (300, 515, 40, "disjoint")):
+            if metric == "hamming":
+                x, y = (torch.from_numpy(rng.integers(
+                    -2**31, 2**31, size=(m_, d)).astype(np.int32)).to(dev)
+                    for m_ in (q, p))
+                x[::7] = -1
+                y[::5] = x[0]
+                eps = float(torch.quantile(hamming_dist(x, y).flatten()
+                                           .float(), 0.05)) + 0.5
+            else:
+                x, y = (torch.from_numpy(rng.normal(size=(m_, d)).astype(
+                    np.float32)).to(dev) for m_ in (q, p))
+                dd = torch.cdist(x, y, p=1 if metric == "manhattan" else 2)
+                eps = float(torch.quantile(dd.flatten(), 0.05))
+            if pattern == "random":
+                xg = rng.integers(-1, 6, size=q)
+                yg = rng.integers(-1, 6, size=p)
+            elif pattern == "sorted":
+                xg = np.sort(rng.integers(0, 50, size=q))
+                yg = np.sort(rng.integers(0, 50, size=p))
+                xg[q - q // 15:] = -1
+                yg[p - p // 17:] = -1
+            else:
+                xg = rng.integers(0, 4, size=q)
+                yg = rng.integers(10, 14, size=p)
+            xid = np.arange(q)
+            yid = np.arange(37, 37 + p)
+            xid[:4] = yid[:4]
+            xg, yg, xid, yid = (torch.from_numpy(a.astype(np.int32)).to(dev)
+                                for a in (xg, yg, xid, yid))
+            cnt, bits, _, e_ = grouped_vs_plain(
+                f"[9a] {GROUPED[metric][0].__name__[:-5]} {pattern} "
+                f"({q},{p},{d})", metric, x, y, xg, yg, xid, yid, eps)
+            grp_err[metric] = max(grp_err[metric], e_)
+            if pattern == "disjoint":
+                check(not bits.any() and not cnt.any(),
+                      f"[9a] {metric}: all-disjoint groups set a word")
+    print("[9a] every all-disjoint case stored zero words")
+    _, _, w_plain_ms, e_ = grouped_vs_plain(
+        "[9a] nng_tile_grouped rank 0 W x W", "euclidean", W0, W0, Wgrp0,
+        Wgrp0, Wids0, Wids0, EPS)
+    grp_err["euclidean"] = max(grp_err["euclidean"], e_)
+    _, _, g_plain_ms, e_ = grouped_vs_plain(
+        "[9a] nng_tile_grouped rank 0 G x W", "euclidean", G0, W0, Ggrp0,
+        Wgrp0, Gids0, Wids0, EPS)
+    grp_err["euclidean"] = max(grp_err["euclidean"], e_)
+    torch.cuda.empty_cache()
+    print(f"[9a] script wall {time.perf_counter() - t_start:.1f} s")
+
+    # -- 9b. the call, and where its time goes -------------------------------
+    gs, sp_launches = spatial_call("[9b]", pts, EPS, "euclidean", SP_K_CAP)
+    plan_s = gs.meta["plan"]
+    out, _ = profiled_run("[9b]", lambda: eng9.run(plan_s))
+    del out
+    print(f"[9b] script wall {time.perf_counter() - t_start:.1f} s")
+
+    # -- 9c. exactness: the spatial graph against [3]'s, sampled rows --------
+    P = torch.from_numpy(pts).to(dev)
+    i, j, (n_sp, n_pt) = edge_diff(gs, g, N)
+    print(f"[9c] spatial graph vs [3]'s point-partition graph: "
+          f"{gs.num_edges} vs {g.num_edges} edges, {n_sp} only in the "
+          f"spatial graph, {n_pt} only in the point graph")
+    knife_check("[9c] spatial vs point", P, P, i, j, eps2)
+    sample_check("[9c]", gs, P)
+    del P, gs
+    print(f"[9c] script wall {time.perf_counter() - t_start:.1f} s")
+
+    # -- 9d. the grouped L2 kernel's times at rank 0's launches ---------------
+    grp_w = grouped_times(
+        "[9d] nng_tile_grouped rank 0 W x W", "euclidean", W0, W0, Wgrp0,
+        Wgrp0, Wids0, Wids0, EPS, DIM, 2 * DIM, PEAK_FP32,
+        lambda a, b: torch.mm(a, b.T), w_plain_ms)
+    grouped_times(
+        "[9d] nng_tile_grouped rank 0 G x W", "euclidean", G0, W0, Ggrp0,
+        Wgrp0, Gids0, Wids0, EPS, DIM, 2 * DIM, PEAK_FP32,
+        lambda a, b: torch.mm(a, b.T), g_plain_ms)
+    print(f"[9d] launches on the [9b] call: nng_tile_grouped "
+          f"{sp_launches['nng_tile_grouped']}, bits_to_cols "
+          f"{sp_launches['bits_to_cols']}")
+    del W0, Wids0, Wgrp0, G0, Gids0, Ggrp0, eng9
+    torch.cuda.empty_cache()
+    print(f"[9d] script wall {time.perf_counter() - t_start:.1f} s")
+
+    # -- 9e. Hamming and L1 through the spatial engine -----------------------
+    # Hamming: the ghost fanout of the full [7] stand-in, which sets the cut
+    eng_h = SpatialPartitionEngine(hpts, HAM_EPS, mesh, "hamming")
+    plan_h = eng_h.initial_plan()
+    xs_h = eng_h.points.chunk(NRANKS)
+    ft_h = torch.as_tensor(eng_h.f, dtype=torch.int64, device=dev)
+    ghosts = sum(int(tdev._plan_count_local(
+        xr, eng_h.centers, ft_h, nranks=NRANKS, two_eps_c=2.0 * HAM_EPS,
+        metric=get_metric("hamming"))[1].sum()) for xr in xs_h)
+    k_full = 1 << (h_max_deg - 1).bit_length()
+    t_full = NRANKS * (plan_h.cap_coal + plan_h.cap_ghost) * k_full * 4
+    h_n = HN if NRANKS * t_full <= TABLE_BUDGET else HAM_SP_N
+    print(f"[9e] hamming at the full {HN} x {HW} words, eps {HAM_EPS}: "
+          f"{ghosts} ghost copies ({ghosts / HN:.2f} a point, g_per_pt "
+          f"{plan_h.g_per_pt} of {plan_h.m_centers - 1} other cells), "
+          f"cap_ghost {plan_h.cap_ghost}, cap_coal {plan_h.cap_coal}: "
+          f"{NRANKS * plan_h.cap_ghost} G rows a rank; at k_cap {k_full} "
+          f"(above [7]'s max degree {h_max_deg}) the W and G id tables "
+          f"take {t_full} B a rank, {NRANKS * t_full} B for all {NRANKS} "
+          f"ranks on one card against a budget of {TABLE_BUDGET} B")
+    print(f"[9e] hamming depth cut: the first {h_n} of {HN} points"
+          if h_n < HN else "[9e] hamming: no depth cut")
+    del eng_h, xs_h, ft_h
+    hp = hpts[:h_n]
+    gph, _ = graph_call(f"[9e] hamming point partition at n {h_n}", hp,
+                        HAM_EPS, "hamming", "tiles")
+    k_h = max(METRIC_K_CAP, 1 << int(gph.degrees().max()).bit_length())
+    eng_hc, plan_hc, bufs_h = spatial_setup("[9e] hamming", hp, HAM_EPS,
+                                            "hamming", k_h)
+    check(NRANKS * NRANKS * (plan_hc.cap_coal + plan_hc.cap_ghost) * k_h * 4
+          <= TABLE_BUDGET, "[9e] the hamming cut's tables exceed the budget")
+    gsh, sh_launches = spatial_call("[9e] hamming", hp, HAM_EPS, "hamming",
+                                    k_h)
+    check(np.array_equal(gsh.edge_key(), gph.edge_key()),
+          "[9e] the hamming spatial graph differs from the point graph")
+    print(f"[9e] hamming: the spatial graph equals the point-partition "
+          f"graph bit for bit ({gsh.num_edges} edges)")
+    hW, hWids, hWgrp, hG, hGids, hGgrp = bufs_h[0]
+    del bufs_h, gsh, gph, eng_hc
+    _, _, hw_plain_ms, e_ = grouped_vs_plain(
+        "[9e] nng_tile_grouped_hamming rank 0 W x W", "hamming", hW, hW,
+        hWgrp, hWgrp, hWids, hWids, HAM_EPS)
+    grp_err["hamming"] = max(grp_err["hamming"], e_)
+    _, _, _, e_ = grouped_vs_plain(
+        "[9e] nng_tile_grouped_hamming rank 0 G x W", "hamming", hG, hW,
+        hGgrp, hWgrp, hGids, hWids, HAM_EPS, limit=16384)
+    grp_err["hamming"] = max(grp_err["hamming"], e_)
+    grp_h = grouped_times(
+        "[9e] nng_tile_grouped_hamming rank 0 W x W", "hamming", hW, hW,
+        hWgrp, hWgrp, hWids, hWids, HAM_EPS, HW, HW, popc_rate,
+        lambda a, b: torch.cdist(a, b, p=0), hw_plain_ms,
+        prep=lambda t: unpack_words(t).float())
+    del hW, hWids, hWgrp, hG, hGids, hGgrp
+    torch.cuda.empty_cache()
+    print(f"[9e] script wall {time.perf_counter() - t_start:.1f} s")
+
+    # L1 on [8]'s points at [8]'s eps
+    eng_l, plan_l, bufs_l = spatial_setup("[9e] manhattan", pts8, EPS8,
+                                          "manhattan", METRIC_K_CAP)
+    check(NRANKS * NRANKS * (plan_l.cap_coal + plan_l.cap_ghost)
+          * METRIC_K_CAP * 4 <= TABLE_BUDGET,
+          "[9e] the L1 tables exceed the budget")
+    print(f"[9e] manhattan: at [8]'s depth cut, n {N8} of {N} (the tables "
+          f"fit the {TABLE_BUDGET} B budget)")
+    lW, lWids, lWgrp, lG, lGids, lGgrp = bufs_l[0]
+    del bufs_l, eng_l
+    gsl, sl_launches = spatial_call("[9e] manhattan", pts8, EPS8,
+                                    "manhattan", METRIC_K_CAP)
+    P = torch.from_numpy(pts8).to(dev)
+    i, j, (n_sp, n_pt) = edge_diff(gsl, gl, N8)
+    off = (l1_d64(P[i], P[j]) - EPS8).abs() / (U32 * EPS8)
+    far = float(off.max()) if len(off) else 0.0
+    print(f"[9e] manhattan spatial graph vs [8]'s point-partition graph: "
+          f"{gsl.num_edges} vs {gl.num_edges} edges, {n_sp} only in the "
+          f"spatial graph, {n_pt} only in the point graph, the farthest at "
+          f"|d64-eps| = {far:.4g} u·eps (knife {DIM} u·eps)")
+    check(far <= DIM, "[9e] the L1 spatial graph differs off the knife")
+    del P, gsl, gl
+    _, _, lw_plain_ms, e_ = grouped_vs_plain(
+        "[9e] nng_tile_grouped_l1 rank 0 W x W", "manhattan", lW, lW, lWgrp,
+        lWgrp, lWids, lWids, EPS8, rows=2048)
+    grp_err["manhattan"] = max(grp_err["manhattan"], e_)
+    _, _, _, e_ = grouped_vs_plain(
+        "[9e] nng_tile_grouped_l1 rank 0 G x W", "manhattan", lG, lW, lGgrp,
+        lWgrp, lGids, lWids, EPS8, rows=2048, limit=16384)
+    grp_err["manhattan"] = max(grp_err["manhattan"], e_)
+    grp_l = grouped_times(
+        "[9e] nng_tile_grouped_l1 rank 0 W x W", "manhattan", lW, lW, lWgrp,
+        lWgrp, lWids, lWids, EPS8, DIM, 2 * DIM, l1_rate,
+        lambda a, b: torch.cdist(a, b, p=1), lw_plain_ms)
+    del lW, lWids, lWgrp, lG, lGids, lGgrp
+    torch.cuda.empty_cache()
+    print(f"[9e] script wall {time.perf_counter() - t_start:.1f} s")
 
     record = {"kernels": [
         {"name": "nng_tile", "route": "cuda",
@@ -1513,6 +1927,27 @@ def main() -> int:
          "launches": l_tree_l["tree_frontier_l1"], "max_abs_err": l1_err,
          "ms": lf_ms, "plain_ms": lf_plain_ms, "bound_ms": lf_bound,
          "bound_by": lf_by, "library_ms": lf_lib_ms},
+        {"name": "nng_tile_grouped", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/nng_tile_grouped.cu",
+         "replaces": "src/repro/kernels/nng_tile.py:376",
+         "launches": sp_launches["nng_tile_grouped"],
+         "max_abs_err": grp_err["euclidean"], "ms": grp_w[0],
+         "plain_ms": w_plain_ms, "bound_ms": grp_w[1], "bound_by": grp_w[2],
+         "library_ms": grp_w[3]},
+        {"name": "nng_tile_grouped_hamming", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/nng_tile_grouped_hamming.cu",
+         "replaces": "src/repro/kernels/nng_tile.py:449",
+         "launches": sh_launches["nng_tile_grouped_hamming"],
+         "max_abs_err": grp_err["hamming"], "ms": grp_h[0],
+         "plain_ms": hw_plain_ms, "bound_ms": grp_h[1], "bound_by": grp_h[2],
+         "library_ms": grp_h[3]},
+        {"name": "nng_tile_grouped_l1", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/nng_tile_grouped_l1.cu",
+         "replaces": "src/repro/kernels/nng_tile.py:522",
+         "launches": sl_launches["nng_tile_grouped_l1"],
+         "max_abs_err": grp_err["manhattan"], "ms": grp_l[0],
+         "plain_ms": lw_plain_ms, "bound_ms": grp_l[1], "bound_by": grp_l[2],
+         "library_ms": grp_l[3]},
     ]}
     print(json.dumps(record))
     print(smi)

@@ -21,6 +21,14 @@ Block-summary pruning: each rank's block is summarized as a center and a
 radius once up front; a round whose partner block satisfies
 d(c_me, c_p) > r_me + r_p + eps cannot hold an ε-pair, so it is skipped.
 
+The landmark engine (Algorithms 5+6, ``landmark_run``) runs on the same
+logical ranks: Voronoi cells over sampled centres, coalesced onto ranks by
+a capacity-padded all-to-all (``_all_to_all`` stands in for the tiled
+``all_to_all``), Lemma-1 ε-ghost copies exchanged the same way
+(``ghost_mode="coll"``), and the cell-sorted W x W and G x W buffers
+through the grouped tile (``ops.nng_tile_bits_grouped``). Its capacities
+come from ``plan_landmark_device``, one counting pass over the ranks.
+
 The tree flavour (``traversal="tree"``) runs the same ring with each rank's
 levelized cover tree (``DeviceForest``): a ring round runs two
 level-synchronous traversals (``tree_traverse``, through the
@@ -46,7 +54,8 @@ from repro_torch.kernels.nng_tile import (_BIT, pack_words, popcount32,
 from repro_torch.kernels.ops import bits_to_gathered_ids as _bits_to_gathered_ids
 from repro_torch.kernels.ops import bits_to_ids as _bits_to_ids
 from repro_torch.kernels.ops import leaf_range_pack as _leaf_range_pack
-from repro_torch.kernels.ops import (nng_tile_bits, nng_tile_bits_pair,
+from repro_torch.kernels.ops import (nng_tile_bits, nng_tile_bits_grouped,
+                                     nng_tile_bits_pair, nng_tile_geometry,
                                      tree_frontier_step)
 
 
@@ -765,3 +774,323 @@ def systolic_run(points, eps: float, mesh: RingMesh, *, metric="euclidean",
                                            prune=prune)
     return _systolic_local_tree_split(xs, forests,
                                       ring_modes=tuple(ring_schedule), **kw)
+
+
+# ---------------------------------------------------------------------------
+# Algorithms 5 + 6 — landmark partitioning with ε-ghosts
+# ---------------------------------------------------------------------------
+
+NEXT_SPATIAL = ("ROADMAP item 7: the ghost ring and the spatial tree "
+                "flavour are the port's next slice")
+
+
+@dataclass(frozen=True)
+class LandmarkPlan:
+    """Static capacities for the landmark engine (host planning output)."""
+    m_centers: int      # Voronoi sites
+    cap_coal: int       # per (src, dst) rank-pair coalesce capacity (points)
+    cap_ghost: int      # per (src, dst) rank-pair ghost capacity (copies)
+    g_per_pt: int       # max cells one point may ghost into
+    k_cap: int          # neighbor-list capacity
+    cap_rank: int = 0   # max coalesced points on any ONE rank (ring ghost
+    #                     block height; 0 = unplanned, coll-only plan)
+
+
+def ghost_coll_bytes(nranks: int, cap_ghost: int, dim: int,
+                     itemsize: int) -> int:
+    """Exact planned bytes of the collective (all_to_all) ghost exchange:
+    every rank ships nranks × cap_ghost capacity-padded rows of
+    (point, id, cell) regardless of how many ghosts actually exist."""
+    row = itemsize * dim + 4 + 4            # pts + int32 id + int32 cell
+    return nranks * nranks * cap_ghost * row
+
+
+def ghost_ring_bytes(nranks: int, cap_rank: int, dim: int, itemsize: int,
+                     m_centers: int) -> int:
+    """Exact planned bytes of the ring ghost exchange: nranks // 2 hops of
+    the compacted (cap_rank, dim) block + ids + packed Lemma-1 ghost bits
+    (ceil(m/32) uint32 words per row), per rank. Eps-independent — the
+    ghost TEST travels as bits instead of materialized ghost copies."""
+    mw = (m_centers + 31) // 32
+    row = itemsize * dim + 4 + mw * 4       # pts + int32 id + gbits words
+    return nranks * (nranks // 2) * cap_rank * row
+
+
+def resolve_ghost_mode(ghost_mode: str, plan: LandmarkPlan, dim: int,
+                       itemsize: int, nranks: int) -> str:
+    """Resolve ``"auto"`` to ``"coll"`` / ``"ring"`` from the exact byte
+    models above (ring wins iff it moves strictly fewer planned bytes).
+    Plans without ``cap_rank`` (hand-built) stay ``"coll"``."""
+    if ghost_mode != "auto":
+        return ghost_mode
+    if plan.cap_rank <= 0:
+        return "coll"
+    ring = ghost_ring_bytes(nranks, plan.cap_rank, dim, itemsize,
+                            plan.m_centers)
+    coll = ghost_coll_bytes(nranks, plan.cap_ghost, dim, itemsize)
+    return "ring" if ring < coll else "coll"
+
+
+def _lemma1_ghost_bound(x, centers, dpc, d_min, two_eps_c, metric):
+    """Slacked Lemma-1 ghost bound: (tru, bound) with p a ghost candidate
+    of cell i iff ``tru[p, i] <= bound[p]``.
+
+    The raw test is d(p, c_i) <= d(p, C) + 2ε in TRUE distance. Both sides
+    come out of fp32 arithmetic (for euclidean the ‖p‖² + ‖c‖² − 2p·c
+    expansion, whose cancellation error grows with ‖p‖²), so the bound
+    carries the metric's slack (``Metric.lemma1_slack``): over-inclusion
+    only costs ghost copies, under-inclusion would lose edges."""
+    met = get_metric(metric)
+    tru = met.true(dpc)
+    bound = met.true(d_min) + two_eps_c
+    slack = met.lemma1_slack(x, centers, tru, bound)
+    return tru, bound + slack
+
+
+def _plan_count_local(x, centers, f, *, nranks, two_eps_c, metric):
+    """One rank's capacity counts: EXACT per-destination coalesce and ghost
+    copy counts plus its max ghost fanout, from the SAME Voronoi assignment
+    and slacked Lemma-1 bound the engine applies. Returns (coal (nranks,),
+    ghost (nranks,), g_per_pt 0-d)."""
+    m = centers.shape[0]
+    dpc = metric.cdist(x, centers)
+    cell = torch.argmin(dpc, dim=1)
+    d_min = dpc.amin(1)
+    coal = torch.bincount(f[cell], minlength=nranks)
+    tru, gbound = _lemma1_ghost_bound(x, centers, dpc, d_min, two_eps_c,
+                                      metric)
+    gmask = (tru <= gbound[:, None]) & (
+        torch.arange(m, device=x.device)[None, :] != cell[:, None])
+    g_per_pt = gmask.sum(1).max()
+    # ghosts into cell c land on rank f[c]: sum the per-cell ghost column
+    # counts by destination rank
+    ghost = torch.zeros(nranks, dtype=torch.int64, device=x.device)
+    ghost.index_add_(0, f, gmask.sum(0))
+    return coal, ghost, g_per_pt
+
+
+def plan_landmark_device(points, centers, f, eps: float, mesh: RingMesh, *,
+                         metric="euclidean", k_cap: int = 128,
+                         pad: int = 8) -> LandmarkPlan:
+    """EXACT landmark capacity planning as one counting pass over the
+    ranks: each rank bincounts its coalesce destinations and its slacked
+    Lemma-1 ghost copies per destination rank (the tests the engine
+    applies), and the maxima over ranks (the reference's ``all_gather``,
+    here a stack over the logical ranks) give capacities that are exact
+    (+``pad`` slop). Only ``k_cap`` stays a guess that the overflow loop
+    may grow."""
+    met = get_metric(metric)
+    nranks = mesh.size
+    x = met.as_device(points, mesh.device)
+    assert x.shape[0] % nranks == 0, (x.shape[0], nranks)
+    c = met.as_device(centers, mesh.device)
+    ft = torch.as_tensor(np.asarray(f), dtype=torch.int64, device=mesh.device)
+    coal, ghost, gpp = zip(*(
+        _plan_count_local(xr, c, ft, nranks=nranks, two_eps_c=2.0 * eps,
+                          metric=met)
+        for xr in x.chunk(nranks)))
+    coal_all = torch.stack(coal)            # (src, dst) coalesce counts
+    # total rows any ONE rank receives in coalesce = the compacted block
+    # height the ring ghost path rotates (column sums of the src×dst table)
+    rank_tot = int(coal_all.sum(0).max())
+    return LandmarkPlan(
+        m_centers=int(c.shape[0]),
+        cap_coal=int(coal_all.max()) + pad,
+        cap_ghost=max(int(torch.stack(ghost).max()), 1) + pad,
+        g_per_pt=max(int(torch.stack(gpp).max()), 1),
+        k_cap=k_cap,
+        cap_rank=rank_tot + pad,
+    )
+
+
+def _pack_by_dest(dest, valid, payload: dict, nranks: int, cap: int):
+    """Pack rows of each ``payload`` entry ((L, ...) tensor, fill value)
+    into (nranks, cap, ...) send buffers by destination rank, in stable
+    row order within a destination. Returns (buffers, dropped): dropped
+    counts the valid rows past ``cap``. Invalid and overflow rows go to a
+    trash row that is sliced away."""
+    L = dest.shape[0]
+    key = torch.where(valid, dest.to(torch.int64), nranks)
+    order = torch.argsort(key, stable=True)
+    ks = key[order]
+    pos = (torch.arange(L, device=ks.device)
+           - torch.searchsorted(ks, ks, right=False))
+    ok = (ks < nranks) & (pos < cap)
+    row = torch.where(ok, ks, nranks)
+    col = torch.where(ok, pos, 0)
+    dropped = valid.sum() - (ok & (ks < nranks)).sum()
+    out = {}
+    for name, (x, fill) in payload.items():
+        buf = torch.full((nranks + 1, cap) + tuple(x.shape[1:]), fill,
+                         dtype=x.dtype, device=x.device)
+        buf[row, col] = x[order]
+        out[name] = buf[:nranks]
+    return out, dropped
+
+
+def _all_to_all(sends: list) -> list:
+    """The one-device tiled ``all_to_all``: ``sends[s]`` is sender s's
+    (nranks, cap, ...) buffer; rank r receives block r of every sender, in
+    sender order, as one (nranks * cap, ...) buffer."""
+    nranks = len(sends)
+    return [torch.cat([sends[s][r] for s in range(nranks)])
+            for r in range(nranks)]
+
+
+def _cell_sort(key_cell, valid, m, *arrays):
+    """Cell-sorted compaction: stable-sort rows so cells are contiguous and
+    padding rows (key m) cluster at the end — the layout that makes the
+    grouped tile's per-block group ranges tight enough to skip whole
+    all-padding / cross-cell blocks."""
+    order = torch.argsort(torch.where(valid, key_cell, m), stable=True)
+    return tuple(a[order] for a in arrays)
+
+
+def _exchange(sends: list, m: int):
+    """One capacity-padded exchange: every sender's packed (pts, ids, cell)
+    buffers through ``_all_to_all``, then each receiver's rows cell-sorted.
+    Returns per rank (rows, ids, group), group -1 on padding rows."""
+    recv = {k: _all_to_all([s[k] for s in sends]) for k in sends[0]}
+    out = []
+    for pts, ids, cell in zip(recv["pts"], recv["ids"], recv["cell"]):
+        valid = ids != SENTINEL
+        pts, ids, cell, valid = _cell_sort(cell, valid, m, pts, ids, cell,
+                                           valid)
+        out.append((pts, ids, torch.where(valid, cell, -1)))
+    return out
+
+
+def _landmark_exchange(xs, ids, centers, f, *, nranks, two_eps_c, metric,
+                       plan):
+    """Phases 1, 2 and 4's exchange over all ranks (``ghost_mode="coll"``).
+
+    Phase 1: each rank's Voronoi cells (``metric.cdist`` to the replicated
+    centres, argmin). Phase 2: rows coalesce onto their cell's rank through
+    the capacity-padded all-to-all. Phase 4: each point's slacked Lemma-1
+    ghost cells, at most ``g_per_pt`` of them (the nearest first, a stable
+    sort), travel as ghost copies that carry their TARGET cell. Returns
+    (per rank (W, Wids, Wgrp, G, Gids, Ggrp), dropped (nranks,) bool: a
+    coalesce row, a ghost copy or a ghost cell did not fit)."""
+    m = centers.shape[0]
+    dev = xs[0].device
+    cells = torch.arange(m, device=dev)
+    csend, gsend, dropped = [], [], []
+    for x, xid in zip(xs, ids):
+        n_loc = x.shape[0]
+        dpc = metric.cdist(x, centers)
+        cell = torch.argmin(dpc, dim=1)
+        # d(p, C), the true fp32 min over ALL centres
+        d_min = dpc.amin(1)
+        send, dropped_c = _pack_by_dest(
+            f[cell], torch.ones(n_loc, dtype=torch.bool, device=dev),
+            {"pts": (x, 0), "ids": (xid, SENTINEL),
+             "cell": (cell.to(torch.int32), -1)}, nranks, plan.cap_coal)
+        csend.append(send)
+        tru, gbound = _lemma1_ghost_bound(x, centers, dpc, d_min, two_eps_c,
+                                          metric)
+        gmask = (tru <= gbound[:, None]) & (cells[None, :] != cell[:, None])
+        # cap the ghost fanout: keep each point's g_per_pt nearest cells
+        gscore = torch.where(gmask, tru, 3e38)
+        gcells = torch.argsort(gscore, dim=1, stable=True)[:, :plan.g_per_pt]
+        gvalid = torch.gather(gmask, 1, gcells)
+        g_dropped = gmask.sum() - gvalid.sum()
+        gp = torch.arange(n_loc, device=dev).repeat_interleave(plan.g_per_pt)
+        gc = gcells.reshape(-1)
+        send, dropped_g = _pack_by_dest(
+            f[gc], gvalid.reshape(-1),
+            {"pts": (x[gp], 0), "ids": (xid[gp], SENTINEL),
+             "cell": (gc.to(torch.int32), -1)}, nranks, plan.cap_ghost)
+        gsend.append(send)
+        dropped.append((dropped_c > 0) | (dropped_g > 0) | (g_dropped > 0))
+    W = _exchange(csend, m)
+    del csend
+    G = _exchange(gsend, m)
+    return [w + g for w, g in zip(W, G)], torch.stack(dropped)
+
+
+def _landmark_local(xs, ids, centers, f, *, nranks, eps, metric, plan):
+    """The per-rank landmark body over all ranks (``ghost_mode="coll"``,
+    ``traversal="tiles"``): the exchange of ``_landmark_exchange``, then
+    per rank the intra-cell W x W queries (Phase 3) and the ghost G x W
+    queries (Phase 4) through the grouped tile, each hit mask turned into
+    neighbour ids (``bits_to_gathered_ids`` through the cell-sorted id
+    table) and freed before the next. A ghost copy carries its target cell,
+    so the group test scopes it there; its own W row sits in another cell.
+
+    The counters are the reference's: its tile blocks at its geometry
+    (``nng_tile_geometry``), ``dists_evaluated`` = live blocks × tq·tp in
+    float32. Returns (Wids, nbrs, cnt, Gids, gnbrs, gcnt, overflow,
+    tiles_skipped, tiles_scheduled, dists_evaluated, nodes_pruned): the
+    neighbour tables concatenated over ranks and (nranks,) counters."""
+    bufs, dropped = _landmark_exchange(
+        xs, ids, centers, f, nranks=nranks, two_eps_c=2.0 * eps,
+        metric=metric, plan=plan)
+    k_cap = plan.k_cap
+    outs = []
+    for r in range(nranks):
+        W, Wids, Wgrp, G, Gids, Ggrp = bufs[r]
+        bufs[r] = None
+        cnt, bits, w_sched, w_skip = nng_tile_bits_grouped(
+            W, W, Wgrp, Wgrp, Wids, Wids, eps, metric=metric)
+        nbrs = _bits_to_gathered_ids(bits, Wids, k_cap)
+        del bits
+        gcnt, bits, g_sched, g_skip = nng_tile_bits_grouped(
+            G, W, Ggrp, Wgrp, Gids, Wids, eps, metric=metric)
+        gnbrs = _bits_to_gathered_ids(bits, Wids, k_cap)
+        del bits
+        tq, tp = nng_tile_geometry(W.shape[0], W.shape[0], metric)
+        gtq, gtp = nng_tile_geometry(G.shape[0], W.shape[0], metric)
+        w_dists = (w_sched - w_skip).to(torch.float32) * float(tq * tp)
+        g_dists = (g_sched - g_skip).to(torch.float32) * float(gtq * gtp)
+        over = dropped[r] | (cnt > k_cap).any() | (gcnt > k_cap).any()
+        outs.append((Wids, nbrs, cnt, Gids, gnbrs, gcnt, over,
+                     (w_skip + g_skip).to(torch.float32),
+                     (w_sched + g_sched).to(torch.float32),
+                     w_dists + g_dists))
+    cols = list(zip(*outs))
+    tables = [torch.cat(c) for c in cols[:6]]
+    counters = [torch.stack(c) for c in cols[6:]]
+    return (*tables, *counters,
+            torch.zeros(nranks, dtype=torch.float32, device=xs[0].device))
+
+
+def landmark_run(points, eps: float, centers, f, mesh: RingMesh,
+                 plan: LandmarkPlan, *, metric="euclidean",
+                 traversal: str = "tiles", ghost_mode: str = "coll"):
+    """Distributed landmark ε-NNG (Algorithms 5+6) over ``mesh``.
+
+    ``points`` (n, d), n a multiple of the ring size (``build_nng`` pads);
+    ``centers`` (m, d) the Voronoi sites; ``f`` (m,) the cell -> rank
+    assignment (LPT, planned on the host); ``plan`` the capacities. Returns
+    (Wids, nbrs, cnt, Gids, gnbrs, gcnt, overflow, tiles_skipped,
+    tiles_scheduled, dists_evaluated, nodes_pruned) as
+    ``_landmark_local`` describes, on the mesh device: the union of the
+    (Wids → nbrs) and (Gids → gnbrs) edges is the exact ε-graph when no
+    overflow flag is set. ``ghost_mode="coll"`` and ``traversal="tiles"``
+    are ported; the ghost ring and the tree flavour raise."""
+    if ghost_mode != "coll":
+        if ghost_mode == "ring":
+            raise NotImplementedError(
+                f"ghost_mode='ring' is not ported yet: {NEXT_SPATIAL}")
+        raise ValueError(f"ghost_mode={ghost_mode!r}: 'auto' is resolved "
+                         "upstream (resolve_ghost_mode)")
+    if traversal != "tiles":
+        if traversal == "tree":
+            raise NotImplementedError(
+                "partition='spatial' with traversal='tree' is not ported "
+                f"yet: {NEXT_SPATIAL}")
+        raise ValueError(f"unknown traversal {traversal!r}")
+    met = get_metric(metric)
+    nranks = mesh.size
+    x = met.as_device(points, mesh.device)
+    n = x.shape[0]
+    if n % nranks != 0:
+        raise ValueError(f"n={n} is not a multiple of the ring size {nranks}")
+    xs = list(x.contiguous().chunk(nranks))
+    ids = list(torch.arange(n, dtype=torch.int32,
+                            device=mesh.device).chunk(nranks))
+    return _landmark_local(
+        xs, ids, met.as_device(centers, mesh.device),
+        torch.as_tensor(np.asarray(f), dtype=torch.int64,
+                        device=mesh.device),
+        nranks=nranks, eps=float(eps), metric=met, plan=plan)

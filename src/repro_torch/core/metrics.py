@@ -2,10 +2,12 @@
 
 A ``Metric`` bundles the float64 host reference (``HostMetric``), the
 device comparable-distance function ``cdist`` (torch), the row-aligned true
-distance the on-card forest builder uses (``rowwise``), the fused tile's and
-the tree frontier's CUDA kernels and plain versions, and the systolic
-engine's geometry hooks (block summary and centre distance for the
-triangle-inequality prune).
+distance the on-card forest builder uses (``rowwise``), the fused tile's,
+the grouped tile's and the tree frontier's CUDA kernels and plain versions,
+and the engines' geometry hooks: the block summary and centre distance for
+the systolic triangle-inequality prune, the Lemma-1 ghost slack of the
+landmark engine, and the (tile_q, tile_p) block shape its counters are
+kept in.
 
 Kernel hookups are optional: a metric registered with only ``cdist`` and
 its host reference runs end to end through the generic path in
@@ -30,12 +32,17 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, Callable
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import nng_tile as _nt
 from repro_torch.kernels import tree_frontier as _tf
 
 from .metrics_host import HostMetric, get_host_metric
+
+
+def _round_up(v: int, mult: int) -> int:
+    return ((v + mult - 1) // mult) * mult
 
 
 @dataclass(frozen=True, eq=False)
@@ -48,6 +55,10 @@ class Metric:
     cdist: Callable                  # (x, y) -> (q, p) comparable dists, torch
     dtype: Any = torch.float32       # device point dtype
     exact: bool = False              # integer distances: zero-slack compares
+    # the reference's fused-tile block shape: the landmark engine counts
+    # tiles_scheduled / tiles_skipped / dists_evaluated in these blocks
+    tile_q: int = 256
+    tile_p: int = 512
     # comparable -> true distance on device (None = identity fp32 cast)
     true_device: Callable | None = None
     # row-aligned TRUE distance, (n, d), (n, d) -> (n,) fp32 — the on-card
@@ -59,6 +70,10 @@ class Metric:
     # (x, y, y_valid, eps) -> (cnt, bits)
     tile_kernel: Callable | None = None
     tile_ref: Callable | None = None
+    # group-aware tile (the landmark engine's W x W and G x W): CUDA kernel
+    # + plain version, both (x, y, xg, yg, xid, yid, eps) -> (cnt, bits)
+    grouped_kernel: Callable | None = None
+    grouped_ref: Callable | None = None
     # level-synchronous tree frontier (traversal="tree"): CUDA kernel +
     # plain version, both (q, c, rad, leaf, act_bits, eps) -> (emit, expand)
     frontier_kernel: Callable | None = None
@@ -69,6 +84,9 @@ class Metric:
     # accurate center-pair true distances for the prune bound:
     # (partner_centers (r, d), my_center (d,)) -> (r,) fp32
     center_dist: Callable | None = None
+    # Lemma-1 ghost slack: (x, centers, tru, bound) -> (n,) fp32; None =
+    # zero for exact metrics, scale-relative generic slack otherwise
+    ghost_slack: Callable | None = None
 
     # -- derived helpers (metric-generic) -----------------------------------
     def as_device(self, points, device=None) -> torch.Tensor:
@@ -99,6 +117,14 @@ class Metric:
             return torch.zeros(0, dtype=torch.float32, device=x.device)
         return torch.cat(out).to(torch.float32)
 
+    def tile_shape(self, q: int, p: int) -> tuple[int, int]:
+        """The (tq, tp) block of a (q, p) tile in the reference's geometry:
+        full ``tile_q`` x ``tile_p`` blocks, or the operand rounded up to 8
+        rows / 128 columns where it is smaller."""
+        tq = self.tile_q if q >= self.tile_q else _round_up(max(q, 1), 8)
+        tp = self.tile_p if p >= self.tile_p else _round_up(max(p, 1), 128)
+        return tq, tp
+
     def summary(self, x):
         if self.block_summary is not None:
             return self.block_summary(x)
@@ -110,6 +136,17 @@ class Metric:
         if self.center_dist is not None:
             return self.center_dist(pc, c)
         return self.true(self.cdist(pc, c[None, :]))[:, 0]
+
+    def lemma1_slack(self, x, centers, tru, bound):
+        """The slack added to each row's Lemma-1 ghost bound (fp32)."""
+        if self.ghost_slack is not None:
+            return self.ghost_slack(x, centers, tru, bound)
+        if self.exact:
+            return torch.zeros_like(bound)
+        # generic float metric: relative slack on the row's distance scale;
+        # over-inclusion only costs ghost copies, never exactness
+        scale = tru.amax(1)
+        return (scale + bound) * 1e-5 + 1e-6
 
 
 # ---------------------------------------------------------------------------
@@ -155,6 +192,21 @@ def _euclidean_true(c):
     return torch.sqrt(torch.clamp_min(c.to(torch.float32), 0.0))
 
 
+def _euclidean_ghost_slack(x, centers, tru, bound):
+    """The fp32 expansion's cancellation error, O(u·(‖p‖ + ‖c‖)²) in the
+    squared distances, carried through the square root at ``bound``: a
+    per-row slack that grows with the row's own ‖p‖² and with √d (the
+    accumulation length)."""
+    xf = x.to(torch.float32)
+    cf = centers.to(torch.float32)
+    sx = (xf * xf).sum(-1)                      # (n,) per-point ‖p‖²
+    sc = (cf * cf).sum(-1).max()                # the farthest centre
+    scale2 = sx + sc + 2.0 * torch.sqrt(sx * sc)  # >= (‖p‖ + max‖c‖)²
+    coef = float(np.float32((8.0 + 2.0 * float(np.sqrt(x.shape[1]))) * 6e-8))
+    return (coef * scale2 / torch.clamp_min(bound, 1e-30)
+            + 1e-5 * bound + 1e-6)
+
+
 def _euclidean_rowwise(x, y):
     # diff form: the builder's radii carry no cancellation error
     diff = x.to(torch.float32) - y.to(torch.float32)
@@ -182,10 +234,13 @@ register_metric(Metric(
     rowwise=_euclidean_rowwise,
     tile_kernel=_nt.nng_tile_cuda,
     tile_ref=_nt.nng_tile_ref,
+    grouped_kernel=_nt.nng_tile_grouped_cuda,
+    grouped_ref=_nt.nng_tile_grouped_ref,
     frontier_kernel=_tf.tree_frontier_cuda,
     frontier_ref=_tf.tree_frontier_ref,
     block_summary=_euclidean_block_summary,
     center_dist=_euclidean_center_dist,
+    ghost_slack=_euclidean_ghost_slack,
 ))
 
 
@@ -213,8 +268,11 @@ register_metric(Metric(
     rowwise=_hamming_rowwise,
     dtype=torch.int32,
     exact=True,
+    tile_q=128, tile_p=256,
     tile_kernel=_nt.nng_tile_hamming_cuda,
     tile_ref=_nt.nng_tile_hamming_ref,
+    grouped_kernel=_nt.nng_tile_grouped_hamming_cuda,
+    grouped_ref=_nt.nng_tile_grouped_hamming_ref,
     frontier_kernel=_tf.tree_frontier_hamming_cuda,
     frontier_ref=_tf.tree_frontier_hamming_ref,
 ))
@@ -224,8 +282,11 @@ register_metric(Metric(
     cdist=_nt.l1_dist,
     rowwise=_l1_rowwise,
     dtype=torch.float32,
+    tile_q=128, tile_p=256,
     tile_kernel=_nt.nng_tile_l1_cuda,
     tile_ref=_nt.nng_tile_l1_ref,
+    grouped_kernel=_nt.nng_tile_grouped_l1_cuda,
+    grouped_ref=_nt.nng_tile_grouped_l1_ref,
     frontier_kernel=_tf.tree_frontier_l1_cuda,
     frontier_ref=_tf.tree_frontier_l1_ref,
 ))

@@ -1,6 +1,6 @@
 // Block geometry and the packed-bitmask epilogues shared by the distance
 // tiles (l2_tile.cuh, hamming_tile.cuh, l1_tile.cuh), the fused ε-tile
-// kernels and the tree frontier kernels.
+// kernels, their grouped variants and the tree frontier kernels.
 //
 // One 256-thread block owns a 128 x 128 (query row x candidate column)
 // tile. Warp w owns rows [16w, 16w + 16) and lane l owns columns l, l + 32,
@@ -64,18 +64,80 @@ __device__ __forceinline__ bool stage_active(const uint32_t* __restrict__ act,
   return __syncthreads_or(any);
 }
 
+// Zero the block's BM x WPB words of a (nq, nw) mask (rows past nq and
+// words past nw are not stored).
+__device__ __forceinline__ void zero_words(int nq, int nw, int m0, int w0,
+                                           uint32_t* __restrict__ words) {
+  for (int e = threadIdx.x; e < BM * WPB; e += THREADS) {
+    const int row = m0 + e / WPB;
+    const int w = w0 + e % WPB;
+    if (row < nq && w < nw) words[(size_t)row * nw + w] = 0u;
+  }
+}
+
 // A frontier block with no active pair writes zero emit and expand words.
 __device__ __forceinline__ void zero_masks(int nq, int nw, int m0, int w0,
                                            uint32_t* __restrict__ emit,
                                            uint32_t* __restrict__ expand) {
-  for (int e = threadIdx.x; e < BM * WPB; e += THREADS) {
-    const int row = m0 + e / WPB;
-    const int w = w0 + e % WPB;
-    if (row < nq && w < nw) {
-      emit[(size_t)row * nw + w] = 0u;
-      expand[(size_t)row * nw + w] = 0u;
-    }
+  zero_words(nq, nw, m0, w0, emit);
+  zero_words(nq, nw, m0, w0, expand);
+}
+
+// The grouped tiles' block prologue (the landmark engine's cell-scoped
+// tiles). Rows carry a group (a Voronoi cell; < 0 marks padding) and a
+// global id. The block's BM x-row and BN y-row groups and ids go to shared
+// memory (group -1 past q and p), and the valid groups of each side are
+// reduced to a [min, max] range.
+constexpr int GBIG = 1 << 30;      // the empty range's min
+
+struct Groups {
+  int32_t xg[BM];
+  int32_t xid[BM];
+  int32_t yg[BN];
+  int32_t yid[BN];
+  int32_t range[4];                // x min, x max, y min, y max
+};
+
+// Returns, to every thread, whether the two valid-group ranges intersect.
+// Callers sort rows by group, so a block whose ranges are disjoint (cross
+// cell, or all padding on a side) holds no same-group pair and skips its
+// distances.
+__device__ __forceinline__ bool stage_groups(const int32_t* __restrict__ xg,
+                                             const int32_t* __restrict__ yg,
+                                             const int32_t* __restrict__ xid,
+                                             const int32_t* __restrict__ yid,
+                                             int q, int p, int m0, int n0,
+                                             Groups& g) {
+  static_assert(BM + BN == THREADS, "one thread stages each row's group");
+  const int t = threadIdx.x;
+  if (t < 4) g.range[t] = (t & 1) ? -1 : GBIG;
+  __syncthreads();
+  const bool is_x = t < BM;
+  const int r = is_x ? t : t - BM;
+  const int row = (is_x ? m0 : n0) + r;
+  const bool in = row < (is_x ? q : p);
+  const int32_t grp = in ? (is_x ? xg : yg)[row] : -1;
+  const int32_t id = in ? (is_x ? xid : yid)[row] : -1;
+  if (is_x) {
+    g.xg[r] = grp;
+    g.xid[r] = id;
+  } else {
+    g.yg[r] = grp;
+    g.yid[r] = id;
   }
+  if (grp >= 0) {
+    atomicMin(&g.range[is_x ? 0 : 2], grp);
+    atomicMax(&g.range[is_x ? 1 : 3], grp);
+  }
+  __syncthreads();
+  return g.range[0] <= g.range[3] && g.range[2] <= g.range[1];
+}
+
+// Whether x row r and y column c of a staged block may pair: the same
+// valid group and different ids (a point is never its own neighbour, even
+// where fp32 rounds d(x, x) past eps).
+__device__ __forceinline__ bool same_group(const Groups& g, int r, int c) {
+  return g.yg[c] >= 0 && g.xg[r] == g.yg[c] && g.xid[r] != g.yid[c];
 }
 
 // Whether the calling lane's column slot j is active for tile row r.

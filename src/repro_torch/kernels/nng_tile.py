@@ -21,6 +21,14 @@ and its plain PyTorch version with the same arithmetic:
     ``nng_tile_hamming_ref``, exact XOR + popcount against ``int(eps)``;
   - L1: ``nng_tile_l1_cuda`` (``csrc/nng_tile_l1.cu``) / ``nng_tile_l1_ref``,
     fp32 sums of |x − y| in ``l1_dist``'s order against fp32 eps.
+
+Each has a grouped variant for the landmark engine (Algorithms 5+6):
+``nng_tile_grouped{,_hamming,_l1}_cuda`` (``csrc/nng_tile_grouped*.cu``)
+and ``nng_tile_grouped{,_hamming,_l1}_ref``. Rows carry a group (the
+Voronoi cell, < 0 for padding) and a global id, and a pair hits only when
+its distance passes the threshold, its groups are equal and valid, and its
+ids differ (``grouped_hit``). The kernels skip the distances of a block
+whose groups cannot meet and store zero words there.
 """
 from __future__ import annotations
 
@@ -149,6 +157,46 @@ def nng_tile_l1_ref(x, y, y_valid, eps: float):
                  & (y_valid != 0)[None, :])
 
 
+# ---------------------------------------------------------------------------
+# grouped variants (the landmark engine's cell-scoped tiles)
+# ---------------------------------------------------------------------------
+
+GBIG = 2**30     # the empty group range's min (the kernels' GBIG)
+
+
+def grouped_hit(d_ok, xg, yg, xid, yid):
+    """Fold group equality, validity (group >= 0) and id inequality into a
+    (q, p) bool threshold mask. The id test keeps a point off its own row
+    even where fp32 rounds d(x, x) past eps."""
+    return (d_ok & (xg[:, None] == yg[None, :]) & (xg >= 0)[:, None]
+            & (yg >= 0)[None, :] & (xid[:, None] != yid[None, :]))
+
+
+def nng_tile_grouped_ref(x, y, xg, yg, xid, yid, eps: float):
+    """Plain PyTorch version of the grouped L2 tile: x (q, d), y (p, d),
+    groups and ids (q,) / (p,) int32, p % 32 == 0 -> (cnt (q,) int32, bits
+    (q, p / 32) int32), with ``nng_tile_ref``'s fp32 expansion."""
+    x = x.to(torch.float32)
+    y = y.to(torch.float32)
+    d2 = ((x * x).sum(1)[:, None] + (y * y).sum(1)[None, :]
+          - 2.0 * x @ y.T)
+    return _hits(grouped_hit(d2 <= eps2_f32(eps), xg, yg, xid, yid))
+
+
+def nng_tile_grouped_hamming_ref(x, y, xg, yg, xid, yid, eps: float):
+    """Plain PyTorch version of the grouped Hamming tile over int32 words,
+    as ``nng_tile_grouped_ref`` otherwise."""
+    return _hits(grouped_hit(hamming_dist(x, y) <= eps_int(eps), xg, yg,
+                             xid, yid))
+
+
+def nng_tile_grouped_l1_ref(x, y, xg, yg, xid, yid, eps: float):
+    """Plain PyTorch version of the grouped L1 tile (``l1_dist``'s order),
+    as ``nng_tile_grouped_ref`` otherwise."""
+    return _hits(grouped_hit(l1_dist(x, y) <= float(np.float32(eps)), xg,
+                             yg, xid, yid))
+
+
 def check_operands(fn: str, *specs) -> None:
     """Raise unless every (name, tensor, dtype, ndim) of ``specs`` is a
     contiguous CUDA tensor of that dtype and rank, all on one device."""
@@ -164,18 +212,25 @@ def check_operands(fn: str, *specs) -> None:
         raise ValueError(f"{fn}: operands on different devices")
 
 
-def _launch_tile(lib: str, x, y, y_valid, dtype, thr):
+def _launch_tile(lib: str, x, y, ints, dtype, thr):
     """Check the operands of tile kernel ``lib`` and launch it with
-    threshold ``thr`` -> (cnt, bits, launched)."""
-    check_operands(f"{lib}_cuda", ("x", x, dtype, 2), ("y", y, dtype, 2),
-                   ("y_valid", y_valid, torch.int32, 1))
+    threshold ``thr`` -> (cnt, bits, launched). ``ints`` are its int32
+    operands as (name, tensor, "q" or "p": the rows of x or of y), in the
+    order its C entry point takes them after x and y."""
+    fn = f"{lib}_cuda"
+    check_operands(fn, ("x", x, dtype, 2), ("y", y, dtype, 2),
+                   *((name, t, torch.int32, 1) for name, t, _ in ints))
     q, d = x.shape
     p = y.shape[0]
-    if y.shape[1] != d or y_valid.shape[0] != p:
-        raise ValueError(f"{lib}_cuda: shapes x {tuple(x.shape)}, "
-                         f"y {tuple(y.shape)}, y_valid {tuple(y_valid.shape)}")
+    if y.shape[1] != d or any(t.shape[0] != (q if ax == "q" else p)
+                              for _, t, ax in ints):
+        raise ValueError(f"{fn}: shapes x {tuple(x.shape)}, y "
+                         f"{tuple(y.shape)}, " + ", ".join(
+                             f"{name} {tuple(t.shape)}"
+                             for name, t, _ in ints))
     nw = -(-p // 32)
     cnt = torch.zeros(q, dtype=torch.int32, device=x.device)
+    # every kernel stores every word of its (q, nw) mask
     bits = torch.empty((q, nw), dtype=torch.int32, device=x.device)
     if q == 0 or p == 0:
         bits.zero_()
@@ -183,7 +238,8 @@ def _launch_tile(lib: str, x, y, y_valid, dtype, thr):
     launch = _build.entry(lib)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = launch(x.data_ptr(), y.data_ptr(), y_valid.data_ptr(),
+        code = launch(x.data_ptr(), y.data_ptr(),
+                      *(t.data_ptr() for _, t, _ in ints),
                       cnt.data_ptr(), bits.data_ptr(), q, p, d, thr, stream)
     _build.check(lib, code)
     return cnt, bits, True
@@ -194,7 +250,8 @@ def nng_tile_cuda(x, y, y_valid, eps: float):
     contiguous on one CUDA device -> (cnt (q,) int32, bits (q, ceil(p/32))
     int32). Any q, p and d: the kernel masks ragged edges, and bits past
     column p - 1 are zero."""
-    cnt, bits, launched = _launch_tile("nng_tile", x, y, y_valid,
+    cnt, bits, launched = _launch_tile("nng_tile", x, y,
+                                       (("y_valid", y_valid, "p"),),
                                        torch.float32, eps2_f32(eps))
     nng_tile_cuda.launches += launched
     return cnt, bits
@@ -203,7 +260,8 @@ def nng_tile_cuda(x, y, y_valid, eps: float):
 def nng_tile_hamming_cuda(x, y, y_valid, eps: float):
     """The Hamming CUDA kernel: x (q, w), y (p, w) int32 words, y_valid
     (p,) int32, as ``nng_tile_cuda`` otherwise."""
-    cnt, bits, launched = _launch_tile("nng_tile_hamming", x, y, y_valid,
+    cnt, bits, launched = _launch_tile("nng_tile_hamming", x, y,
+                                       (("y_valid", y_valid, "p"),),
                                        torch.int32, eps_int(eps))
     nng_tile_hamming_cuda.launches += launched
     return cnt, bits
@@ -212,12 +270,55 @@ def nng_tile_hamming_cuda(x, y, y_valid, eps: float):
 def nng_tile_l1_cuda(x, y, y_valid, eps: float):
     """The L1 CUDA kernel: x (q, d), y (p, d) fp32, y_valid (p,) int32, as
     ``nng_tile_cuda`` otherwise."""
-    cnt, bits, launched = _launch_tile("nng_tile_l1", x, y, y_valid,
+    cnt, bits, launched = _launch_tile("nng_tile_l1", x, y,
+                                       (("y_valid", y_valid, "p"),),
                                        torch.float32, float(np.float32(eps)))
     nng_tile_l1_cuda.launches += launched
+    return cnt, bits
+
+
+def _launch_grouped(lib, x, y, xg, yg, xid, yid, dtype, thr):
+    return _launch_tile(lib, x, y, (("x_group", xg, "q"),
+                                    ("y_group", yg, "p"),
+                                    ("x_ids", xid, "q"),
+                                    ("y_ids", yid, "p")), dtype, thr)
+
+
+def nng_tile_grouped_cuda(x, y, xg, yg, xid, yid, eps: float):
+    """The grouped L2 CUDA kernel: x (q, d), y (p, d) fp32, groups and ids
+    (q,) / (p,) int32, all contiguous on one CUDA device -> (cnt (q,) int32,
+    bits (q, ceil(p/32)) int32), the function of ``nng_tile_grouped_ref``.
+    Any q, p and d: the kernel masks ragged edges, and bits past column
+    p - 1 are zero."""
+    cnt, bits, launched = _launch_grouped("nng_tile_grouped", x, y, xg, yg,
+                                          xid, yid, torch.float32,
+                                          eps2_f32(eps))
+    nng_tile_grouped_cuda.launches += launched
+    return cnt, bits
+
+
+def nng_tile_grouped_hamming_cuda(x, y, xg, yg, xid, yid, eps: float):
+    """The grouped Hamming CUDA kernel over int32 words, as
+    ``nng_tile_grouped_cuda`` otherwise."""
+    cnt, bits, launched = _launch_grouped("nng_tile_grouped_hamming", x, y,
+                                          xg, yg, xid, yid, torch.int32,
+                                          eps_int(eps))
+    nng_tile_grouped_hamming_cuda.launches += launched
+    return cnt, bits
+
+
+def nng_tile_grouped_l1_cuda(x, y, xg, yg, xid, yid, eps: float):
+    """The grouped L1 CUDA kernel, as ``nng_tile_grouped_cuda`` otherwise."""
+    cnt, bits, launched = _launch_grouped("nng_tile_grouped_l1", x, y, xg,
+                                          yg, xid, yid, torch.float32,
+                                          float(np.float32(eps)))
+    nng_tile_grouped_l1_cuda.launches += launched
     return cnt, bits
 
 
 nng_tile_cuda.launches = 0
 nng_tile_hamming_cuda.launches = 0
 nng_tile_l1_cuda.launches = 0
+nng_tile_grouped_cuda.launches = 0
+nng_tile_grouped_hamming_cuda.launches = 0
+nng_tile_grouped_l1_cuda.launches = 0

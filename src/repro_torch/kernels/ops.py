@@ -13,7 +13,7 @@ import torch
 from .bits_epilogue import (NOCOL, SENTINEL, bits_to_cols_cuda,
                             bits_to_cols_ref, leaf_range_pack_cuda,
                             leaf_range_pack_ref)
-from .nng_tile import pack_words, unpack_words
+from .nng_tile import GBIG, grouped_hit, pack_words, unpack_words
 from .tree_frontier import _frontier_masks_float
 
 
@@ -80,6 +80,78 @@ def nng_tile_bits_pair(x, y, eps: float, metric="euclidean"):
         y, x, torch.ones(x.shape[0], dtype=torch.int32, device=x.device),
         eps, metric=metric)
     return fcnt, fbits, rcnt, rbits
+
+
+def grouped_block_active(x_group, y_group, tq: int, tp: int):
+    """The block-skip rule of the grouped tiles at a (tq, tp) block shape:
+    each block's valid-group (>= 0) [min, max] ranges on both sides, and a
+    (nqb, npb) bool map of the blocks whose ranges intersect. At the
+    reference's geometry (``nng_tile_geometry``) it is the reference's own
+    schedule, so it gives the tiles_scheduled / tiles_skipped counters.
+    Rows are tile-padded (group -1) by the caller."""
+    q = x_group.shape[0]
+    p = y_group.shape[0]
+    assert q % tq == 0 and p % tp == 0, (q, tq, p, tp)
+    xg = x_group.reshape(q // tq, tq)
+    yg = y_group.reshape(p // tp, tp)
+    xmin = torch.where(xg >= 0, xg, GBIG).amin(1)
+    xmax = torch.where(xg >= 0, xg, -1).amax(1)
+    ymin = torch.where(yg >= 0, yg, GBIG).amin(1)
+    ymax = torch.where(yg >= 0, yg, -1).amax(1)
+    return ((xmin[:, None] <= ymax[None, :])
+            & (ymin[None, :] <= xmax[:, None]))
+
+
+def nng_tile_geometry(q: int, p: int, metric) -> tuple[int, int]:
+    """The (tq, tp) block shape of a (q, p) tile in the reference's
+    geometry (``Metric.tile_shape``): the unit of the landmark engine's
+    tile counters. The CUDA kernels use their own 128 x 128 blocks."""
+    return _resolve_metric(metric).tile_shape(q, p)
+
+
+def nng_tile_bits_grouped(x, y, x_group, y_group, x_ids, y_ids, eps: float,
+                          metric="euclidean"):
+    """Group-aware fused ε-tile of the landmark engine.
+
+    hit(i, j) = d(x_i, y_j) <= eps and x_group[i] == y_group[j] >= 0 and
+    x_ids[i] != y_ids[j]. Returns (cnt (q,) int32, bits (q, ceil(p/32))
+    int32 words, tiles_scheduled, tiles_skipped): the counters are 0-d
+    int64 tensors, the reference's block schedule at its own geometry
+    (``grouped_block_active``). Callers cell-sort rows so that whole blocks
+    skip; the result never depends on the row order.
+
+    The metric's grouped kernel on a CUDA tensor, its plain version on a
+    CPU one; a metric with neither runs the generic path over
+    ``metric.cdist``."""
+    met = _resolve_metric(metric)
+    q = x.shape[0]
+    p = y.shape[0]
+    nw = -(-p // 32)
+    dev = x.device
+    xg, yg, xid, yid = (torch.as_tensor(a, dtype=torch.int32, device=dev)
+                        for a in (x_group, y_group, x_ids, y_ids))
+    tq, tp = met.tile_shape(q, p)
+    active = grouped_block_active(_pad_rows(xg, tq, -1)[0],
+                                  _pad_rows(yg, tp, -1)[0], tq, tp)
+    scheduled = torch.tensor(active.numel(), device=dev)
+    skipped = scheduled - active.sum()
+    x = x.to(met.dtype)
+    y = y.to(met.dtype)
+    if x.is_cuda and met.grouped_kernel is not None:
+        cnt, bits = met.grouped_kernel(
+            x.contiguous(), y.contiguous(), xg.contiguous(), yg.contiguous(),
+            xid.contiguous(), yid.contiguous(), eps)
+    elif met.grouped_ref is not None:
+        yp, ygp, yidp = (_pad_rows(a, 32, v)[0]
+                         for a, v in ((y, 0), (yg, -1), (yid, -1)))
+        cnt, bits = met.grouped_ref(x, yp, xg, ygp, xid, yidp, eps)
+        bits = bits[:, :nw]
+    else:
+        hit = grouped_hit(met.cdist(x, y) <= met.comparable(eps), xg, yg,
+                          xid, yid)
+        cnt = hit.sum(1, dtype=torch.int32)
+        bits = pack_words(_pad_cols(hit, 32, False))
+    return cnt, bits, scheduled, skipped
 
 
 def tree_frontier_step(q, c, rad, leaf, act_bits, eps: float,

@@ -1,18 +1,31 @@
 """The public NNG front-end: ``build_nng`` — "build me the ε-graph of these
 points under this metric on this ring".
 
-The port carries ``partition="point"`` (Algorithm 4, the systolic ring
-over point blocks) with both traversals: ``traversal="tiles"`` (fused
-bitmask distance tiles) and ``traversal="tree"`` (per-block cover trees,
-built on the card by default, traversed level by level). Any registered
-metric runs: ``euclidean``, ``manhattan`` and ``hamming`` (numpy uint32 or
-int32 words) have CUDA kernels, and a user ``Metric`` with only ``cdist``
-runs the generic path. ``partition="spatial"`` raises
-``NotImplementedError`` until its ROADMAP item lands.
+Two engines, each with every axis a keyword:
 
-The engine runs under ONE plan → run → grow-on-overflow driver (``drive``)
-behind the small ``Engine`` interface. The result is a CSR ``NNGraph``
-(symmetric adjacency + ``RunStats`` + provenance ``meta``).
+  - ``partition="point"`` (Algorithm 4, the systolic ring over point
+    blocks) with both traversals: ``traversal="tiles"`` (fused bitmask
+    distance tiles) and ``traversal="tree"`` (per-block cover trees, built
+    on the card by default, traversed level by level);
+  - ``partition="spatial"`` (Algorithms 5+6, the landmark engine): Voronoi
+    cells over sampled centres, LPT-assigned to ranks, ε-ghosts exchanged
+    as capacity-padded copies (``ghost_mode="coll"``, the default), and
+    the cells' W x W and G x W queries through the grouped tile
+    (``traversal="tiles"``). Its capacities come from an exact counting
+    pass (``planner="device"``, the default) or the numpy host pass
+    (``planner="host"``). ``ghost_mode="ring"`` (given, or where
+    ``"auto"`` resolves to it) and ``traversal="tree"`` raise
+    ``NotImplementedError``: they are ROADMAP item 7's next slice.
+
+Any registered metric runs: ``euclidean``, ``manhattan`` and ``hamming``
+(numpy uint32 or int32 words) have CUDA kernels, and a user ``Metric``
+with only ``cdist`` runs the generic path.
+
+Both engines run under ONE plan → run → grow-on-overflow driver
+(``drive``) behind the small ``Engine`` interface: the point engine grows
+``k_cap``, the spatial engine doubles every ``LandmarkPlan`` capacity
+(``grow_plan``). The result is a CSR ``NNGraph`` (symmetric adjacency +
+``RunStats`` + provenance ``meta``).
 
 Point counts that do not divide the ring are handled by duplicate-padding:
 the first ``(-n) % nranks`` points are appended again. A duplicate row
@@ -29,15 +42,22 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.core.distributed import (DeviceForest, make_nng_mesh,
-                                          plan_ring_schedule, systolic_run)
+from repro_torch.core.distributed import (DeviceForest, LandmarkPlan,
+                                          ghost_coll_bytes, ghost_ring_bytes,
+                                          landmark_run, make_nng_mesh,
+                                          plan_landmark_device,
+                                          plan_ring_schedule,
+                                          resolve_ghost_mode, systolic_run)
 from repro_torch.core.flat_tree import (build_block_forests,
                                         stack_device_forests)
 from repro_torch.core.graph import NNGraph, RunStats
+from repro_torch.core.landmark import (ghost_membership, lpt_assignment,
+                                       select_centers)
 from repro_torch.core.metrics import Metric, get_metric, register_metric  # noqa: F401 (re-export)
 
 __all__ = ["build_nng", "drive", "Engine", "PointPartitionEngine",
-           "Metric", "get_metric", "register_metric"]
+           "SpatialPartitionEngine", "grow_plan", "Metric", "get_metric",
+           "register_metric"]
 
 
 # ---------------------------------------------------------------------------
@@ -247,6 +267,162 @@ class PointPartitionEngine(Engine):
 
 
 # ---------------------------------------------------------------------------
+# spatial partitioning (Voronoi landmarks + ε-ghosts, Algorithms 5 + 6)
+# ---------------------------------------------------------------------------
+
+def grow_plan(plan: LandmarkPlan) -> LandmarkPlan:
+    """Double every capacity knob of a LandmarkPlan (overflow re-plan)."""
+    return LandmarkPlan(
+        m_centers=plan.m_centers,
+        cap_coal=2 * plan.cap_coal,
+        cap_ghost=2 * plan.cap_ghost,
+        g_per_pt=min(2 * plan.g_per_pt, plan.m_centers),
+        k_cap=2 * plan.k_cap,
+        cap_rank=max(2 * plan.cap_rank, 32) if plan.cap_rank else 0,
+    )
+
+
+class SpatialPartitionEngine(Engine):
+    name = "spatial"
+
+    def __init__(self, points, eps, mesh, metric, *, k_cap: int = 128,
+                 planner: str = "device", m_centers: int | None = None,
+                 traversal: str = "tiles", plan: LandmarkPlan | None = None,
+                 seed: int = 0, ghost_mode: str = "coll"):
+        if ghost_mode not in ("coll", "ring", "auto"):
+            raise ValueError(f"unknown ghost_mode {ghost_mode!r} "
+                             "(want 'coll', 'ring' or 'auto')")
+        self.metric = get_metric(metric)
+        self.mesh = mesh
+        self.device = mesh.device
+        self.points = self.metric.as_device(points, mesh.device)
+        self.eps = float(eps)
+        self.k_cap = int(k_cap)
+        self.planner = planner
+        self.traversal = traversal
+        self.plan = plan
+        self.ghost_mode = ghost_mode
+        self.build_s = 0.0
+        nranks = mesh.size
+        m = m_centers or max(2 * nranks, 32)
+        idx = select_centers(len(self.points), m,
+                             np.random.default_rng(seed))
+        self.centers = self.points[torch.as_tensor(idx, device=mesh.device)]
+        self.m_centers = len(self.centers)
+        # the host (n x m) Voronoi argmin (the host metric's cdist, as the
+        # reference's) feeds the LPT assignment and the host planner
+        self.cell = np.argmin(self.metric.host.cdist(
+            self._host_points(), self.centers.cpu().numpy()), axis=1)
+        self.f = lpt_assignment(
+            np.bincount(self.cell, minlength=self.m_centers),
+            nranks).astype(np.int32)
+
+    def _host_points(self) -> np.ndarray:
+        return self.points.cpu().numpy()
+
+    # -- planning -----------------------------------------------------------
+    def _plan_host(self) -> LandmarkPlan:
+        """Host numpy pass (float64 ghost bound — may undercount the
+        engine's slacked test; the grow loop covers the gap)."""
+        met = self.metric.host
+        points = self._host_points()
+        n = len(points)
+        nranks = self.mesh.size
+        m = self.m_centers
+        if n % nranks != 0:
+            raise ValueError(
+                f"points are not shardable: n={n} is not divisible by the "
+                f"ring size {nranks} — pad to a multiple (build_nng's "
+                f"duplicate padding does this automatically)")
+        dmat = np.asarray(met.true(met.cdist(points,
+                                             self.centers.cpu().numpy())))
+        d_pC = dmat[np.arange(n), self.cell]
+        gmask = ghost_membership(dmat, self.cell, d_pC, self.eps)
+        g_per_pt = int(gmask.sum(axis=1).max())
+        # row-to-rank map of the block-sharded input: n // nranks rows each
+        src_rank = np.repeat(np.arange(nranks), n // nranks)
+        coal = np.zeros((nranks, nranks), np.int64)
+        np.add.at(coal, (src_rank, self.f[self.cell]), 1)
+        gsrc = np.repeat(src_rank, m).reshape(n, m)[gmask]
+        gdst = np.broadcast_to(self.f[None, :], (n, m))[gmask]
+        gcnt = np.zeros((nranks, nranks), np.int64)
+        np.add.at(gcnt, (gsrc, gdst), 1)
+        return LandmarkPlan(
+            m_centers=m, cap_coal=int(coal.max()) + 8,
+            cap_ghost=int(gcnt.max()) + 8, g_per_pt=max(g_per_pt, 1),
+            k_cap=self.k_cap,
+            cap_rank=int(coal.sum(axis=0).max()) + 8)
+
+    def initial_plan(self) -> LandmarkPlan:
+        if self.plan is not None:
+            return self.plan
+        if self.planner == "device":
+            # one counting pass: exact coalesce / ghost capacities (the
+            # tests the engine applies), so the common case never grows
+            return plan_landmark_device(
+                self.points, self.centers, self.f, self.eps, self.mesh,
+                metric=self.metric, k_cap=self.k_cap)
+        if self.planner == "host":
+            return self._plan_host()
+        raise ValueError(f"unknown planner {self.planner!r}")
+
+    # -- engine steps -------------------------------------------------------
+    def resolved_ghost_mode(self, plan: LandmarkPlan) -> str:
+        """The mode this plan runs: ``"auto"`` resolves per plan from the
+        exact byte models (``resolve_ghost_mode``), so a grown plan may
+        flip the choice."""
+        return resolve_ghost_mode(
+            self.ghost_mode, plan, self.points.shape[1],
+            self.points.element_size(), self.mesh.size)
+
+    def run(self, plan):
+        return landmark_run(
+            self.points, self.eps, self.centers, self.f, self.mesh, plan,
+            metric=self.metric, traversal=self.traversal,
+            ghost_mode=self.resolved_ghost_mode(plan))
+
+    def overflowed(self, out):
+        return bool(out[6].any())
+
+    def grow(self, plan, out):
+        return grow_plan(plan)
+
+    def neighbor_tables(self, out):
+        return [(out[0], out[1]), (out[3], out[4])]
+
+    def _landmark_comm_bytes(self, plan: LandmarkPlan) -> dict:
+        """Per-channel exchange bytes. ``coalesce`` moves three
+        (nranks, cap, …) all-to-all operands per rank — point rows, global
+        ids, cell assignments. The ghost channel follows the resolved mode:
+        ``ghost`` (capacity-padded all-to-all of ghost copies) or
+        ``ghost_ring`` — both from the formulas in ``device.py`` that
+        ``resolve_ghost_mode`` compares."""
+        nranks = self.mesh.size
+        dim = self.points.shape[1]
+        item = self.points.element_size()
+        row_bytes = item * dim + 4 + 4   # pts + id + cell
+        lw = nranks * plan.cap_coal
+        out = {"coalesce": float(nranks * lw * row_bytes)}
+        if self.resolved_ghost_mode(plan) == "ring":
+            out["ghost_ring"] = float(ghost_ring_bytes(
+                nranks, plan.cap_rank, dim, item, plan.m_centers))
+        else:
+            out["ghost"] = float(ghost_coll_bytes(
+                nranks, plan.cap_ghost, dim, item))
+        return out
+
+    def run_stats(self, out, plan: LandmarkPlan) -> RunStats:
+        # the (nranks,) fp32 counters summed as the reference sums them
+        # (numpy, in fp32)
+        total = [float(t.cpu().numpy().sum()) for t in out[7:11]]
+        return RunStats(
+            tiles_skipped=total[0], tiles_scheduled=total[1],
+            dists_evaluated=total[2], nodes_pruned=total[3],
+            comm_bytes=self._landmark_comm_bytes(plan),
+        )
+
+
+# ---------------------------------------------------------------------------
 # the public entry point
 # ---------------------------------------------------------------------------
 
@@ -257,12 +433,16 @@ def build_nng(
     metric="euclidean",
     partition: str = "point",
     traversal: str = "tiles",
+    planner: str = "device",
     mesh=None,
     k_cap: int | None = None,
     prune: bool = True,
+    m_centers: int | None = None,
+    seed: int = 0,
     max_grows: int = 8,
     overlap: bool = True,
     forest_backend: str = "device",
+    ghost_mode: str = "coll",
     device=None,
 ) -> NNGraph:
     """Build the exact ε-neighbour graph of ``points`` (numpy or torch,
@@ -272,18 +452,24 @@ def build_nng(
     card (a ``RuntimeError`` if there is none); pass ``device="cpu"`` for
     the plain PyTorch versions. ``k_cap`` seeds the neighbour-list capacity
     (grown automatically on overflow); any ``n`` is accepted (duplicate
-    padding up to the ring size, stripped from the result). ``overlap``
-    selects the double-buffered ring schedule — ``False`` is the strict
-    rotate-then-evaluate schedule, kept for A/B comparison.
-    ``forest_backend`` ("device", the default, or "host") picks who builds
-    the cover forest for ``traversal="tree"``: the torch builder on the
-    mesh's device (``flat_tree_device``) or the float64 numpy oracle; the
-    build is timed apart, in ``RunStats.build_s``."""
-    if partition == "spatial":
-        raise NotImplementedError(
-            "partition='spatial' (the landmark engine, Algorithms 5+6) is "
-            "not ported to PyTorch yet: ROADMAP item 7")
-    if partition != "point":
+    padding up to the ring size, stripped from the result).
+
+    Point partition: ``overlap`` selects the double-buffered ring schedule
+    — ``False`` is the strict rotate-then-evaluate schedule, kept for A/B
+    comparison. ``forest_backend`` ("device", the default, or "host") picks
+    who builds the cover forest for ``traversal="tree"``: the torch builder
+    on the mesh's device (``flat_tree_device``) or the float64 numpy
+    oracle; the build is timed apart, in ``RunStats.build_s``.
+
+    Spatial partition (the landmark engine): ``m_centers`` Voronoi sites
+    (default max(2·nranks, 32)) drawn from ``seed``; ``planner`` "device"
+    (exact counting pass, the default) or "host" (numpy pass); the
+    capacities double on overflow. ``ghost_mode`` "coll" (capacity-padded
+    all-to-all of ghost copies, the default) or "auto" where it resolves
+    to "coll" (the resolved mode lands in ``meta["ghost_mode"]``);
+    ``ghost_mode="ring"`` and ``traversal="tree"`` raise
+    ``NotImplementedError`` (ROADMAP item 7's next slice)."""
+    if partition not in ("point", "spatial"):
         raise ValueError(
             f"unknown partition {partition!r} (want 'point' or 'spatial')")
     if traversal not in ("tiles", "tree"):
@@ -307,10 +493,16 @@ def build_nng(
         idx = torch.arange(pad, device=points.device) % n
         points = torch.cat([points, points[idx]])
 
-    engine = PointPartitionEngine(points, eps, mesh, met, k_cap=k_cap or 64,
-                                  prune=prune, overlap=overlap,
-                                  traversal=traversal,
-                                  forest_backend=forest_backend)
+    if partition == "point":
+        engine = PointPartitionEngine(
+            points, eps, mesh, met, k_cap=k_cap or 64, prune=prune,
+            overlap=overlap, traversal=traversal,
+            forest_backend=forest_backend)
+    else:
+        engine = SpatialPartitionEngine(
+            points, eps, mesh, met, k_cap=k_cap or 128, planner=planner,
+            m_centers=m_centers, traversal=traversal, seed=seed,
+            ghost_mode=ghost_mode)
     out, plan, replans, elapsed = drive(engine, max_grows=max_grows)
     stats = engine.run_stats(out, plan)
     stats.replans = replans
@@ -319,11 +511,18 @@ def build_nng(
     meta = {
         "metric": met.name, "eps": float(eps), "partition": partition,
         "traversal": traversal, "nranks": mesh.size, "padded": pad,
-        "plan": plan, "overlap": bool(overlap),
+        "plan": plan,
     }
-    if traversal == "tree":
-        meta["forest_backend"] = forest_backend
-    if engine.ring_schedule is not None:
-        meta["ring_schedule"] = tuple(engine.ring_schedule)
+    if partition == "point":
+        meta["overlap"] = bool(overlap)
+        if traversal == "tree":
+            meta["forest_backend"] = forest_backend
+        if engine.ring_schedule is not None:
+            meta["ring_schedule"] = tuple(engine.ring_schedule)
+    else:
+        meta["planner"] = planner
+        meta["m_centers"] = engine.m_centers
+        # the RESOLVED mode, never "auto": what the final plan ran
+        meta["ghost_mode"] = engine.resolved_ghost_mode(plan)
     return NNGraph.from_neighbor_tables(
         n, engine.neighbor_tables(out), stats=stats, meta=meta)

@@ -22,9 +22,9 @@ from repro_torch.kernels import nng_tile as tnt
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import tree_frontier as ttf
 from tests.test_torch_kernels_gpu import (as_words, frontier_case,
-                                          gap_safe_eps, hamming_points,
-                                          pair_dists, random_words,
-                                          range_deltas)
+                                          gap_safe_eps, grouped_case,
+                                          hamming_points, pair_dists,
+                                          random_words, range_deltas)
 
 U32 = 2.0 ** -24        # fp32 unit roundoff
 
@@ -340,6 +340,127 @@ def test_metric_frontier_matches_reference(monkeypatch, metric, nq, n, d):
 
 
 # ---------------------------------------------------------------------------
+# the grouped tiles (the landmark engine)
+# ---------------------------------------------------------------------------
+
+def _quantile_eps(x, y, metric):
+    """An eps low in the pair distances (3% on a small tile, 0.3% on a
+    large one, where gaps are narrower): for the float metrics in the
+    widest float64 gap near there, at least 1e-4·eps from every pair (so two
+    fp32 summation orders cannot split a pair); for Hamming a pair
+    distance plus 0.5 (exact)."""
+    small = x.shape[0] * y.shape[0] < 50_000
+    quantile = 0.03 if small else 0.003
+    if metric == "hamming":
+        return float(np.quantile(pair_dists(x, y, metric), quantile)) + 0.5
+    return gap_safe_eps(x, y, quantile, metric=metric,
+                        window=20 if small else 200)
+
+
+GROUPED_REF = {"euclidean": (tnt.nng_tile_grouped_ref,
+                             jnt.nng_tile_grouped_ref),
+               "hamming": (tnt.nng_tile_grouped_hamming_ref,
+                           jnt.nng_tile_grouped_hamming_ref),
+               "manhattan": (tnt.nng_tile_grouped_l1_ref,
+                             jnt.nng_tile_grouped_l1_ref)}
+
+
+@pytest.mark.parametrize("metric,q,p,d", [
+    ("euclidean", 256, 512, 16), ("euclidean", 70, 130, 6),
+    ("euclidean", 300, 515, 40), ("hamming", 128, 256, 8),
+    ("hamming", 100, 190, 5), ("manhattan", 128, 256, 8),
+    ("manhattan", 100, 190, 5),
+])
+def test_grouped_tile_matches_reference(monkeypatch, metric, q, p, d):
+    """The shapes of the reference's ``test_nng_tile_grouped_fused`` cases,
+    with eps low in the pair distances (``_quantile_eps``: its own eps
+    leaves some of these tiles without a hit): random groups with padding (-1),
+    shared ids. The wrapper and the plain version against the reference's
+    oracle, its Pallas kernel in interpret mode and its ``*_ref``, bit for
+    bit; the block counters too."""
+    rng = np.random.default_rng(q + p + d)
+    if metric == "hamming":
+        x = rng.integers(0, 2**32, size=(q, d), dtype=np.uint32)
+        y = rng.integers(0, 2**32, size=(p, d), dtype=np.uint32)
+    else:
+        x = rng.normal(size=(q, d)).astype(np.float32)
+        y = rng.normal(size=(p, d)).astype(np.float32)
+    xg = rng.integers(-1, 6, size=q).astype(np.int32)
+    yg = rng.integers(-1, 6, size=p).astype(np.int32)
+    xid = np.arange(q, dtype=np.int32)
+    yid = np.arange(37, 37 + p, dtype=np.int32)
+    xid[:4] = yid[:4]
+    eps = _quantile_eps(x, y, metric)
+    args = [as_words(a) for a in (x, y, xg, yg, xid, yid)]
+    got = tops.nng_tile_bits_grouped(*args, eps, metric=metric)
+    pad = -p % 32
+    plain_fn, ref_fn = GROUPED_REF[metric]
+    padded = [np.pad(y, ((0, pad), (0, 0))), np.pad(yg, (0, pad),
+                                                    constant_values=-1),
+              np.pad(yid, (0, pad), constant_values=-1)]
+    plain = plain_fn(args[0], as_words(padded[0]), args[2],
+                     as_words(padded[1]), args[4], as_words(padded[2]), eps)
+    refs = _reference_modes(monkeypatch, lambda: jops.nng_tile_bits_grouped(
+        x, y, xg, yg, xid, yid, eps, metric=metric))
+    direct = ref_fn(jnp.asarray(x), jnp.asarray(padded[0]), jnp.asarray(xg),
+                    jnp.asarray(padded[1]), jnp.asarray(xid),
+                    jnp.asarray(padded[2]), eps)
+    assert int(got[0].sum()) > 0
+    nw = -(-p // 32)
+    for rc, rb in [r[:2] for r in refs] + [direct]:
+        for ours in (got, plain):
+            np.testing.assert_array_equal(ours[0].numpy(), np.asarray(rc))
+            np.testing.assert_array_equal(as_u32(ours[1])[:, :nw],
+                                          np.asarray(rb)[:, :nw])
+    for ref in refs:
+        assert (int(got[2]), int(got[3])) == (int(ref[2]), int(ref[3]))
+
+
+@pytest.mark.parametrize("q,p,tq,tp", [(600, 1200, 256, 512),
+                                       (600, 1200, 128, 256),
+                                       (96, 300, 32, 128), (40, 256, 8, 128)])
+def test_grouped_block_active_matches_reference(q, p, tq, tp):
+    """Cell-sorted groups with trailing padding (the engine's layout): the
+    live-block map equals the reference's, and it skips blocks."""
+    rng = np.random.default_rng(q + tq)
+    xg = np.sort(rng.integers(0, 50, size=q)).astype(np.int32)
+    yg = np.sort(rng.integers(0, 50, size=p)).astype(np.int32)
+    xg[q - q // 10:] = -1
+    yg[p - p // 7:] = -1
+    xg = np.pad(xg, (0, -q % tq), constant_values=-1)
+    yg = np.pad(yg, (0, -p % tp), constant_values=-1)
+    ours = tops.grouped_block_active(torch.from_numpy(xg),
+                                     torch.from_numpy(yg), tq, tp)
+    ref = jops.grouped_block_active(jnp.asarray(xg), jnp.asarray(yg), tq, tp)
+    np.testing.assert_array_equal(ours.numpy(), np.asarray(ref))
+    assert not ours.all()
+
+
+@pytest.mark.parametrize("metric", ["euclidean", "hamming", "manhattan"])
+def test_grouped_tile_sorted_and_disjoint(metric):
+    """The shared cases of the card's test, on the plain path: cell-sorted
+    rows skip blocks and keep their hits; all-disjoint groups hit nothing.
+    The plain version against the reference's oracle."""
+    for q, p, d, pattern in ((600, 1200, 9, "sorted"),
+                             (300, 515, 40, "disjoint")):
+        x, y, xg, yg, xid, yid, eps = grouped_case(metric, q, p, d, q + d,
+                                                   pattern)
+        cnt, bits, sched, skip = tops.nng_tile_bits_grouped(
+            *(as_words(a) for a in (x, y, xg, yg, xid, yid)), eps,
+            metric=metric)
+        rc, rb, rs, rk = jops.nng_tile_bits_grouped(x, y, xg, yg, xid, yid,
+                                                    eps, metric=metric)
+        np.testing.assert_array_equal(cnt.numpy(), np.asarray(rc))
+        np.testing.assert_array_equal(as_u32(bits), np.asarray(rb))
+        assert (int(sched), int(skip)) == (int(rs), int(rk))
+        assert 0 < int(skip) <= int(sched)
+        if pattern == "disjoint":
+            assert int(skip) == int(sched) and not bits.any()
+        else:
+            assert int(cnt.sum()) > 0
+
+
+# ---------------------------------------------------------------------------
 # dispatch: CPU tensors take the plain versions, the wrappers refuse them
 # ---------------------------------------------------------------------------
 
@@ -365,6 +486,11 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         with pytest.raises(ValueError, match="CUDA tensor"):
             fn(pts, pts, torch.zeros(4), i4,
                torch.zeros((4, 1), dtype=torch.int32), 1.0)
+    for fn, pts in ((tnt.nng_tile_grouped_cuda, x),
+                    (tnt.nng_tile_grouped_hamming_cuda, w),
+                    (tnt.nng_tile_grouped_l1_cuda, x)):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            fn(pts, pts, i4, i4, i4, i4, 1.0)
 
 
 def test_cpu_dispatch_takes_plain_version():
@@ -375,7 +501,10 @@ def test_cpu_dispatch_takes_plain_version():
                 tnt.nng_tile_hamming_cuda.launches,
                 tnt.nng_tile_l1_cuda.launches,
                 ttf.tree_frontier_hamming_cuda.launches,
-                ttf.tree_frontier_l1_cuda.launches)
+                ttf.tree_frontier_l1_cuda.launches,
+                tnt.nng_tile_grouped_cuda.launches,
+                tnt.nng_tile_grouped_hamming_cuda.launches,
+                tnt.nng_tile_grouped_l1_cuda.launches)
     before = counts()
     x = torch.randn(10, 3)
     cnt, bits = tops.nng_tile_bits(x, x, torch.ones(10, dtype=torch.int32), 1.0)
@@ -394,4 +523,8 @@ def test_cpu_dispatch_takes_plain_version():
                                 torch.zeros(8, dtype=torch.int32),
                                 torch.full((10, 1), -1, dtype=torch.int32),
                                 1.0, metric=metric)
+    g = torch.zeros(10, dtype=torch.int32)
+    for metric, pts in (("euclidean", x), ("hamming", w), ("manhattan", x)):
+        tops.nng_tile_bits_grouped(pts, pts, g, g, torch.arange(10),
+                                   torch.arange(10), 1.0, metric=metric)
     assert counts() == before

@@ -6,8 +6,8 @@ reference package, so it runs on a GPU machine that has neither:
 
     python -m pytest -m gpu tests/test_torch_kernels_gpu.py
 
-``gap_safe_eps``, ``random_words``, ``hamming_points``, ``frontier_case``
-and ``range_deltas`` are shared with the CPU tests in
+``gap_safe_eps``, ``random_words``, ``hamming_points``, ``frontier_case``,
+``range_deltas`` and ``grouped_case`` are shared with the CPU tests in
 ``test_torch_kernels.py``.
 
 Tolerances: the Hamming kernels are exact integer arithmetic and must equal
@@ -42,13 +42,14 @@ def pair_dists(x, y, metric="euclidean"):
     return np.sqrt((diff ** 2).sum(-1))
 
 
-def gap_safe_eps(x, y, quantile, rel=1e-4, metric="euclidean"):
-    """An eps in the widest gap between float64 pair distances near the
-    quantile, at least ``rel``·eps away from every pair."""
+def gap_safe_eps(x, y, quantile, rel=1e-4, metric="euclidean", window=200):
+    """An eps in the widest gap between float64 pair distances within
+    ``window`` pairs of the quantile, at least ``rel``·eps away from every
+    pair."""
     d = pair_dists(x, y, metric).ravel()
     d.sort()
     k = int(quantile * len(d))
-    lo, hi = max(k - 200, 0), min(k + 200, len(d) - 1)
+    lo, hi = max(k - window, 0), min(k + window, len(d) - 1)
     j = lo + int(np.argmax(d[lo + 1:hi + 1] - d[lo:hi]))
     eps = 0.5 * float(d[j] + d[j + 1])
     assert np.abs(d - eps).min() > rel * eps, "no gap-safe eps"
@@ -293,3 +294,69 @@ def test_metric_frontier_cuda_all_inactive(cuda_device, metric):
     e, x = FRONTIER_KERNELS[metric](
         *(as_words(a).to(cuda_device) for a in (q, c, rad, leaf)), act, eps)
     assert not e.any() and not x.any()
+
+
+# ---------------------------------------------------------------------------
+# the grouped tiles (the landmark engine's cell-scoped W x W and G x W)
+# ---------------------------------------------------------------------------
+
+def grouped_case(metric, q, p, d, seed, pattern="random"):
+    """x, y, groups, ids (numpy) and an eps for one grouped tile.
+
+    ``pattern``: "random" groups in [-1, 6) (-1 is padding); "sorted"
+    groups in [0, 50), ascending, with trailing padding rows, as the
+    engine's cell-sorted buffers; "disjoint" x groups in [0, 4) and y
+    groups in [10, 14), so no pair may hit. The first 4 x ids equal the
+    first 4 y ids (the self-pair exclusion must fire). Points as
+    and eps as ``tile_case``, but on a small float tile eps higher in the
+    distance distribution (only one pair in several shares a group)."""
+    x, y, _, eps = tile_case(metric, q, p, d, seed)
+    if metric != "hamming" and q * p < 20_000:
+        eps = gap_safe_eps(x, y, 0.05, metric=metric, window=20)
+    rng = np.random.default_rng(seed + 1)
+    if pattern == "random":
+        xg = rng.integers(-1, 6, size=q)
+        yg = rng.integers(-1, 6, size=p)
+    elif pattern == "sorted":
+        xg = np.sort(rng.integers(0, 50, size=q))
+        yg = np.sort(rng.integers(0, 50, size=p))
+        xg[q - q // 15:] = -1
+        yg[p - p // 17:] = -1
+    else:
+        xg = rng.integers(0, 4, size=q)
+        yg = rng.integers(10, 14, size=p)
+    xid = np.arange(q, dtype=np.int32)
+    yid = np.arange(37, 37 + p, dtype=np.int32)
+    xid[:4] = yid[:4]
+    return (x, y, xg.astype(np.int32), yg.astype(np.int32), xid, yid, eps)
+
+
+GROUPED_KERNELS = {"euclidean": tnt.nng_tile_grouped_cuda,
+                   "hamming": tnt.nng_tile_grouped_hamming_cuda,
+                   "manhattan": tnt.nng_tile_grouped_l1_cuda}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", ["euclidean", "hamming", "manhattan"])
+@pytest.mark.parametrize("q,p,d,pattern", [
+    (37, 64, 3, "random"), (1000, 777, 25, "random"),
+    (512, 1024, 128, "random"), (600, 1200, 9, "sorted"),
+    (300, 515, 40, "disjoint")])
+def test_grouped_tile_cuda_matches_plain(cuda_device, metric, q, p, d,
+                                         pattern):
+    """Hamming bit for bit; L2 and L1 off the knife (gap-safe eps). The
+    all-disjoint pattern stores zero words everywhere."""
+    case = grouped_case(metric, q, p, d, q + d, pattern)
+    args = [as_words(a) for a in case[:6]]
+    eps = case[6]
+    kern = GROUPED_KERNELS[metric]
+    before = kern.launches
+    cnt, bits = kern(*(t.to(cuda_device) for t in args), eps)
+    assert kern.launches == before + 1
+    rc, rb, _, _ = tops.nng_tile_bits_grouped(*args, eps, metric=metric)
+    assert torch.equal(cnt.cpu(), rc)
+    assert torch.equal(bits.cpu(), rb)
+    if pattern == "disjoint":
+        assert not bits.any() and not cnt.any()
+    else:
+        assert int(rc.sum()) > 0

@@ -179,7 +179,11 @@ def test_unported_paths_raise():
                                             stack_device_forests)
     pts = synthetic_pointset(16, 3, seed=0)
     with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-        build_nng(pts, 1.0, partition="spatial", device="cpu")
+        build_nng(pts, 1.0, partition="spatial", ghost_mode="ring",
+                  device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
+        build_nng(pts, 1.0, partition="spatial", traversal="tree",
+                  device="cpu")
     forest = DeviceForest.from_tables(
         stack_device_forests(build_block_forests(pts, 1))).rank(0)
     x = torch.from_numpy(pts)
