@@ -64,7 +64,27 @@ each printed as it runs; any failed check raises and exits non-zero:
      Hamming (the [7] stand-in, a depth cut printed with its reason: the
      ghost fanout) and L1 (the [8] points and eps) through the engine,
      their graphs against the point partition's, their kernels against
-     their plain versions and timed [9e].
+     their plain versions and timed [9e];
+ 10. the ghost ring (``ghost_mode="ring"``: each rank's compacted block
+     rotates with its Lemma-1 test as packed cell words) and the spatial
+     tree flavour: the three ghost kernels against their plain versions on
+     ragged inputs with m = 32 and 70 cells and on disjoint cells (zero
+     words) [10a]; the ring call at n = 2^20 with its launches, the ghost
+     kernel against its plain version at rank 0's round-1 launch of that
+     call (captured from it), a profiled engine run, its graph against
+     [3]'s off the knife and the sampled rows against float64 [10b];
+     Hamming at the full [7] stand-in through the ring (or a printed cut
+     when its id tables exceed TABLE_BUDGET), its graph equal to [7]'s bit
+     for bit, its kernel at its own call's launch [10c]; L1 through the
+     ring at [8]'s cut, its graph against [8]'s off the knife, its kernel
+     likewise [10d]; the tree flavour with both ghost modes at 2^20 (the
+     ring's run profiled), the Hamming ring and the L1 collective
+     exchange, each graph against the point partition's, and the tree
+     kernels against their plain versions at a traversal captured from
+     each call [10e]; the three ghost kernels' times at their captured
+     launches beside their bounds over the pairs the function needs (the
+     live blocks' pairs printed beside), their plain versions' and the
+     library yardstick's [10f].
 
 Hamming distances are exact integers: no knife. Two fp32 L1 sums in
 different orders are each within d·u·D of the float64 sum D (u = 2^-24),
@@ -82,6 +102,7 @@ The last lines are the kernels' JSON record, the nvidia-smi line, and
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -115,7 +136,7 @@ SP_CENTERS = 32        # [9]: the engine's default m for 8 ranks
 SP_K_CAP = 1024        # [9]: above [3]'s max degree 966, so no grow (a
                        # grow doubles every capacity of the plan too)
 HAM_SP_N = 131072      # [9e]: the Hamming depth cut (first rows of [7])
-TABLE_BUDGET = 24 << 30  # [9e]: all ranks' W and G id tables on the card
+TABLE_BUDGET = 32 << 30  # [9e], [10c]: all ranks' id tables on the card
 
 # H100 SXM data sheet: fp32 outside the tensor cores, HBM3 bandwidth
 PEAK_FP32 = 67e12
@@ -205,6 +226,12 @@ def main() -> int:
     from repro_torch.kernels.nng_tile import (eps2_f32, eps_int,
                                               hamming_dist, l1_dist,
                                               nng_tile_cuda,
+                                              nng_tile_ghost_cuda,
+                                              nng_tile_ghost_hamming_cuda,
+                                              nng_tile_ghost_hamming_ref,
+                                              nng_tile_ghost_l1_cuda,
+                                              nng_tile_ghost_l1_ref,
+                                              nng_tile_ghost_ref,
                                               nng_tile_grouped_cuda,
                                               nng_tile_grouped_hamming_cuda,
                                               nng_tile_grouped_hamming_ref,
@@ -215,8 +242,10 @@ def main() -> int:
                                               nng_tile_hamming_ref,
                                               nng_tile_l1_cuda,
                                               nng_tile_l1_ref, nng_tile_ref,
-                                              pack_words, unpack_words)
-    from repro_torch.kernels.ops import _pad_rows, grouped_block_active
+                                              pack_words, popcount32,
+                                              unpack_words)
+    from repro_torch.kernels.ops import (_pad_rows, ghost_block_active,
+                                         grouped_block_active)
     from repro_torch.kernels.tree_frontier import (
         TN, TQ, tree_frontier_cuda, tree_frontier_hamming_cuda,
         tree_frontier_hamming_ref, tree_frontier_l1_cuda,
@@ -365,7 +394,7 @@ def main() -> int:
         return a.view(-(-m // TQ), TQ, -1, TN // 32).amax((1, 3)).sum()
 
     def traced_traverse(qp, qids, forest_r, eps, k, q_chunk=None,
-                        metric="euclidean"):
+                        metric="euclidean", qcells=None, ghost=None):
         """``tree_traverse`` of ``qp`` against one rank's forest, each
         frontier launch timed in place (CUDA events) and its inputs' sizes,
         active pairs and active blocks kept; also the first pass's kernel
@@ -397,8 +426,10 @@ def main() -> int:
         tdev.tree_frontier_step, tdev._leaf_range_pack = step_spy, pack_spy
         try:
             t0 = time.perf_counter()
-            res = tree_traverse(qp, qids, torch.zeros_like(qids), forest_r,
-                                eps, k, metric, q_chunk=q_chunk)
+            res = tree_traverse(
+                qp, qids, torch.zeros_like(qids) if qcells is None and
+                ghost is None else qcells, forest_r, eps, k, metric,
+                qghost_bits=ghost, q_chunk=q_chunk)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         finally:
@@ -1013,7 +1044,8 @@ def main() -> int:
                leaf_range_pack_cuda, nng_tile_hamming_cuda, nng_tile_l1_cuda,
                tree_frontier_hamming_cuda, tree_frontier_l1_cuda,
                nng_tile_grouped_cuda, nng_tile_grouped_hamming_cuda,
-               nng_tile_grouped_l1_cuda)
+               nng_tile_grouped_l1_cuda, nng_tile_ghost_cuda,
+               nng_tile_ghost_hamming_cuda, nng_tile_ghost_l1_cuda)
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     clk_mhz = float(nvidia_smi("clocks.max.sm", "csv,noheader,nounits"))
     popc_rate = POPC_PER_CLK_SM * n_sm * clk_mhz * 1e6
@@ -1348,7 +1380,7 @@ def main() -> int:
         popc_rate, lambda a, b: torch.cdist(a, b, p=0),
         prep=lambda t: unpack_words(t).float())
     h_max_deg = int(gh.degrees().max())
-    del H, hx, hy, hones, h_first, h_launch, gh, ght
+    del H, hx, hy, hones, h_first, h_launch, ght      # gh: [10c]
     torch.cuda.empty_cache()
     print(f"[7d] script wall {time.perf_counter() - t_start:.1f} s")
 
@@ -1499,6 +1531,11 @@ def main() -> int:
                            nng_tile_grouped_hamming_ref),
                "manhattan": (nng_tile_grouped_l1_cuda,
                              nng_tile_grouped_l1_ref)}
+    GHOST = {"euclidean": (nng_tile_ghost_cuda, nng_tile_ghost_ref),
+             "hamming": (nng_tile_ghost_hamming_cuda,
+                         nng_tile_ghost_hamming_ref),
+             "manhattan": (nng_tile_ghost_l1_cuda, nng_tile_ghost_l1_ref)}
+    TREE_TAG = {"euclidean": "", "hamming": "_hamming", "manhattan": "_l1"}
 
     def spatial_setup(label, X, eps, metric, k_cap):
         """The spatial engine on X: the host Voronoi argmin and LPT, the
@@ -1559,13 +1596,29 @@ def main() -> int:
         cnt, bits = kern(x, y, xg, yg, xid, yid, eps)
         yp, ygp, yidp = (_pad_rows(t, 32, v)[0]
                          for t, v in ((y, 0), (yg, -1), (yid, -1)))
+        return vs_plain(label, metric, x, y, cnt, bits, lambda sl: plain(
+            x[sl], yp, xg[sl], ygp, xid[sl], yidp, eps), eps, rows, limit)
+
+    def ghost_vs_plain(label, metric, x, y, gb, yg, eps, rows=4096,
+                       limit=None):
+        """A ghost kernel against its plain version, as
+        ``grouped_vs_plain``."""
+        kern, plain = GHOST[metric]
+        cnt, bits = kern(x, y, gb, yg, eps)
+        yp, ygp = _pad_rows(y, 32)[0], _pad_rows(yg, 32, -1)[0]
+        return vs_plain(label, metric, x, y, cnt, bits, lambda sl: plain(
+            x[sl], yp, gb[sl], ygp, eps), eps, rows, limit)
+
+    def vs_plain(label, metric, x, y, cnt, bits, plain_rows, eps, rows,
+                 limit):
+        """A fused kernel's (cnt, bits) against ``plain_rows(rows)``, the
+        plain version on a slice of x's rows."""
         nw = bits.shape[1]
         q_ = x.shape[0] if limit is None else min(limit, x.shape[0])
         di, dj, err, plain_ms = [], [], 0, 0.0
         for r0 in range(0, q_, rows):
             sl = slice(r0, min(r0 + rows, q_))
-            (c0, b0), ms = events_ms(torch, lambda: plain(
-                x[sl], yp, xg[sl], ygp, xid[sl], yidp, eps))
+            (c0, b0), ms = events_ms(torch, lambda: plain_rows(sl))
             plain_ms += ms
             err = max(err, int((cnt[sl] - c0).abs().max()))
             u = unpack_words(bits[sl])
@@ -1597,8 +1650,13 @@ def main() -> int:
     def live_pairs(xg, yg, q_, p_):
         """Pairs in the live 128 x 128 blocks of the grouped kernel (its
         own block geometry and skip rule), and those blocks' count."""
-        live = grouped_block_active(_pad_rows(xg, 128, -1)[0],
-                                    _pad_rows(yg, 128, -1)[0], 128, 128)
+        return live_pairs_of(grouped_block_active(
+            _pad_rows(xg, 128, -1)[0], _pad_rows(yg, 128, -1)[0], 128, 128),
+            q_, p_)
+
+    def live_pairs_of(live, q_, p_):
+        """Pairs in the live blocks of a (q_, p_) tile's 128 x 128 map, and
+        those blocks' count."""
         rq = torch.full((live.shape[0],), 128, device=dev)
         rp = torch.full((live.shape[1],), 128, device=dev)
         rq[-1] = q_ - 128 * (live.shape[0] - 1)
@@ -1615,35 +1673,51 @@ def main() -> int:
     def grouped_times(label, metric, x, y, xg, yg, xid, yid, eps, feat,
                       pair_ops, rate, library, plain_ms, prep=lambda t: t):
         """The grouped kernel at one of the path's launches: CUDA-event
-        median, bound from its live blocks' pairs (``pair_ops`` operations
-        each at ``rate``) and from its bytes (x, y, four int32 vectors in;
-        cnt and the words out), the plain version's time (measured by the
-        caller), and the library call on the same operands in rows of 8192.
-        Returns (ms, bound ms, bound_by, library ms)."""
+        median, bound from the pairs the function needs (same valid cell;
+        ``pair_ops`` operations each at ``rate``) and from its bytes (x, y,
+        four int32 vectors in; cnt and the words out), the plain version's
+        time (measured by the caller), and the library call on the same
+        operands in rows of 8192. Returns (ms, bound ms, bound_by, library
+        ms)."""
         kern = GROUPED[metric][0]
         q_, p_ = x.shape[0], y.shape[0]
         ms = cuda_ms(torch, lambda: kern(x, y, xg, yg, xid, yid, eps), 5)
         pairs, blocks = live_pairs(xg, yg, q_, p_)
-        need = same_cell_pairs(xg, yg)
-        ops = pair_ops * pairs
         nbytes = 4 * ((q_ + p_) * feat + 2 * (q_ + p_) + q_
                       + q_ * -(-p_ // 32))
+        return fused_times(label, ms, x, y, feat, same_cell_pairs(xg, yg),
+                           "same-cell", pairs, blocks, nbytes, pair_ops,
+                           rate, library, plain_ms, prep)
+
+    def fused_times(label, ms, x, y, feat, need, what, pairs, blocks,
+                    nbytes, pair_ops, rate, library, plain_ms, prep):
+        """Print a grouped or ghost kernel's time ``ms`` beside its bound
+        (``pair_ops`` operations for each of the ``need`` pairs the function
+        needs at ``rate``, or ``nbytes`` at PEAK_BYTES), the same over the
+        ``pairs`` of the kernel's live blocks, its plain version's time and
+        the library call's on x and y in rows of 8192. Returns (ms, bound
+        ms, bound_by, library ms)."""
+        q_, p_ = x.shape[0], y.shape[0]
+        ops = pair_ops * need
         b_ops, b_bytes = ops / rate * 1e3, nbytes / PEAK_BYTES * 1e3
+        b_live = pair_ops * pairs / rate * 1e3
         by = "operations" if b_ops >= b_bytes else "bytes"
         lib_ms = library_rows(library, prep(x), prep(y))
         total = -(-q_ // 128) * -(-p_ // 128)
-        print(f"{label} ({q_}x{p_}x{feat}): {ms:.3f} ms median; {blocks} of "
-              f"{total} kernel blocks live, {pairs} pairs in them "
-              f"({need} same-cell pairs); bound {max(b_ops, b_bytes):.3f} ms "
-              f"({by}: {ops:.4g} operations of the live pairs at "
-              f"{rate:.4g}/s = {b_ops:.3f} ms, {nbytes} bytes at "
-              f"{PEAK_BYTES / 1e12:g} TB/s = {b_bytes:.3f} ms); "
-              f"{ops / ms / 1e9:.4g} T operations/s; plain version "
-              f"{plain_ms:.3f} ms (one run, row chunks); library "
+        print(f"{label} ({q_}x{p_}x{feat}): {ms:.3f} ms median; bound "
+              f"{max(b_ops, b_bytes):.3f} ms ({by}: {ops:.4g} operations of "
+              f"the {need} {what} pairs the function needs at {rate:.4g}/s "
+              f"= {b_ops:.3f} ms, {nbytes} bytes at {PEAK_BYTES / 1e12:g} "
+              f"TB/s = {b_bytes:.3f} ms); {ops / ms / 1e9:.4g} T needed "
+              f"operations/s; {blocks} of {total} kernel blocks live, "
+              f"{pairs} pairs in them ({pairs / max(need, 1):.3f}x the "
+              f"needed pairs; {b_live:.3f} ms at {rate:.4g}/s); plain "
+              f"version {plain_ms:.3f} ms (one run, row chunks); library "
               f"{lib_ms:.3f} ms (one run in rows of 8192)")
         return ms, max(b_ops, b_bytes), by, lib_ms
 
-    def spatial_call(label, pts_, eps, metric, k_cap, profile_run=False):
+    def spatial_call(label, pts_, eps, metric, k_cap, ghost_mode="coll",
+                     traversal="tiles"):
         """``build_nng(partition="spatial")`` on the 8 logical ranks, every
         kernel's launches counted from this call alone."""
         for fn in KERNELS:
@@ -1652,18 +1726,21 @@ def main() -> int:
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         g_ = build_nng(pts_, eps, metric=metric, partition="spatial",
-                       mesh=mesh, k_cap=k_cap)
+                       mesh=mesh, k_cap=k_cap, ghost_mode=ghost_mode,
+                       traversal=traversal)
         wall_ = time.perf_counter() - t0
         st_ = g_.stats
         launches_ = {fn.__name__[:-5]: fn.launches for fn in KERNELS
                      if fn.launches}
         print(f"{label} build_nng(metric={metric!r}, partition='spatial', "
+              f"ghost_mode={ghost_mode!r}, traversal={traversal!r}, "
               f"n={len(pts_)}, eps={eps:.9g}, nranks={NRANKS}, "
               f"k_cap={k_cap}): {g_.num_edges} edges, mean degree "
               f"{g_.avg_degree:.2f}, max degree {int(g_.degrees().max())}; "
               f"call wall {wall_:.3f} s, elapsed_s {st_.elapsed_s:.3f} "
-              f"(steady-state run), replans {st_.replans}, ghost_mode "
-              f"{g_.meta['ghost_mode']}, planner {g_.meta['planner']}")
+              f"(steady-state run), build_s {st_.build_s:.3f}, replans "
+              f"{st_.replans}, ghost_mode {g_.meta['ghost_mode']}, planner "
+              f"{g_.meta['planner']}")
         print(f"{label} plan {g_.meta['plan']}")
         print(f"{label} tiles_scheduled {st_.tiles_scheduled:.0f} "
               f"tiles_skipped {st_.tiles_skipped:.0f} dists_evaluated "
@@ -1672,9 +1749,16 @@ def main() -> int:
               f"{json.dumps(st_.comm_bytes)}; max_memory_allocated "
               f"{torch.cuda.max_memory_allocated()} B")
         print(f"{label} launches {json.dumps(launches_)}")
-        kname = GROUPED[metric][0].__name__[:-5]
-        check(launches_.get(kname, 0) > 0
-              and launches_.get("bits_to_cols", 0) > 0,
+        if traversal == "tiles":
+            need = [GROUPED[metric][0].__name__[:-5], "bits_to_cols"]
+            if ghost_mode == "ring":
+                need.append(GHOST[metric][0].__name__[:-5])
+        else:
+            need = [f"tree_frontier{TREE_TAG[metric]}", "leaf_range_pack",
+                    "bits_to_cols"]
+        check(g_.meta["ghost_mode"] == ghost_mode,
+              f"{label}: ran {g_.meta['ghost_mode']}, not {ghost_mode}")
+        check(all(launches_.get(k, 0) > 0 for k in need),
               f"{label}: a kernel of the spatial path never launched: "
               f"{launches_}")
         check(st_.replans == 0, f"{label}: {st_.replans} grows")
@@ -1756,6 +1840,7 @@ def main() -> int:
           f"spatial graph, {n_pt} only in the point graph")
     knife_check("[9c] spatial vs point", P, P, i, j, eps2)
     sample_check("[9c]", gs, P)
+    coll_stats = gs.stats           # [10b] sets the ring beside it
     del P, gs
     print(f"[9c] script wall {time.perf_counter() - t_start:.1f} s")
 
@@ -1813,6 +1898,7 @@ def main() -> int:
     print(f"[9e] hamming: the spatial graph equals the point-partition "
           f"graph bit for bit ({gsh.num_edges} edges)")
     hW, hWids, hWgrp, hG, hGids, hGgrp = bufs_h[0]
+    coll_h = (h_n, gsh.stats.dists_evaluated)      # [10c] sets the ring
     del bufs_h, gsh, gph, eng_hc
     _, _, hw_plain_ms, e_ = grouped_vs_plain(
         "[9e] nng_tile_grouped_hamming rank 0 W x W", "hamming", hW, hW,
@@ -1852,7 +1938,7 @@ def main() -> int:
           f"spatial graph, {n_pt} only in the point graph, the farthest at "
           f"|d64-eps| = {far:.4g} u·eps (knife {DIM} u·eps)")
     check(far <= DIM, "[9e] the L1 spatial graph differs off the knife")
-    del P, gsl, gl
+    del P, gsl                                       # gl: [10d], [10e]
     _, _, lw_plain_ms, e_ = grouped_vs_plain(
         "[9e] nng_tile_grouped_l1 rank 0 W x W", "manhattan", lW, lW, lWgrp,
         lWgrp, lWids, lWids, EPS8, rows=2048)
@@ -1868,6 +1954,337 @@ def main() -> int:
     del lW, lWids, lWgrp, lG, lGids, lGgrp
     torch.cuda.empty_cache()
     print(f"[9e] script wall {time.perf_counter() - t_start:.1f} s")
+
+    # -- 10. the ghost ring and the spatial tree flavour ---------------------
+    @contextlib.contextmanager
+    def rank0_launch(name, at, want=lambda args, kw: True):
+        """Spy on ``tdev.<name>`` while the body runs: of its calls that
+        ``want``, keep the arguments (args, kwargs) of the first and of the
+        next whose argument ``at`` is the first's (rank 0's W or cell
+        forest): on the ring, rank 0's round-1 launch; under the collective
+        exchange, rank 0's G x W traversal. Yields the list; its last entry
+        is the kept launch."""
+        kept, orig = [], getattr(tdev, name)
+
+        def spy(*args, **kw):
+            if len(kept) < 2 and want(args, kw) and (
+                    not kept or args[at] is kept[0][0][at]):
+                kept.append((args, kw))
+            return orig(*args, **kw)
+
+        setattr(tdev, name, spy)
+        try:
+            yield kept
+        finally:
+            setattr(tdev, name, orig)
+
+    def ring_tables(label, plan, k_cap):
+        """The id tables the ring's evaluations and W x W keep at ``k_cap``
+        under ``plan``, for all ranks on the card (printed, returned)."""
+        evals = NRANKS * (NRANKS // 2 + 1) - (
+            NRANKS // 2 if NRANKS % 2 == 0 else 0)
+        ring_t = evals * plan.cap_rank * k_cap * 4
+        w_t = NRANKS * NRANKS * plan.cap_coal * k_cap * 4
+        print(f"{label} plan cap_coal {plan.cap_coal}, cap_rank "
+              f"{plan.cap_rank}: {evals} ring evaluations of {plan.cap_rank} "
+              f"rows at k_cap {k_cap}: id tables {ring_t} B, W x W {w_t} B, "
+              f"{ring_t + w_t} B for all ranks")
+        return ring_t + w_t
+
+    def ring_launch(label, kept):
+        """The ghost launch ``rank0_launch`` kept -> (x, y, words, y cells,
+        eps), its ghost cells printed."""
+        x, y, gb, yg, eps = kept[-1][0][:5]
+        print(f"{label} rank 0's round-1 launch: {x.shape[0]} visiting rows "
+              f"against {y.shape[0]}, {int(popcount32(gb).sum())} ghost "
+              f"cells set ({gb.shape[1]} words a row)")
+        return x, y, gb, yg, eps
+
+    def ghost_live(gb, yg):
+        """(pairs, blocks) in the ghost kernel's live 128 x 128 blocks (its
+        own block geometry and skip rule), and the pairs the function
+        needs: a row against a column of a cell in the row's ghost set."""
+        live = ghost_block_active(_pad_rows(gb, 128)[0],
+                                  _pad_rows(yg, 128, -1)[0], 128, 128)
+        pairs, blocks = live_pairs_of(live, gb.shape[0], yg.shape[0])
+        xc = unpack_words(gb).sum(0)
+        yc = torch.bincount(yg[yg >= 0].long(), minlength=xc.shape[0])
+        return pairs, blocks, int((xc.long() * yc.long()).sum())
+
+    def ghost_times(label, metric, launch, feat, pair_ops, rate, library,
+                    plain_ms, prep=lambda t: t):
+        """The ghost kernel at one of the path's launches (x, y, words, y
+        cells, eps), as ``grouped_times``: the needed pairs are a row
+        against a column of a cell in its ghost set; bytes are x, y, the
+        ghost words and y's cells in, cnt and the words out."""
+        x, y, gb, yg, eps = launch
+        kern = GHOST[metric][0]
+        q_, p_ = x.shape[0], y.shape[0]
+        ms = cuda_ms(torch, lambda: kern(x, y, gb, yg, eps), 5)
+        pairs, blocks, need = ghost_live(gb, yg)
+        nbytes = 4 * ((q_ + p_) * feat + q_ * gb.shape[1] + p_ + q_
+                      + q_ * -(-p_ // 32))
+        return fused_times(label, ms, x, y, feat, need, "ghost-cell", pairs,
+                           blocks, nbytes, pair_ops, rate, library,
+                           plain_ms, prep)
+
+    def spatial_tree_kernels(label, metric, kept):
+        """The spatial tree path's traversal that ``rank0_launch`` kept,
+        traced again: its widest frontier level against the metric's plain
+        version, and its first leaf_range_pack against the plain version
+        (bit-identical). Returns the worst count difference."""
+        args, kw = kept[-1]
+        qp, qids, qcells, forest_r, eps, k_cap = args[:6]
+        ghost = kw.get("ghost")
+        _, wall_, lin, fst, packs = traced_traverse(
+            qp, qids, forest_r, eps, k_cap, metric=metric, qcells=qcells,
+            ghost=ghost)
+        lv = max(range(len(fst)), key=lambda l: int(tdev._popcount(fst[l][4])))
+        q, c, rad, leaf, act = fst[lv][:5]
+        name = f"tree_frontier{TREE_TAG[metric]}"
+        what = ("rank 0's round-1 ring traversal" if ghost is not None
+                else "rank 0's G x W traversal")
+        head = (f"{label} {name} at {what}, level {lv} of {len(fst)} "
+                f"({q.shape[0]}x{c.shape[0]}, {int(tdev._popcount(act))} "
+                f"active pairs; {len(lin)} launches, {wall_:.3f} s)")
+        if metric == "euclidean":
+            err = frontier_vs_plain(head, q, c, rad, leaf, act)
+        else:
+            kern, plain = ((tree_frontier_hamming_cuda,
+                            tree_frontier_hamming_ref)
+                           if metric == "hamming" else
+                           (tree_frontier_l1_cuda, tree_frontier_l1_ref))
+            err = frontier_vs_plain_m(head, kern, plain, q, c, rad, leaf, act,
+                                      eps)
+        dl, li, qi = packs[0]
+        nl = li.shape[0]
+        c1, b1 = leaf_range_pack_cuda(dl, li, qi)
+        c0, b0 = leaf_range_pack_ref(dl[:, :nl], li, qi)
+        check(torch.equal(c1, c0) and torch.equal(b1, b0),
+              f"{label} leaf_range_pack differs from its plain version")
+        print(f"{label} leaf_range_pack at that traversal's first pass "
+              f"({dl.shape[0]} rows x {nl} leaf slots): bit-identical")
+        del lin, fst, packs
+        return err
+
+    def ghost_arg(args, kw):
+        return kw.get("ghost") is not None
+
+    print(f"[10] the ghost ring (ghost_mode='ring') and the spatial tree "
+          f"flavour; script wall {time.perf_counter() - t_start:.1f} s")
+    # -- 10a. the ghost kernels against their plain versions ----------------
+    ghost_err = {m_: 0 for m_ in GHOST}
+    for metric in GHOST:
+        for q, p, d, m_, pattern in ((37, 64, 3, 32, "random"),
+                                     (1000, 777, 25, 70, "random"),
+                                     (600, 1200, 9, 70, "sorted"),
+                                     (300, 515, 40, 32, "disjoint")):
+            if metric == "hamming":
+                x, y = (torch.from_numpy(rng.integers(
+                    -2**31, 2**31, size=(r_, d)).astype(np.int32)).to(dev)
+                    for r_ in (q, p))
+                eps = float(torch.quantile(hamming_dist(x, y).flatten()
+                                           .float(), 0.05)) + 0.5
+            else:
+                x, y = (torch.from_numpy(rng.normal(size=(r_, d)).astype(
+                    np.float32)).to(dev) for r_ in (q, p))
+                dd = torch.cdist(x, y, p=1 if metric == "manhattan" else 2)
+                eps = float(torch.quantile(dd.flatten(), 0.05))
+            if pattern == "random":
+                yg = rng.integers(-1, m_, size=p)
+                sets = rng.random((q, m_)) < 0.3
+            elif pattern == "sorted":
+                yg = np.sort(rng.integers(0, m_, size=p))
+                yg[p - p // 17:] = -1
+                sets = np.zeros((q, m_), bool)
+                for i_ in range(q):
+                    sets[i_, np.clip(i_ * m_ // q + rng.integers(-2, 3, 3),
+                                     0, m_ - 1)] = True
+            else:
+                yg = rng.integers(m_ // 2, m_, size=p)
+                sets = rng.random((q, m_)) < 0.3
+                sets[:, m_ // 2:] = False
+            gb = pack_words(torch.nn.functional.pad(
+                torch.from_numpy(sets), (0, -m_ % 32)).to(dev))
+            yg = torch.from_numpy(yg.astype(np.int32)).to(dev)
+            cnt, bits, _, e_ = ghost_vs_plain(
+                f"[10a] {GHOST[metric][0].__name__[:-5]} {pattern} "
+                f"({q},{p},{d}) m={m_}", metric, x, y, gb, yg, eps)
+            ghost_err[metric] = max(ghost_err[metric], e_)
+            if pattern == "disjoint":
+                check(not bits.any() and not cnt.any(),
+                      f"[10a] {metric}: disjoint ghost cells set a word")
+    print("[10a] every disjoint case stored zero words")
+    torch.cuda.empty_cache()
+    print(f"[10a] script wall {time.perf_counter() - t_start:.1f} s")
+
+    # -- 10b. the ring call at [3]'s shape ------------------------------------
+    with rank0_launch("nng_tile_bits_ghost", 1) as kept:
+        gr, r_launches = spatial_call("[10b]", pts, EPS, "euclidean",
+                                      SP_K_CAP, ghost_mode="ring")
+    ring_tables("[10b]", gr.meta["plan"], SP_K_CAP)
+    l2_launch = ring_launch("[10b] nng_tile_ghost", kept)
+    del kept
+    print(f"[10b] nng_tile_ghost launches on this call: "
+          f"{r_launches['nng_tile_ghost']}; dists_evaluated "
+          f"{gr.stats.dists_evaluated:.6g} against the collective exchange's "
+          f"{coll_stats.dists_evaluated:.6g} ([9b]); comm_bytes ghost_ring "
+          f"{gr.stats.comm_bytes['ghost_ring']:.6g} against ghost "
+          f"{coll_stats.comm_bytes['ghost']:.6g}")
+    _, _, gl2_plain_ms, e_ = ghost_vs_plain(
+        "[10b] nng_tile_ghost at rank 0's round-1 launch", "euclidean",
+        *l2_launch)
+    ghost_err["euclidean"] = max(ghost_err["euclidean"], e_)
+    eng_r = SpatialPartitionEngine(pts, EPS, mesh, "euclidean",
+                                   k_cap=SP_K_CAP, ghost_mode="ring")
+    out, _ = profiled_run("[10b]", lambda: eng_r.run(gr.meta["plan"]))
+    del out, eng_r
+    P = torch.from_numpy(pts).to(dev)
+    i, j, (n_r, n_pt) = edge_diff(gr, g, N)
+    print(f"[10b] ring graph vs [3]'s point-partition graph: "
+          f"{gr.num_edges} vs {g.num_edges} edges, {n_r} only in the ring "
+          f"graph, {n_pt} only in the point graph")
+    knife_check("[10b] ring vs point", P, P, i, j, eps2)
+    sample_check("[10b]", gr, P)
+    del P, gr
+    torch.cuda.empty_cache()
+    print(f"[10b] script wall {time.perf_counter() - t_start:.1f} s")
+
+    # -- 10c. Hamming at the full nng-word2bits stand-in through the ring ----
+    # sized from [9e]'s device plan of the full stand-in (the same planner
+    # the ring runs)
+    k_r = max(METRIC_K_CAP, -(-(h_max_deg + 1) // 1024) * 1024)
+    h_tables = ring_tables("[10c] hamming ([9e]'s plan of the full points)",
+                           plan_h, k_r)
+    h_n = HN if h_tables <= TABLE_BUDGET else HAM_SP_N
+    print(f"[10c] hamming at the full {HN} x {HW} words, k_cap {k_r} (above "
+          f"[7]'s max degree {h_max_deg}): the ring's and W x W's id tables "
+          f"take {h_tables} B for all {NRANKS} ranks against a budget of "
+          f"{TABLE_BUDGET} B: " + ("no depth cut" if h_n == HN else
+                                   f"depth cut to the first {h_n} points"))
+    with rank0_launch("nng_tile_bits_ghost", 1) as kept:
+        grh, rh_launches = spatial_call("[10c] hamming", hpts[:h_n], HAM_EPS,
+                                        "hamming", k_r, ghost_mode="ring")
+    h_launch = ring_launch("[10c] nng_tile_ghost_hamming", kept)
+    del kept
+    gph = gh if h_n == HN else graph_call(
+        f"[10c] hamming point partition at n {h_n}", hpts[:h_n], HAM_EPS,
+        "hamming", "tiles")[0]
+    check(np.array_equal(grh.edge_key(), gph.edge_key()),
+          "[10c] the hamming ring graph differs from the point graph")
+    print(f"[10c] hamming: the ring graph equals the point-partition graph "
+          f"bit for bit ({grh.num_edges} edges); dists_evaluated "
+          f"{grh.stats.dists_evaluated:.6g} against the point partition's "
+          f"{gh.stats.dists_evaluated:.6g} ([7b], n {HN}) and the collective "
+          f"exchange's {coll_h[1]:.6g} ([9e], n {coll_h[0]}); comm_bytes "
+          f"{json.dumps(grh.stats.comm_bytes)}")
+    _, _, gh_plain_ms, e_ = ghost_vs_plain(
+        "[10c] nng_tile_ghost_hamming at rank 0's round-1 launch", "hamming",
+        *h_launch)
+    ghost_err["hamming"] = max(ghost_err["hamming"], e_)
+    del grh                                          # gph: [10e]
+    torch.cuda.empty_cache()
+    print(f"[10c] script wall {time.perf_counter() - t_start:.1f} s")
+
+    # -- 10d. L1 through the ring at [8]'s cut -------------------------------
+    with rank0_launch("nng_tile_bits_ghost", 1) as kept:
+        grl, rl_launches = spatial_call("[10d] manhattan", pts8, EPS8,
+                                        "manhattan", METRIC_K_CAP,
+                                        ghost_mode="ring")
+    ring_tables("[10d] manhattan", grl.meta["plan"], METRIC_K_CAP)
+    l1_launch = ring_launch("[10d] nng_tile_ghost_l1", kept)
+    del kept
+    P = torch.from_numpy(pts8).to(dev)
+    i, j, (n_r, n_pt) = edge_diff(grl, gl, N8)
+    off = (l1_d64(P[i], P[j]) - EPS8).abs() / (U32 * EPS8)
+    far = float(off.max()) if len(off) else 0.0
+    print(f"[10d] manhattan ring graph vs [8]'s point-partition graph: "
+          f"{grl.num_edges} vs {gl.num_edges} edges, {n_r} only in the ring "
+          f"graph, {n_pt} only in the point graph, the farthest at "
+          f"|d64-eps| = {far:.4g} u·eps (knife {DIM} u·eps)")
+    check(far <= DIM, "[10d] the L1 ring graph differs off the knife")
+    del P, grl
+    _, _, gl1_plain_ms, e_ = ghost_vs_plain(
+        "[10d] nng_tile_ghost_l1 at rank 0's round-1 launch", "manhattan",
+        *l1_launch, rows=2048)
+    ghost_err["manhattan"] = max(ghost_err["manhattan"], e_)
+    torch.cuda.empty_cache()
+    print(f"[10d] script wall {time.perf_counter() - t_start:.1f} s")
+
+    # -- 10e. the spatial tree flavour ---------------------------------------
+    P = torch.from_numpy(pts).to(dev)
+    for mode in ("coll", "ring"):
+        with rank0_launch("_query_tree", 3, ghost_arg) as kept:
+            gt_, _ = spatial_call(f"[10e] tree {mode}", pts, EPS,
+                                  "euclidean", SP_K_CAP, ghost_mode=mode,
+                                  traversal="tree")
+        i, j, (n_t, n_pt) = edge_diff(gt_, g, N)
+        print(f"[10e] tree {mode} graph vs [3]'s point-partition graph: "
+              f"{gt_.num_edges} vs {g.num_edges} edges, {n_t} only in the "
+              f"tree graph, {n_pt} only in the point graph")
+        knife_check(f"[10e] tree {mode} vs point", P, P, i, j, eps2)
+        plan_t = gt_.meta["plan"]
+        del gt_
+        if mode == "ring":
+            eng_t = SpatialPartitionEngine(pts, EPS, mesh, "euclidean",
+                                           k_cap=SP_K_CAP, ghost_mode="ring",
+                                           traversal="tree")
+            out, _ = profiled_run("[10e] tree ring", lambda: eng_t.run(plan_t))
+            del out, eng_t
+    del P
+    torch.cuda.empty_cache()
+    front_err = max(front_err, spatial_tree_kernels("[10e]", "euclidean",
+                                                    kept))
+    with rank0_launch("_query_tree", 3, ghost_arg) as kept:
+        gth, _ = spatial_call("[10e] hamming tree ring", hpts[:h_n],
+                              HAM_EPS, "hamming", k_r, ghost_mode="ring",
+                              traversal="tree")
+    check(np.array_equal(gth.edge_key(), gph.edge_key()),
+          "[10e] the hamming tree ring graph differs from the point graph")
+    print(f"[10e] hamming tree ring graph equals the point-partition graph "
+          f"bit for bit ({gth.num_edges} edges)")
+    del gth, gph
+    ham_err = max(ham_err, spatial_tree_kernels("[10e] hamming", "hamming",
+                                                kept))
+    with rank0_launch("_query_tree", 3) as kept:
+        gtl, _ = spatial_call("[10e] manhattan tree coll", pts8, EPS8,
+                              "manhattan", METRIC_K_CAP, traversal="tree")
+    P = torch.from_numpy(pts8).to(dev)
+    i, j, (n_t, n_pt) = edge_diff(gtl, gl, N8)
+    off = (l1_d64(P[i], P[j]) - EPS8).abs() / (U32 * EPS8)
+    far = float(off.max()) if len(off) else 0.0
+    print(f"[10e] manhattan tree coll graph vs [8]'s tiles graph: "
+          f"{gtl.num_edges} vs {gl.num_edges} edges, {n_t} / {n_pt} only in "
+          f"one, the farthest at |d64-eps| = {far:.4g} u·eps (knife {DIM} "
+          f"u·eps)")
+    check(far <= DIM, "[10e] the L1 tree graph differs off the knife")
+    del P, gtl
+    l1_err = max(l1_err, spatial_tree_kernels("[10e] manhattan",
+                                              "manhattan", kept))
+    del kept
+    torch.cuda.empty_cache()
+    print(f"[10e] script wall {time.perf_counter() - t_start:.1f} s")
+
+    # -- 10f. the ghost kernels' times at the path's launches -----------------
+    gt_l2 = ghost_times(
+        "[10f] nng_tile_ghost at rank 0's round-1 launch", "euclidean",
+        l2_launch, DIM, 2 * DIM, PEAK_FP32, lambda a, b: torch.mm(a, b.T),
+        gl2_plain_ms)
+    gt_h = ghost_times(
+        "[10f] nng_tile_ghost_hamming at rank 0's round-1 launch", "hamming",
+        h_launch, HW, HW, popc_rate, lambda a, b: torch.cdist(a, b, p=0),
+        gh_plain_ms, prep=lambda t: unpack_words(t).float())
+    gt_l1 = ghost_times(
+        "[10f] nng_tile_ghost_l1 at rank 0's round-1 launch", "manhattan",
+        l1_launch, DIM, 2 * DIM, l1_rate,
+        lambda a, b: torch.cdist(a, b, p=1), gl1_plain_ms)
+    print(f"[10f] launches: nng_tile_ghost {r_launches['nng_tile_ghost']} "
+          f"([10b]), nng_tile_ghost_hamming "
+          f"{rh_launches['nng_tile_ghost_hamming']} ([10c]), "
+          f"nng_tile_ghost_l1 {rl_launches['nng_tile_ghost_l1']} ([10d])")
+    del l2_launch, h_launch, l1_launch, gh, gl
+    torch.cuda.empty_cache()
+    print(f"[10f] script wall {time.perf_counter() - t_start:.1f} s")
 
     record = {"kernels": [
         {"name": "nng_tile", "route": "cuda",
@@ -1948,6 +2365,27 @@ def main() -> int:
          "max_abs_err": grp_err["manhattan"], "ms": grp_l[0],
          "plain_ms": lw_plain_ms, "bound_ms": grp_l[1], "bound_by": grp_l[2],
          "library_ms": grp_l[3]},
+        {"name": "nng_tile_ghost", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/nng_tile_ghost.cu",
+         "replaces": "src/repro/kernels/nng_tile.py:647",
+         "launches": r_launches["nng_tile_ghost"],
+         "max_abs_err": ghost_err["euclidean"], "ms": gt_l2[0],
+         "plain_ms": gl2_plain_ms, "bound_ms": gt_l2[1],
+         "bound_by": gt_l2[2], "library_ms": gt_l2[3]},
+        {"name": "nng_tile_ghost_hamming", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/nng_tile_ghost_hamming.cu",
+         "replaces": "src/repro/kernels/nng_tile.py:719",
+         "launches": rh_launches["nng_tile_ghost_hamming"],
+         "max_abs_err": ghost_err["hamming"], "ms": gt_h[0],
+         "plain_ms": gh_plain_ms, "bound_ms": gt_h[1], "bound_by": gt_h[2],
+         "library_ms": gt_h[3]},
+        {"name": "nng_tile_ghost_l1", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/nng_tile_ghost_l1.cu",
+         "replaces": "src/repro/kernels/nng_tile.py:789",
+         "launches": rl_launches["nng_tile_ghost_l1"],
+         "max_abs_err": ghost_err["manhattan"], "ms": gt_l1[0],
+         "plain_ms": gl1_plain_ms, "bound_ms": gt_l1[1],
+         "bound_by": gt_l1[2], "library_ms": gt_l1[3]},
     ]}
     print(json.dumps(record))
     print(smi)

@@ -24,10 +24,14 @@ d(c_me, c_p) > r_me + r_p + eps cannot hold an ε-pair, so it is skipped.
 The landmark engine (Algorithms 5+6, ``landmark_run``) runs on the same
 logical ranks: Voronoi cells over sampled centres, coalesced onto ranks by
 a capacity-padded all-to-all (``_all_to_all`` stands in for the tiled
-``all_to_all``), Lemma-1 ε-ghost copies exchanged the same way
-(``ghost_mode="coll"``), and the cell-sorted W x W and G x W buffers
-through the grouped tile (``ops.nng_tile_bits_grouped``). Its capacities
-come from ``plan_landmark_device``, one counting pass over the ranks.
+``all_to_all``), and Lemma-1 ε-ghosts either exchanged the same way as
+copies (``ghost_mode="coll"``) or found by rotating each rank's compacted
+block around the ring with its ghost test as packed cell words
+(``"ring"``, ``_ghost_ring``). The cell-sorted queries run through the
+grouped tile (``ops.nng_tile_bits_grouped``) and the ghost tile
+(``ops.nng_tile_bits_ghost``), or traverse per-cell cover forests
+(``traversal="tree"``). Its capacities come from
+``plan_landmark_device``, one counting pass over the ranks.
 
 The tree flavour (``traversal="tree"``) runs the same ring with each rank's
 levelized cover tree (``DeviceForest``): a ring round runs two
@@ -54,7 +58,8 @@ from repro_torch.kernels.nng_tile import (_BIT, pack_words, popcount32,
 from repro_torch.kernels.ops import bits_to_gathered_ids as _bits_to_gathered_ids
 from repro_torch.kernels.ops import bits_to_ids as _bits_to_ids
 from repro_torch.kernels.ops import leaf_range_pack as _leaf_range_pack
-from repro_torch.kernels.ops import (nng_tile_bits, nng_tile_bits_grouped,
+from repro_torch.kernels.ops import (nng_tile_bits, nng_tile_bits_ghost,
+                                     nng_tile_bits_grouped,
                                      nng_tile_bits_pair, nng_tile_geometry,
                                      tree_frontier_step)
 
@@ -256,11 +261,16 @@ def tree_traverse(qp, qids, qcells, forest: DeviceForest, eps, k_cap: int,
 
       1. active mask: a node is active for a query iff its parent's expand
          bit survived the previous level, the slot is valid, and the node's
-         cell matches the query's cell (``qcells``). While the expanded
-         pairs are few, the mask is set from the list of (query, child)
-         pairs (each expanded node's children are one slot range); else it
-         is gathered densely through the parent slots. Both give the same
-         words;
+         cell matches the query's cell (``qcells``, one per query: the
+         landmark engine's W and G rows come from many cells in one pass).
+         With ``qghost_bits`` (the ghost ring: (nq, ceil(m/32)) int32
+         words of each query's Lemma-1 ghost cells, the ``pack_words``
+         layout) a node is in scope iff its cell's bit is set, and
+         ``qcells`` is ignored. While the expanded pairs are few, the mask
+         is set from the list of (query, child) pairs (each expanded
+         node's children are one slot range; the roots, one per tree,
+         pair with every query); else it is gathered densely through the
+         parent slots. Both give the same words;
       2. frontier kernel (``ops.tree_frontier_step``): fused distance and
          {emit, expand} decisions as packed words; blocks with no active
          pair skip their distances;
@@ -278,10 +288,6 @@ def tree_traverse(qp, qids, qcells, forest: DeviceForest, eps, k_cap: int,
     computed, and frontier pairs whose subtree was discarded after that
     single distance. Chunking changes none of the four.
     """
-    if qghost_bits is not None:
-        raise NotImplementedError(
-            "tree_traverse(qghost_bits=...) (the landmark engine's ghost "
-            "ring) is not ported to PyTorch yet: ROADMAP item 7")
     nq = qp.shape[0]
     dev = qp.device
     L, N = forest.radius.shape
@@ -289,7 +295,12 @@ def tree_traverse(qp, qids, qcells, forest: DeviceForest, eps, k_cap: int,
     n_leaf = forest.leaf_ids.shape[0]
     assert N % 32 == 0 and n_leaf % 32 == 0, (N, n_leaf)
     qids = torch.as_tensor(qids, dtype=torch.int32, device=dev)
-    qcells = torch.as_tensor(qcells, dtype=torch.int32, device=dev)
+    ghost = qghost_bits is not None
+    if ghost:
+        qghost_bits = torch.as_tensor(qghost_bits, dtype=torch.int32,
+                                      device=dev)
+    else:
+        qcells = torch.as_tensor(qcells, dtype=torch.int32, device=dev)
     c = int(q_chunk or traverse_q_chunk(N, n_leaf))
     child_lo = forest.child_lo.long()
     child_hi = forest.child_hi.long()
@@ -297,28 +308,60 @@ def tree_traverse(qp, qids, qcells, forest: DeviceForest, eps, k_cap: int,
     leaf_lo = forest.leaf_lo.long()
     leaf_hi = forest.leaf_hi.long()
     valid = forest.cell >= 0
+    cell_c = forest.cell.long().clamp_min(0)   # ghost bit of each slot
+    # the valid root slots: one per tree of the forest, so few; a pass
+    # whose queries have their own scopes tests them as a pair list
+    roots = valid[0].nonzero()[:, 0]
     acts = torch.zeros((), dtype=torch.int64, device=dev)
     outs = torch.zeros((), dtype=torch.int64, device=dev)   # emit + expand
     nbrs, cnt = [], []
     for s in range(0, nq, c):
         q = qp[s:s + c]
-        qc = qcells[s:s + c]
         m = q.shape[0]
         limit = pair_limit(m, N)
-        # one scope row when every query of the pass shares its cell (the
-        # ring's block forests), else one per query
-        if bool((qc == qc[0]).all()):
-            qc = qc[:1]
+        if ghost:
+            gb = unpack_words(qghost_bits[s:s + c])     # (m, 32 mw) bool
+            shared = False
+        else:
+            qc = qcells[s:s + c]
+            # one scope row when every query of the pass shares its cell
+            # (the ring's block forests), else one per query
+            shared = bool((qc == qc[0]).all())
+            if shared:
+                qc = qc[:1]
+
+        def scope(lvl):
+            """(1 or m, N) bool: the slots of level lvl in each query's
+            scope."""
+            if ghost:
+                return valid[lvl][None, :] & gb[:, cell_c[lvl]]
+            return valid[lvl][None, :] & (forest.cell[lvl][None, :]
+                                          == qc[:, None])
+
+        def pair_scope(lvl, rows, node):
+            """Whether valid slot node[i] of level lvl is in the scope of
+            query rows[i]."""
+            if ghost:
+                return gb[rows, cell_c[lvl][node]]
+            return forest.cell[lvl][node] == (qc[0] if shared else qc[rows])
+
         delta = torch.zeros((m, n_leaf + 1), dtype=torch.int32, device=dev)
         prev = None
         for lvl in range(L):
-            scope = valid[lvl][None, :] & (forest.cell[lvl][None, :]
-                                           == qc[:, None])
             act = None
             if prev is None:                       # the roots
-                if qc.shape[0] == 1:
-                    act = pack_words(scope).expand(m, nw).contiguous()
-                    acts += scope.sum() * m
+                if shared:
+                    sc = scope(lvl)
+                    act = pack_words(sc).expand(m, nw).contiguous()
+                    acts += sc.sum() * m
+                    del sc
+                elif m * roots.numel() <= limit:
+                    rows = torch.arange(m, device=dev).repeat_interleave(
+                        roots.numel())
+                    node = roots.repeat(m)
+                    keep = pair_scope(lvl, rows, node)
+                    acts += keep.sum()
+                    act = _words_from_pairs(rows, node, keep, m, nw)
             else:
                 pairs = _child_pairs(prev, child_lo[lvl - 1],
                                      child_hi[lvl - 1], limit)
@@ -327,8 +370,7 @@ def tree_traverse(qp, qids, qcells, forest: DeviceForest, eps, k_cap: int,
                 else:
                     rows, node, n_exp = pairs
                     outs += n_exp
-                    keep = forest.cell[lvl][node] == (
-                        qc[0] if qc.shape[0] == 1 else qc[rows])
+                    keep = pair_scope(lvl, rows, node)   # children: valid
                     acts += keep.sum()
                     act = _words_from_pairs(rows, node, keep, m, nw)
             if act is None:
@@ -336,7 +378,7 @@ def tree_traverse(qp, qids, qcells, forest: DeviceForest, eps, k_cap: int,
                     prev = torch.full((m, nw), -1, dtype=torch.int32,
                                       device=dev)
                 active = unpack_words(prev)[:, parent[lvl]]
-                active &= scope
+                active &= scope(lvl)
                 acts += active.sum()
                 act = pack_words(active)
                 del active
@@ -780,10 +822,6 @@ def systolic_run(points, eps: float, mesh: RingMesh, *, metric="euclidean",
 # Algorithms 5 + 6 — landmark partitioning with ε-ghosts
 # ---------------------------------------------------------------------------
 
-NEXT_SPATIAL = ("ROADMAP item 7: the ghost ring and the spatial tree "
-                "flavour are the port's next slice")
-
-
 @dataclass(frozen=True)
 class LandmarkPlan:
     """Static capacities for the landmark engine (host planning output)."""
@@ -961,34 +999,43 @@ def _exchange(sends: list, m: int):
 
 
 def _landmark_exchange(xs, ids, centers, f, *, nranks, two_eps_c, metric,
-                       plan):
-    """Phases 1, 2 and 4's exchange over all ranks (``ghost_mode="coll"``).
+                       plan, cells=None, ghost_mode="coll"):
+    """Phases 1, 2 and (for ``ghost_mode="coll"``) 4's exchange over all
+    ranks.
 
-    Phase 1: each rank's Voronoi cells (``metric.cdist`` to the replicated
-    centres, argmin). Phase 2: rows coalesce onto their cell's rank through
-    the capacity-padded all-to-all. Phase 4: each point's slacked Lemma-1
-    ghost cells, at most ``g_per_pt`` of them (the nearest first, a stable
-    sort), travel as ghost copies that carry their TARGET cell. Returns
-    (per rank (W, Wids, Wgrp, G, Gids, Ggrp), dropped (nranks,) bool: a
-    coalesce row, a ghost copy or a ghost cell did not fit)."""
+    Phase 1: each rank's Voronoi cells — ``cells[r]`` where given (the tree
+    flavour passes the host assignment its forests were built from), else
+    the argmin of ``metric.cdist`` to the replicated centres. Phase 2: rows
+    coalesce onto their cell's rank through the capacity-padded
+    all-to-all. Phase 4 (coll): each point's slacked Lemma-1 ghost cells,
+    at most ``g_per_pt`` of them (the nearest first, a stable sort), travel
+    as ghost copies that carry their TARGET cell; d(p, C) is the fp32 min
+    over ALL centres, so with a given assignment the slack absorbs a
+    near-tie's gap. Returns (per rank (W, Wids, Wgrp, G, Gids, Ggrp), or
+    (W, Wids, Wgrp) for the ring; dropped (nranks,) bool: a coalesce row,
+    a ghost copy or a ghost cell did not fit)."""
     m = centers.shape[0]
     dev = xs[0].device
-    cells = torch.arange(m, device=dev)
+    cell_ids = torch.arange(m, device=dev)
     csend, gsend, dropped = [], [], []
-    for x, xid in zip(xs, ids):
+    for r, (x, xid) in enumerate(zip(xs, ids)):
         n_loc = x.shape[0]
         dpc = metric.cdist(x, centers)
-        cell = torch.argmin(dpc, dim=1)
-        # d(p, C), the true fp32 min over ALL centres
+        cell = (torch.argmin(dpc, dim=1) if cells is None
+                else cells[r].long())
         d_min = dpc.amin(1)
         send, dropped_c = _pack_by_dest(
             f[cell], torch.ones(n_loc, dtype=torch.bool, device=dev),
             {"pts": (x, 0), "ids": (xid, SENTINEL),
              "cell": (cell.to(torch.int32), -1)}, nranks, plan.cap_coal)
         csend.append(send)
+        if ghost_mode == "ring":
+            dropped.append(dropped_c > 0)
+            continue
         tru, gbound = _lemma1_ghost_bound(x, centers, dpc, d_min, two_eps_c,
                                           metric)
-        gmask = (tru <= gbound[:, None]) & (cells[None, :] != cell[:, None])
+        gmask = (tru <= gbound[:, None]) & (cell_ids[None, :]
+                                            != cell[:, None])
         # cap the ghost fanout: keep each point's g_per_pt nearest cells
         gscore = torch.where(gmask, tru, 3e38)
         gcells = torch.argsort(gscore, dim=1, stable=True)[:, :plan.g_per_pt]
@@ -1004,81 +1051,235 @@ def _landmark_exchange(xs, ids, centers, f, *, nranks, two_eps_c, metric,
         dropped.append((dropped_c > 0) | (dropped_g > 0) | (g_dropped > 0))
     W = _exchange(csend, m)
     del csend
+    if ghost_mode == "ring":
+        return W, torch.stack(dropped)
     G = _exchange(gsend, m)
     return [w + g for w, g in zip(W, G)], torch.stack(dropped)
 
 
-def _landmark_local(xs, ids, centers, f, *, nranks, eps, metric, plan):
-    """The per-rank landmark body over all ranks (``ghost_mode="coll"``,
-    ``traversal="tiles"``): the exchange of ``_landmark_exchange``, then
-    per rank the intra-cell W x W queries (Phase 3) and the ghost G x W
-    queries (Phase 4) through the grouped tile, each hit mask turned into
-    neighbour ids (``bits_to_gathered_ids`` through the cell-sorted id
-    table) and freed before the next. A ghost copy carries its target cell,
-    so the group test scopes it there; its own W row sits in another cell.
+class _Queries:
+    """One landmark query set's neighbour tables and counters, per rank:
+    the tile counters (int64, the reference's blocks) and the distances
+    evaluated (fp32, the reference's sum) and nodes pruned (int64) over
+    the set's launches."""
 
-    The counters are the reference's: its tile blocks at its geometry
-    (``nng_tile_geometry``), ``dists_evaluated`` = live blocks × tq·tp in
-    float32. Returns (Wids, nbrs, cnt, Gids, gnbrs, gcnt, overflow,
-    tiles_skipped, tiles_scheduled, dists_evaluated, nodes_pruned): the
-    neighbour tables concatenated over ranks and (nranks,) counters."""
+    def __init__(self, dev):
+        z = torch.zeros((), dtype=torch.int64, device=dev)
+        self.ids, self.nbrs, self.cnt = [], [], []
+        self.sched, self.skip, self.pruned = z, z, z
+        self.dists = torch.zeros((), dtype=torch.float32, device=dev)
+
+    def add(self, ids, nbrs, cnt, sched, skip, dists, pruned):
+        self.ids.append(ids)
+        self.nbrs.append(nbrs)
+        self.cnt.append(cnt)
+        self.sched = self.sched + sched
+        self.skip = self.skip + skip
+        self.dists = self.dists + dists
+        self.pruned = self.pruned + pruned
+
+
+def _query_tiles(kernel, ids, Wids, geometry, k_cap, metric):
+    """Run one ghost or grouped tile launch ``kernel()`` -> (cnt, bits,
+    sched, skip) of the rows ``ids`` against W, turn its mask into
+    neighbour ids through ``Wids`` and free it -> the ``_Queries.add``
+    arguments: ``dists`` = the reference's live blocks x tq·tp in fp32
+    (``geometry`` is the (q, p) tile it counts), no prunes."""
+    cnt, bits, sched, skip = kernel()
+    nbrs = _bits_to_gathered_ids(bits, Wids, k_cap)
+    del bits
+    tq, tp = nng_tile_geometry(*geometry, metric)
+    dists = (sched - skip).to(torch.float32) * float(tq * tp)
+    zero = torch.zeros((), dtype=torch.int64, device=ids.device)
+    return ids, nbrs, cnt, sched, skip, dists, zero
+
+
+def _query_tree(q, ids, groups, forest_r, eps, k_cap, metric, ghost=None):
+    """One traversal of a rank's cell forest -> the ``_Queries.add``
+    arguments: no tile counters, the traversal's exact distances (fp32)
+    and prunes."""
+    nbrs, cnt, dists, pruned = tree_traverse(q, ids, groups, forest_r, eps,
+                                             k_cap, metric,
+                                             qghost_bits=ghost)
+    zero = torch.zeros((), dtype=torch.int64, device=q.device)
+    return ids, nbrs, cnt, zero, zero, dists.to(torch.float32), pruned
+
+
+def ring_block(W, Wids, Wgrp, centers, *, eps, metric, cap_rank):
+    """One rank's ring payload: its cell-sorted coalesce rows compacted to
+    ``cap_rank`` (valid rows first), their ids, and their slacked Lemma-1
+    ghost cells as packed words ((cap_rank, ceil(m/32)) int32, the
+    ``pack_words`` layout): own cell cleared, padding rows zero. Computed
+    once, at home."""
+    m = centers.shape[0]
+    Wb, Wbgrp = W[:cap_rank], Wgrp[:cap_rank]
+    dpc = metric.cdist(Wb, centers)
+    tru, gbound = _lemma1_ghost_bound(Wb, centers, dpc, dpc.amin(1),
+                                      2.0 * eps, metric)
+    gmask = ((tru <= gbound[:, None])
+             & (torch.arange(m, device=W.device)[None, :]
+                != Wbgrp[:, None].long())
+             & (Wbgrp >= 0)[:, None])
+    return Wb, Wids[:cap_rank], pack_words(
+        torch.nn.functional.pad(gmask, (0, -m % 32)))
+
+
+def _ghost_ring(bufs, centers, forests, *, nranks, eps, metric, plan,
+                traversal):
+    """The ring ghost phase (``ghost_mode="ring"``) over all ranks: the
+    ε-ghost exchange as a rotation of each rank's COMPACTED coalesce block
+    instead of an all-to-all of ghost copies.
+
+    Each rank compacts its cell-sorted W to ``plan.cap_rank`` rows (valid
+    rows first: the cell sort puts padding last; more valid rows than that
+    overflow) and computes the slacked Lemma-1 ghost test ONCE at home as
+    packed per-row cell words (``ring_block``), and the (block, ids,
+    words) triple rotates by ``_ring_permute`` with the
+    reference's hop (i -> i - 1): at round r rank me holds rank
+    (me + r) % R's block. The words travel with the block: recomputing
+    them on arrival would let an fp32 argmin near-tie differ between ranks
+    and drop edges. Round r + 1's hop is issued before round r evaluates,
+    in the reference's order (on one device, only an ordering).
+
+    Each round the visiting rows query the LOCAL cells within their ghost
+    sets: tiles through ``nng_tile_bits_ghost`` against the rank's W (each
+    round's mask freed before the next launch), the tree through
+    ``tree_traverse(..., qghost_bits=words)`` over the rank's cell forest.
+    Hits stay local (the visiting ids came with the block, so there is no
+    mirror accumulator); the CSR assembly symmetrises. Rounds 0..R // 2
+    cover every rank pair since Lemma 1 holds in both directions of an
+    ε-pair; on an even ring the boundary round's pair {me, me + R/2} is
+    evaluated by the lower rank only, and the other rank adds no table.
+    Returns per rank a ``_Queries`` and the overflow flags (nranks,)."""
+    B = plan.cap_rank
+    k_cap = plan.k_cap
+    dev = centers.device
+    perm = [(i, (i - 1) % nranks) for i in range(nranks)]
+    rounds = nranks // 2
+    blks = [ring_block(W, Wids, Wgrp, centers, eps=eps, metric=metric,
+                       cap_rank=B) for W, Wids, Wgrp in bufs]
+    over = [(Wgrp >= 0).sum() > B for _, _, Wgrp in bufs]
+    outs = [_Queries(dev) for _ in range(nranks)]
+    for r in range(rounds + 1):
+        if r < rounds:
+            nxt = _ring_permute(blks, perm)     # round r + 1's hop first
+        for me in range(nranks):
+            if (r == rounds and rounds > 0 and nranks % 2 == 0
+                    and not me < (me + rounds) % nranks):
+                continue
+            bp, bi, bg = blks[me]
+            W, Wids, Wgrp = bufs[me]
+            if traversal == "tree":
+                res = _query_tree(bp, bi, None, forests[me], eps, k_cap,
+                                  metric, ghost=bg)
+            else:
+                res = _query_tiles(
+                    lambda: nng_tile_bits_ghost(bp, W, bg, Wgrp, eps,
+                                                metric=metric),
+                    bi, Wids, (B, W.shape[0]), k_cap, metric)
+            outs[me].add(*res)
+        if r < rounds:
+            blks = nxt
+    return outs, torch.stack(over)
+
+
+def _landmark_local(xs, ids, centers, f, *, nranks, eps, metric, plan,
+                    traversal="tiles", ghost_mode="coll", forests=None,
+                    cells=None):
+    """The per-rank landmark body over all ranks.
+
+    The exchange of ``_landmark_exchange``, then per rank the intra-cell
+    W x W queries (Phase 3) and the ghost queries (Phase 4): G x W under
+    ``ghost_mode="coll"`` (a ghost copy carries its target cell, so the
+    group test scopes it there; its own W row sits in another cell), the
+    rotating blocks of ``_ghost_ring`` under ``"ring"``.
+    ``traversal="tiles"`` runs the grouped tile (and the ghost tile on the
+    ring), each hit mask turned into neighbour ids (``bits_to_gathered_ids``
+    through the cell-sorted id table) and freed before the next launch;
+    ``"tree"`` traverses the rank's cell forest (``forests[r]``), whose
+    cells are the host assignment ``cells`` it was built from.
+
+    The counters are the reference's: the tile counters its blocks at its
+    geometry (``nng_tile_geometry``), ``dists_evaluated`` = live blocks x
+    tq·tp in float32 on tiles and the traversal's frontier pairs on the
+    tree, ``nodes_pruned`` the traversal's. Returns (Wids, nbrs, cnt, Gids,
+    gnbrs, gcnt, overflow, tiles_skipped, tiles_scheduled, dists_evaluated,
+    nodes_pruned): the neighbour tables as lists of per-launch parts, rank
+    by rank (never concatenated: on the card the ring's tables alone take
+    tens of GB, and a copy would double them), and (nranks,) counters."""
     bufs, dropped = _landmark_exchange(
         xs, ids, centers, f, nranks=nranks, two_eps_c=2.0 * eps,
-        metric=metric, plan=plan)
+        metric=metric, plan=plan, cells=cells, ghost_mode=ghost_mode)
     k_cap = plan.k_cap
-    outs = []
-    for r in range(nranks):
-        W, Wids, Wgrp, G, Gids, Ggrp = bufs[r]
-        bufs[r] = None
-        cnt, bits, w_sched, w_skip = nng_tile_bits_grouped(
-            W, W, Wgrp, Wgrp, Wids, Wids, eps, metric=metric)
-        nbrs = _bits_to_gathered_ids(bits, Wids, k_cap)
-        del bits
-        gcnt, bits, g_sched, g_skip = nng_tile_bits_grouped(
-            G, W, Ggrp, Wgrp, Gids, Wids, eps, metric=metric)
-        gnbrs = _bits_to_gathered_ids(bits, Wids, k_cap)
-        del bits
-        tq, tp = nng_tile_geometry(W.shape[0], W.shape[0], metric)
-        gtq, gtp = nng_tile_geometry(G.shape[0], W.shape[0], metric)
-        w_dists = (w_sched - w_skip).to(torch.float32) * float(tq * tp)
-        g_dists = (g_sched - g_skip).to(torch.float32) * float(gtq * gtp)
-        over = dropped[r] | (cnt > k_cap).any() | (gcnt > k_cap).any()
-        outs.append((Wids, nbrs, cnt, Gids, gnbrs, gcnt, over,
-                     (w_skip + g_skip).to(torch.float32),
-                     (w_sched + g_sched).to(torch.float32),
-                     w_dists + g_dists))
-    cols = list(zip(*outs))
-    tables = [torch.cat(c) for c in cols[:6]]
-    counters = [torch.stack(c) for c in cols[6:]]
-    return (*tables, *counters,
-            torch.zeros(nranks, dtype=torch.float32, device=xs[0].device))
+
+    def cell_queries(r, X, Xids, Xgrp):
+        """Rank r's rows X (cells Xgrp) against its own cells."""
+        W, Wids, Wgrp = bufs[r][:3]
+        q = _Queries(X.device)
+        if traversal == "tree":
+            q.add(*_query_tree(X, Xids, Xgrp, forests[r], eps, k_cap,
+                               metric))
+        else:
+            q.add(*_query_tiles(
+                lambda: nng_tile_bits_grouped(X, W, Xgrp, Wgrp, Xids, Wids,
+                                              eps, metric=metric),
+                Xids, Wids, (X.shape[0], W.shape[0]), k_cap, metric))
+        return q
+
+    wq = [cell_queries(r, *bufs[r][:3]) for r in range(nranks)]
+    if ghost_mode == "ring":
+        gq, over = _ghost_ring(bufs, centers, forests, nranks=nranks,
+                               eps=eps, metric=metric, plan=plan,
+                               traversal=traversal)
+        dropped = dropped | over
+    else:
+        gq = []
+        for r in range(nranks):
+            gq.append(cell_queries(r, *bufs[r][3:]))
+            bufs[r] = bufs[r][:3]               # free G before the next
+    del bufs
+    flags = [drop | any((c > k_cap).any() for c in w.cnt + g.cnt)
+             for w, g, drop in zip(wq, gq, dropped)]
+    counters = [[(w.skip + g.skip).to(torch.float32),
+                 (w.sched + g.sched).to(torch.float32), w.dists + g.dists,
+                 (w.pruned + g.pruned).to(torch.float32)]
+                for w, g in zip(wq, gq)]
+    tables = [[part for q in qs for part in getattr(q, name)]
+              for qs in (wq, gq) for name in ("ids", "nbrs", "cnt")]
+    return (*tables, torch.stack(flags),
+            *(torch.stack(c) for c in zip(*counters)))
 
 
 def landmark_run(points, eps: float, centers, f, mesh: RingMesh,
                  plan: LandmarkPlan, *, metric="euclidean",
-                 traversal: str = "tiles", ghost_mode: str = "coll"):
+                 traversal: str = "tiles", forest=None, cell=None,
+                 ghost_mode: str = "coll"):
     """Distributed landmark ε-NNG (Algorithms 5+6) over ``mesh``.
 
     ``points`` (n, d), n a multiple of the ring size (``build_nng`` pads);
     ``centers`` (m, d) the Voronoi sites; ``f`` (m,) the cell -> rank
-    assignment (LPT, planned on the host); ``plan`` the capacities. Returns
-    (Wids, nbrs, cnt, Gids, gnbrs, gcnt, overflow, tiles_skipped,
-    tiles_scheduled, dists_evaluated, nodes_pruned) as
-    ``_landmark_local`` describes, on the mesh device: the union of the
-    (Wids → nbrs) and (Gids → gnbrs) edges is the exact ε-graph when no
-    overflow flag is set. ``ghost_mode="coll"`` and ``traversal="tiles"``
-    are ported; the ghost ring and the tree flavour raise."""
-    if ghost_mode != "coll":
-        if ghost_mode == "ring":
-            raise NotImplementedError(
-                f"ghost_mode='ring' is not ported yet: {NEXT_SPATIAL}")
+    assignment (LPT, planned on the host); ``plan`` the capacities.
+    ``ghost_mode`` is the Phase 4 schedule: ``"coll"`` (capacity-padded
+    all-to-all of ghost copies) or ``"ring"`` (rotation of the compacted
+    coalesce block with the Lemma-1 test as packed cell words; needs
+    ``plan.cap_rank``); ``"auto"`` is resolved upstream
+    (``resolve_ghost_mode``). ``traversal="tree"`` needs ``forest`` (the
+    rank-stacked cell-forest tables of ``flat_tree.build_cell_forests``, a
+    dict or a ``DeviceForest``) and ``cell`` (the (n,) Voronoi assignment
+    they were built from, so Phase 1 cannot differ from the forests' scope
+    on an argmin near-tie). Returns (Wids, nbrs, cnt, Gids, gnbrs, gcnt,
+    overflow, tiles_skipped, tiles_scheduled, dists_evaluated,
+    nodes_pruned) as ``_landmark_local`` describes (the tables as lists of
+    parts), on the mesh device: the union of the (Wids → nbrs) and
+    (Gids → gnbrs) edges is the exact ε-graph when no overflow flag is
+    set."""
+    if ghost_mode not in ("coll", "ring"):
         raise ValueError(f"ghost_mode={ghost_mode!r}: 'auto' is resolved "
                          "upstream (resolve_ghost_mode)")
-    if traversal != "tiles":
-        if traversal == "tree":
-            raise NotImplementedError(
-                "partition='spatial' with traversal='tree' is not ported "
-                f"yet: {NEXT_SPATIAL}")
+    if ghost_mode == "ring" and plan.cap_rank <= 0:
+        raise ValueError("ghost_mode='ring' needs plan.cap_rank (use "
+                         "plan_landmark_device, or set cap_rank)")
+    if traversal not in ("tiles", "tree"):
         raise ValueError(f"unknown traversal {traversal!r}")
     met = get_metric(metric)
     nranks = mesh.size
@@ -1089,8 +1290,21 @@ def landmark_run(points, eps: float, centers, f, mesh: RingMesh,
     xs = list(x.contiguous().chunk(nranks))
     ids = list(torch.arange(n, dtype=torch.int32,
                             device=mesh.device).chunk(nranks))
+    forests = cells = None
+    if traversal == "tree":
+        if forest is None or cell is None:
+            raise ValueError("traversal='tree' needs the stacked cell "
+                             "forests and the cell assignment they were "
+                             "built from")
+        if not isinstance(forest, DeviceForest):
+            forest = DeviceForest.from_tables(forest, device=mesh.device)
+        forests = [forest.rank(r) for r in range(nranks)]
+        cells = list(torch.as_tensor(np.asarray(cell), dtype=torch.int64,
+                                     device=mesh.device).chunk(nranks))
     return _landmark_local(
         xs, ids, met.as_device(centers, mesh.device),
         torch.as_tensor(np.asarray(f), dtype=torch.int64,
                         device=mesh.device),
-        nranks=nranks, eps=float(eps), metric=met, plan=plan)
+        nranks=nranks, eps=float(eps), metric=met, plan=plan,
+        traversal=traversal, ghost_mode=ghost_mode, forests=forests,
+        cells=cells)

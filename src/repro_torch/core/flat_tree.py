@@ -30,7 +30,7 @@ Consumers:
 
 This is the port's own copy of the reference's host module, without the
 online-maintenance paths (``insert_host`` / ``tombstone_host``, ROADMAP
-item 8) and the landmark engine's ``build_cell_forests`` (ROADMAP item 7).
+item 8).
 
 Counters: every query reports ``dists_evaluated`` (frontier pairs whose
 distance was computed) and ``nodes_pruned`` (frontier pairs whose subtree
@@ -293,7 +293,7 @@ def flatten_covertree(tree: "CoverTree") -> FlatCoverTree:
 
 
 # ---------------------------------------------------------------------------
-# forest builder for the systolic engine
+# forest builders for the two engines
 # ---------------------------------------------------------------------------
 
 def build_block_forests(
@@ -331,6 +331,52 @@ def build_block_forests(
             [tree], cells=[0],
             gids=[np.arange(n_loc, dtype=np.int64) + r * n_loc],
             points=points))
+    return out
+
+
+def build_cell_forests(
+    points: np.ndarray, cell: np.ndarray, f: np.ndarray, nranks: int,
+    metric: str = "euclidean", leaf_size: int = 10, *, backend: str = "host",
+    device=None,
+):
+    """Landmark engine: per rank, a forest of per-cell cover trees over the
+    cells LPT-assigned to it (``f``: cell -> rank), in ascending cell id.
+    Nodes carry their cell id, so a traversal scopes a query to its own
+    cell (or, on the ghost ring, to its ghost cells): the cells are the
+    level-1 cover and each cell's tree the levels below it. A rank that
+    owns no points gets a 1-node placeholder tree with cell -2, which no
+    query matches.
+
+    ``backend`` as in ``build_block_forests``: "host" returns the
+    ``FlatCoverTree`` list, "device" the stacked device-tables dict as
+    tensors on ``device``.
+    """
+    if backend == "device":
+        from .flat_tree_device import build_cell_forests_device
+
+        return build_cell_forests_device(points, cell, f, nranks, metric,
+                                         leaf_size, device=device)
+    assert backend == "host", backend
+    from .covertree import build_covertree
+
+    f = np.asarray(f)
+    cell = np.asarray(cell)
+    out = []
+    for r in range(nranks):
+        trees, tcells, tgids = [], [], []
+        for ci in np.flatnonzero(f == r):
+            members = np.flatnonzero(cell == ci)
+            if len(members) == 0:
+                continue
+            trees.append(build_covertree(points[members], metric, leaf_size))
+            tcells.append(int(ci))
+            tgids.append(members)
+        if not trees:
+            trees = [build_covertree(points[:1], metric, leaf_size)]
+            tcells = [-2]
+            tgids = [np.zeros(1, np.int64)]
+        out.append(flatten_forest(trees, cells=tcells, gids=tgids,
+                                  points=points))
     return out
 
 

@@ -4,8 +4,8 @@ The port of the reference's on-device builder: it makes the same decisions
 as ``covertree.build_covertree`` + ``flat_tree.flatten_forest`` and emits
 the levelized ``FlatCoverTree`` tables as tensors directly, so the forest
 never exists as host objects and no table crosses from the host. The host
-path stays the float64 oracle (``flat_tree.build_block_forests`` with
-``backend="host"``).
+path stays the float64 oracle (``flat_tree.build_block_forests`` and
+``build_cell_forests`` with ``backend="host"``).
 
 Formulation (the host build's decision sequence, so the two paths give
 structurally identical tables at matching precision). Every rank's tree is
@@ -353,5 +353,68 @@ def build_block_forests_device(points, nranks: int, metric="euclidean",
                                     device=dev).reshape(nranks, n_loc)
     tslotb = torch.full((nranks, P), -1, dtype=torch.int32, device=dev)
     tslotb[:, :n_loc] = 0
+    return _build_stacked(ptsb, cellsb, gidsb, tslotb, met, int(leaf_size),
+                          int(max_levels), include_child_ranges)
+
+
+def build_cell_forests_device(points, cell, f, nranks: int,
+                              metric="euclidean", leaf_size: int = 10,
+                              max_levels: int | None = None, *,
+                              include_child_ranges: bool = False,
+                              device=None):
+    """Landmark engine forests on the card: per rank, one tree per owned
+    cell (``f``: cell -> rank), in ascending cell id, its nodes stamped with
+    the cell; a rank that owns no points gets the 1-node placeholder tree
+    of cell -2 — the forest ``flat_tree.build_cell_forests`` builds on the
+    host. ``cell`` (n,) is the Voronoi assignment. The member packing (rank
+    major, cell ascending, point ascending) runs on ``device`` too, so no
+    point crosses to the host. Returns the stacked device-tables dict."""
+    met = _as_device_metric(metric)
+    if device is None:
+        device = points.device if torch.is_tensor(points) else "cuda"
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available: pass device='cpu' "
+                           "to build the forest with torch on the CPU")
+    pts = met.as_device(points, dev)
+    if max_levels is None:
+        max_levels = estimate_max_levels(pts, met)
+    n = pts.shape[0]
+    cell_t = torch.as_tensor(np.asarray(cell) if not torch.is_tensor(cell)
+                             else cell, device=dev).long()
+    f_t = torch.as_tensor(np.asarray(f) if not torch.is_tensor(f) else f,
+                          device=dev).long()
+    m = f_t.shape[0]
+    rank = f_t[cell_t]
+    order = torch.argsort(rank * m + cell_t, stable=True)
+    counts = torch.bincount(rank, minlength=nranks)
+    r_sorted = rank[order]
+    pos = (torch.arange(n, device=dev)
+           - (torch.cumsum(counts, 0) - counts)[r_sorted])
+    # a cell's tree slot: the non-empty cells of its rank below it
+    nonempty = (torch.bincount(cell_t, minlength=m) > 0).long()
+    corder = torch.argsort(f_t * m + torch.arange(m, device=dev), stable=True)
+    ne_sorted = nonempty[corder]
+    ne_rank = torch.zeros(nranks, dtype=torch.long, device=dev)
+    ne_rank.index_add_(0, f_t, nonempty)
+    tslot_cell = torch.empty(m, dtype=torch.long, device=dev)
+    tslot_cell[corder] = (torch.cumsum(ne_sorted, 0) - ne_sorted
+                          - (torch.cumsum(ne_rank, 0) - ne_rank)[f_t[corder]])
+    P = _round_up(max(int(counts.max()) if n else 0, 1), 32)
+    ptsb = torch.zeros((nranks, P) + tuple(pts.shape[1:]), dtype=met.dtype,
+                       device=dev)
+    cellsb = torch.full((nranks, P), PAD, dtype=torch.int32, device=dev)
+    gidsb = torch.zeros((nranks, P), dtype=torch.int32, device=dev)
+    tslotb = torch.full((nranks, P), -1, dtype=torch.int32, device=dev)
+    ptsb[r_sorted, pos] = pts[order]
+    cellsb[r_sorted, pos] = cell_t[order].to(torch.int32)
+    gidsb[r_sorted, pos] = order.to(torch.int32)
+    tslotb[r_sorted, pos] = tslot_cell[cell_t[order]].to(torch.int32)
+    # placeholder trees: point 0 under the unmatchable cell -2
+    empty = counts == 0
+    ptsb[empty, 0] = pts[0]
+    cellsb[empty, 0] = -2
+    gidsb[empty, 0] = 0
+    tslotb[empty, 0] = 0
     return _build_stacked(ptsb, cellsb, gidsb, tslotb, met, int(leaf_size),
                           int(max_levels), include_child_ranges)

@@ -3,8 +3,8 @@
 A ``Metric`` bundles the float64 host reference (``HostMetric``), the
 device comparable-distance function ``cdist`` (torch), the row-aligned true
 distance the on-card forest builder uses (``rowwise``), the fused tile's,
-the grouped tile's and the tree frontier's CUDA kernels and plain versions,
-and the engines' geometry hooks: the block summary and centre distance for
+the grouped tile's, the ghost tile's and the tree frontier's CUDA kernels
+and plain versions, and the engines' geometry hooks: the block summary and centre distance for
 the systolic triangle-inequality prune, the Lemma-1 ghost slack of the
 landmark engine, and the (tile_q, tile_p) block shape its counters are
 kept in.
@@ -74,6 +74,11 @@ class Metric:
     # + plain version, both (x, y, xg, yg, xid, yid, eps) -> (cnt, bits)
     grouped_kernel: Callable | None = None
     grouped_ref: Callable | None = None
+    # ghost-ring tile (the landmark engine's ghost_mode="ring": visiting
+    # rows carry packed Lemma-1 cell words instead of ghost copies): CUDA
+    # kernel + plain version, both (x, y, x_gbits, yg, eps) -> (cnt, bits)
+    ghost_kernel: Callable | None = None
+    ghost_ref: Callable | None = None
     # level-synchronous tree frontier (traversal="tree"): CUDA kernel +
     # plain version, both (q, c, rad, leaf, act_bits, eps) -> (emit, expand)
     frontier_kernel: Callable | None = None
@@ -236,6 +241,8 @@ register_metric(Metric(
     tile_ref=_nt.nng_tile_ref,
     grouped_kernel=_nt.nng_tile_grouped_cuda,
     grouped_ref=_nt.nng_tile_grouped_ref,
+    ghost_kernel=_nt.nng_tile_ghost_cuda,
+    ghost_ref=_nt.nng_tile_ghost_ref,
     frontier_kernel=_tf.tree_frontier_cuda,
     frontier_ref=_tf.tree_frontier_ref,
     block_summary=_euclidean_block_summary,
@@ -273,6 +280,8 @@ register_metric(Metric(
     tile_ref=_nt.nng_tile_hamming_ref,
     grouped_kernel=_nt.nng_tile_grouped_hamming_cuda,
     grouped_ref=_nt.nng_tile_grouped_hamming_ref,
+    ghost_kernel=_nt.nng_tile_ghost_hamming_cuda,
+    ghost_ref=_nt.nng_tile_ghost_hamming_ref,
     frontier_kernel=_tf.tree_frontier_hamming_cuda,
     frontier_ref=_tf.tree_frontier_hamming_ref,
 ))
@@ -287,6 +296,8 @@ register_metric(Metric(
     tile_ref=_nt.nng_tile_l1_ref,
     grouped_kernel=_nt.nng_tile_grouped_l1_cuda,
     grouped_ref=_nt.nng_tile_grouped_l1_ref,
+    ghost_kernel=_nt.nng_tile_ghost_l1_cuda,
+    ghost_ref=_nt.nng_tile_ghost_l1_ref,
     frontier_kernel=_tf.tree_frontier_l1_cuda,
     frontier_ref=_tf.tree_frontier_l1_ref,
 ))

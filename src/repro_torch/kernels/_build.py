@@ -49,6 +49,13 @@ _ENTRY = {
     "nng_tile_grouped_l1": ("nng_tile_grouped_l1_launch",
                             (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
                              _P)),
+    "nng_tile_ghost": ("nng_tile_ghost_launch",
+                       (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P)),
+    "nng_tile_ghost_hamming": ("nng_tile_ghost_hamming_launch",
+                               (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                _P)),
+    "nng_tile_ghost_l1": ("nng_tile_ghost_l1_launch",
+                          (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P)),
     "bits_to_cols": ("bits_to_cols_launch", (_P, _P, _I, _I, _I, _P)),
     "tree_frontier": ("tree_frontier_launch",
                       (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P)),

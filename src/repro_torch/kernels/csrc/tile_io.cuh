@@ -140,6 +140,62 @@ __device__ __forceinline__ bool same_group(const Groups& g, int r, int c) {
   return g.yg[c] >= 0 && g.xg[r] == g.yg[c] && g.xid[r] != g.yid[c];
 }
 
+// The ghost tiles' block prologue (the landmark engine's ghost ring). A
+// visiting x row carries its Lemma-1 ghost cells as mw packed words (bit c
+// of word c / 32 set: the row may pair with a y row of cell c); y rows
+// carry their cell (< 0 marks padding). The block's BN y cells go to
+// shared memory (-1 past p) and are reduced to a [min, max] range. The x
+// rows' words stay in device memory: the skip test reads only the words
+// that hold [min, max], and the epilogue one word a live pair.
+struct Ghost {
+  int32_t yg[BN];
+  int32_t range[2];                // y min, y max
+};
+
+// Whether the block is live: some row of it has a ghost bit inside the
+// y cells' [min, max] range (returned to every thread). Callers sort y by
+// cell, so the range is tight; an all-padding side is dead.
+__device__ __forceinline__ bool stage_ghost(const uint32_t* __restrict__ gb,
+                                            const int32_t* __restrict__ yg,
+                                            int q, int p, int mw, int m0,
+                                            int n0, Ghost& g) {
+  const int t = threadIdx.x;
+  if (t < 2) g.range[t] = t ? -1 : GBIG;
+  __syncthreads();
+  if (t < BN) {
+    const int col = n0 + t;
+    const int32_t c = col < p ? yg[col] : -1;
+    g.yg[t] = c;
+    if (c >= 0) {
+      atomicMin(&g.range[0], c);
+      atomicMax(&g.range[1], c);
+    }
+  }
+  __syncthreads();
+  const int ymin = g.range[0];
+  const int ymax = g.range[1];
+  const int wlo = ymin >> 5;
+  const int nwr = ymin > ymax ? 0 : (ymax >> 5) - wlo + 1;
+  int any = 0;
+  for (int e = t; e < BM * nwr; e += THREADS) {
+    const int r = e / nwr;
+    const int w = wlo + e % nwr;
+    const uint32_t v = m0 + r < q ? gb[(size_t)(m0 + r) * mw + w] : 0u;
+    const int lo = w == wlo ? (ymin & 31) : 0;
+    const int hi = w == (ymax >> 5) ? (ymax & 31) : 31;
+    any |= (v & (FULL << lo) & (FULL >> (31 - hi))) != 0u;
+  }
+  return __syncthreads_or(any);
+}
+
+// Whether a row with ghost words xw may pair with y column c of a staged
+// block: c's cell is valid and its bit is set in xw.
+__device__ __forceinline__ bool ghost_bit(const Ghost& g,
+                                          const uint32_t* xw, int c) {
+  const int32_t cell = g.yg[c];
+  return cell >= 0 && ((xw[cell >> 5] >> (cell & 31)) & 1u);
+}
+
 // Whether the calling lane's column slot j is active for tile row r.
 __device__ __forceinline__ bool active_bit(const uint32_t (&sact)[BM][WPB],
                                            int r, int j) {

@@ -29,6 +29,16 @@ Voronoi cell, < 0 for padding) and a global id, and a pair hits only when
 its distance passes the threshold, its groups are equal and valid, and its
 ids differ (``grouped_hit``). The kernels skip the distances of a block
 whose groups cannot meet and store zero words there.
+
+And a ghost variant for the landmark engine's ghost ring:
+``nng_tile_ghost{,_hamming,_l1}_cuda`` (``csrc/nng_tile_ghost*.cu``) and
+``nng_tile_ghost{,_hamming,_l1}_ref``. A visiting row carries its slacked
+Lemma-1 ghost cells as packed words (``x_gbits``, (q, ceil(m/32)), the
+``pack_words`` layout), and a pair hits only when its distance passes the
+threshold and bit ``y_group[j]`` of row i's words is set (``ghost_hit``).
+A row's own cell bit is never set, so no id test is needed. The kernels
+skip the distances of a block where no row has a bit in the block's y
+cell range and store zero words there.
 """
 from __future__ import annotations
 
@@ -197,6 +207,49 @@ def nng_tile_grouped_l1_ref(x, y, xg, yg, xid, yid, eps: float):
                              yg, xid, yid))
 
 
+# ---------------------------------------------------------------------------
+# ghost variants (the landmark engine's ghost ring)
+# ---------------------------------------------------------------------------
+
+def ghost_hit(d_ok, x_gbits, y_group):
+    """Fold the ghost test into a (q, p) bool threshold mask: pair (i, j)
+    stays where ``y_group[j] >= 0`` and bit ``y_group[j]`` of row i's
+    packed words ``x_gbits`` (q, mw) int32 is set. A direct bit test: the
+    reference folds the lookup into a one-hot product (``_ghost_hit``),
+    which gives the same bits."""
+    yg = y_group.long()
+    c = yg.clamp_min(0)
+    word = x_gbits[:, c // 32]                           # (q, p) int32
+    bit = ((word >> (c % 32).to(torch.int32)[None, :]) & 1) != 0
+    return d_ok & bit & (yg >= 0)[None, :]
+
+
+def nng_tile_ghost_ref(x, y, x_gbits, y_group, eps: float):
+    """Plain PyTorch version of the ghost L2 tile: x (q, d), y (p, d),
+    x_gbits (q, mw) int32 words, y_group (p,) int32, p % 32 == 0 ->
+    (cnt (q,) int32, bits (q, p / 32) int32), with ``nng_tile_ref``'s fp32
+    expansion."""
+    x = x.to(torch.float32)
+    y = y.to(torch.float32)
+    d2 = ((x * x).sum(1)[:, None] + (y * y).sum(1)[None, :]
+          - 2.0 * x @ y.T)
+    return _hits(ghost_hit(d2 <= eps2_f32(eps), x_gbits, y_group))
+
+
+def nng_tile_ghost_hamming_ref(x, y, x_gbits, y_group, eps: float):
+    """Plain PyTorch version of the ghost Hamming tile over int32 words, as
+    ``nng_tile_ghost_ref`` otherwise."""
+    return _hits(ghost_hit(hamming_dist(x, y) <= eps_int(eps), x_gbits,
+                           y_group))
+
+
+def nng_tile_ghost_l1_ref(x, y, x_gbits, y_group, eps: float):
+    """Plain PyTorch version of the ghost L1 tile (``l1_dist``'s order), as
+    ``nng_tile_ghost_ref`` otherwise."""
+    return _hits(ghost_hit(l1_dist(x, y) <= float(np.float32(eps)), x_gbits,
+                           y_group))
+
+
 def check_operands(fn: str, *specs) -> None:
     """Raise unless every (name, tensor, dtype, ndim) of ``specs`` is a
     contiguous CUDA tensor of that dtype and rank, all on one device."""
@@ -212,22 +265,25 @@ def check_operands(fn: str, *specs) -> None:
         raise ValueError(f"{fn}: operands on different devices")
 
 
-def _launch_tile(lib: str, x, y, ints, dtype, thr):
+def _launch_tile(lib: str, x, y, ints, dtype, thr, gbits=None):
     """Check the operands of tile kernel ``lib`` and launch it with
     threshold ``thr`` -> (cnt, bits, launched). ``ints`` are its int32
     operands as (name, tensor, "q" or "p": the rows of x or of y), in the
-    order its C entry point takes them after x and y."""
+    order its C entry point takes them after x and y. A ghost kernel also
+    takes ``gbits`` (q, mw) int32 right after y, and mw after d."""
     fn = f"{lib}_cuda"
-    check_operands(fn, ("x", x, dtype, 2), ("y", y, dtype, 2),
+    extra = () if gbits is None else (("x_gbits", gbits, torch.int32, 2),)
+    check_operands(fn, ("x", x, dtype, 2), ("y", y, dtype, 2), *extra,
                    *((name, t, torch.int32, 1) for name, t, _ in ints))
     q, d = x.shape
     p = y.shape[0]
     if y.shape[1] != d or any(t.shape[0] != (q if ax == "q" else p)
-                              for _, t, ax in ints):
+                              for _, t, ax in ints) or (
+                                  gbits is not None and gbits.shape[0] != q):
         raise ValueError(f"{fn}: shapes x {tuple(x.shape)}, y "
                          f"{tuple(y.shape)}, " + ", ".join(
                              f"{name} {tuple(t.shape)}"
-                             for name, t, _ in ints))
+                             for name, t, *_ in extra + tuple(ints)))
     nw = -(-p // 32)
     cnt = torch.zeros(q, dtype=torch.int32, device=x.device)
     # every kernel stores every word of its (q, nw) mask
@@ -236,11 +292,14 @@ def _launch_tile(lib: str, x, y, ints, dtype, thr):
         bits.zero_()
         return cnt, bits, False
     launch = _build.entry(lib)
+    gb = () if gbits is None else (gbits.data_ptr(),)
+    mw = () if gbits is None else (gbits.shape[1],)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = launch(x.data_ptr(), y.data_ptr(),
+        code = launch(x.data_ptr(), y.data_ptr(), *gb,
                       *(t.data_ptr() for _, t, _ in ints),
-                      cnt.data_ptr(), bits.data_ptr(), q, p, d, thr, stream)
+                      cnt.data_ptr(), bits.data_ptr(), q, p, d, *mw, thr,
+                      stream)
     _build.check(lib, code)
     return cnt, bits, True
 
@@ -316,9 +375,47 @@ def nng_tile_grouped_l1_cuda(x, y, xg, yg, xid, yid, eps: float):
     return cnt, bits
 
 
+def nng_tile_ghost_cuda(x, y, x_gbits, y_group, eps: float):
+    """The ghost L2 CUDA kernel: x (q, d), y (p, d) fp32, x_gbits (q, mw)
+    int32 words (any mw), y_group (p,) int32, all contiguous on one CUDA
+    device -> (cnt (q,) int32, bits (q, ceil(p/32)) int32), the function of
+    ``nng_tile_ghost_ref``. Any q, p and d: the kernel masks ragged edges,
+    and bits past column p - 1 are zero."""
+    cnt, bits, launched = _launch_tile("nng_tile_ghost", x, y,
+                                       (("y_group", y_group, "p"),),
+                                       torch.float32, eps2_f32(eps),
+                                       gbits=x_gbits)
+    nng_tile_ghost_cuda.launches += launched
+    return cnt, bits
+
+
+def nng_tile_ghost_hamming_cuda(x, y, x_gbits, y_group, eps: float):
+    """The ghost Hamming CUDA kernel over int32 words, as
+    ``nng_tile_ghost_cuda`` otherwise."""
+    cnt, bits, launched = _launch_tile("nng_tile_ghost_hamming", x, y,
+                                       (("y_group", y_group, "p"),),
+                                       torch.int32, eps_int(eps),
+                                       gbits=x_gbits)
+    nng_tile_ghost_hamming_cuda.launches += launched
+    return cnt, bits
+
+
+def nng_tile_ghost_l1_cuda(x, y, x_gbits, y_group, eps: float):
+    """The ghost L1 CUDA kernel, as ``nng_tile_ghost_cuda`` otherwise."""
+    cnt, bits, launched = _launch_tile("nng_tile_ghost_l1", x, y,
+                                       (("y_group", y_group, "p"),),
+                                       torch.float32, float(np.float32(eps)),
+                                       gbits=x_gbits)
+    nng_tile_ghost_l1_cuda.launches += launched
+    return cnt, bits
+
+
 nng_tile_cuda.launches = 0
 nng_tile_hamming_cuda.launches = 0
 nng_tile_l1_cuda.launches = 0
 nng_tile_grouped_cuda.launches = 0
 nng_tile_grouped_hamming_cuda.launches = 0
 nng_tile_grouped_l1_cuda.launches = 0
+nng_tile_ghost_cuda.launches = 0
+nng_tile_ghost_hamming_cuda.launches = 0
+nng_tile_ghost_l1_cuda.launches = 0

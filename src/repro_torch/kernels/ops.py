@@ -13,7 +13,7 @@ import torch
 from .bits_epilogue import (NOCOL, SENTINEL, bits_to_cols_cuda,
                             bits_to_cols_ref, leaf_range_pack_cuda,
                             leaf_range_pack_ref)
-from .nng_tile import GBIG, grouped_hit, pack_words, unpack_words
+from .nng_tile import GBIG, ghost_hit, grouped_hit, pack_words, unpack_words
 from .tree_frontier import _frontier_masks_float
 
 
@@ -149,6 +149,78 @@ def nng_tile_bits_grouped(x, y, x_group, y_group, x_ids, y_ids, eps: float,
     else:
         hit = grouped_hit(met.cdist(x, y) <= met.comparable(eps), xg, yg,
                           xid, yid)
+        cnt = hit.sum(1, dtype=torch.int32)
+        bits = pack_words(_pad_cols(hit, 32, False))
+    return cnt, bits, scheduled, skipped
+
+
+def ghost_block_active(x_gbits, y_group, tq: int, tp: int):
+    """The block-skip rule of the ghost tiles at a (tq, tp) block shape: a
+    block is live iff some row of it has a ghost bit (``x_gbits`` (q, mw)
+    int32 words) inside the valid cells' (>= 0) [min, max] range of its y
+    rows. Returns the (nqb, npb) bool map; at the reference's geometry
+    (``nng_tile_geometry``) it is the reference's own schedule
+    (``ghost_block_active`` there), so it gives the ghost ring's
+    tiles_scheduled / tiles_skipped. Rows are tile-padded by the caller
+    (zero words, group -1)."""
+    q = x_gbits.shape[0]
+    p = y_group.shape[0]
+    assert q % tq == 0 and p % tp == 0, (q, tq, p, tp)
+    xb = unpack_words(x_gbits)                           # (q, mw * 32)
+    xany = xb.reshape(q // tq, tq, -1).any(1)            # (nqb, m_pad)
+    # ghost bits of each row block at or below each cell: a prefix count
+    # answers "any bit in [ymin, ymax]" for every y block at once
+    pre = torch.nn.functional.pad(xany.to(torch.int32).cumsum(1), (1, 0))
+    yg = y_group.reshape(p // tp, tp)
+    ymin = torch.where(yg >= 0, yg, GBIG).amin(1)
+    ymax = torch.where(yg >= 0, yg, -1).amax(1)
+    ok = ymin <= ymax
+    lo = torch.where(ok, ymin, 0).long()
+    hi = torch.where(ok, ymax + 1, 0).long()
+    return (pre[:, hi] - pre[:, lo] > 0) & ok[None, :]
+
+
+def nng_tile_bits_ghost(x, y, x_gbits, y_group, eps: float,
+                        metric="euclidean"):
+    """Ghost-aware fused ε-tile of the landmark engine's ghost ring.
+
+    hit(i, j) = d(x_i, y_j) <= eps and y_group[j] >= 0 and bit y_group[j]
+    of x_gbits[i] is set: the slacked Lemma-1 test travels with the
+    visiting block as packed per-row cell words ((q, ceil(m/32)) int32, the
+    ``pack_words`` layout) instead of ghost copies. A row's own cell bit is
+    never set, so same-cell (and self) pairs are excluded without an id
+    test. Returns (cnt (q,) int32, bits (q, ceil(p/32)) int32 words,
+    tiles_scheduled, tiles_skipped): the counters are 0-d int64 tensors,
+    the reference's block schedule at its own geometry
+    (``ghost_block_active``). Callers cell-sort y so that whole blocks
+    skip; the result never depends on the row order.
+
+    The metric's ghost kernel on a CUDA tensor, its plain version on a CPU
+    one; a metric with neither runs the generic path over
+    ``metric.cdist``."""
+    met = _resolve_metric(metric)
+    q = x.shape[0]
+    p = y.shape[0]
+    nw = -(-p // 32)
+    dev = x.device
+    gb = torch.as_tensor(x_gbits, dtype=torch.int32, device=dev)
+    yg = torch.as_tensor(y_group, dtype=torch.int32, device=dev)
+    tq, tp = met.tile_shape(q, p)
+    active = ghost_block_active(_pad_rows(gb, tq)[0],
+                                _pad_rows(yg, tp, -1)[0], tq, tp)
+    scheduled = torch.tensor(active.numel(), device=dev)
+    skipped = scheduled - active.sum()
+    x = x.to(met.dtype)
+    y = y.to(met.dtype)
+    if x.is_cuda and met.ghost_kernel is not None:
+        cnt, bits = met.ghost_kernel(x.contiguous(), y.contiguous(),
+                                     gb.contiguous(), yg.contiguous(), eps)
+    elif met.ghost_ref is not None:
+        yp, ygp = (_pad_rows(a, 32, v)[0] for a, v in ((y, 0), (yg, -1)))
+        cnt, bits = met.ghost_ref(x, yp, gb, ygp, eps)
+        bits = bits[:, :nw]
+    else:
+        hit = ghost_hit(met.cdist(x, y) <= met.comparable(eps), gb, yg)
         cnt = hit.sum(1, dtype=torch.int32)
         bits = pack_words(_pad_cols(hit, 32, False))
     return cnt, bits, scheduled, skipped

@@ -9,13 +9,15 @@ Two engines, each with every axis a keyword:
     on the card by default, traversed level by level);
   - ``partition="spatial"`` (Algorithms 5+6, the landmark engine): Voronoi
     cells over sampled centres, LPT-assigned to ranks, ε-ghosts exchanged
-    as capacity-padded copies (``ghost_mode="coll"``, the default), and
-    the cells' W x W and G x W queries through the grouped tile
-    (``traversal="tiles"``). Its capacities come from an exact counting
-    pass (``planner="device"``, the default) or the numpy host pass
-    (``planner="host"``). ``ghost_mode="ring"`` (given, or where
-    ``"auto"`` resolves to it) and ``traversal="tree"`` raise
-    ``NotImplementedError``: they are ROADMAP item 7's next slice.
+    as capacity-padded copies (``ghost_mode="coll"``, the default) or
+    found by rotating each rank's compacted block around the ring with
+    its Lemma-1 test as packed cell words (``"ring"``; ``"auto"`` picks by
+    the exact byte models). Both traversals: ``"tiles"`` runs the cells'
+    queries through the grouped tile (and the ghost tile on the ring),
+    ``"tree"`` traverses per-cell cover forests (built on the card by
+    default). Its capacities come from an exact counting pass
+    (``planner="device"``, the default) or the numpy host pass
+    (``planner="host"``).
 
 Any registered metric runs: ``euclidean``, ``manhattan`` and ``hamming``
 (numpy uint32 or int32 words) have CUDA kernels, and a user ``Metric``
@@ -49,6 +51,7 @@ from repro_torch.core.distributed import (DeviceForest, LandmarkPlan,
                                           plan_ring_schedule,
                                           resolve_ghost_mode, systolic_run)
 from repro_torch.core.flat_tree import (build_block_forests,
+                                        build_cell_forests,
                                         stack_device_forests)
 from repro_torch.core.graph import NNGraph, RunStats
 from repro_torch.core.landmark import (ghost_membership, lpt_assignment,
@@ -104,6 +107,31 @@ def _wait(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _timed_forest(engine: Engine, build, backend: str, *args) -> dict:
+    """An engine's rank-stacked forest tables from ``build(points, *args,
+    nranks, metric, ...)`` (``build_block_forests`` or
+    ``build_cell_forests``): the torch builder on the mesh's device
+    (``backend="device"``) or the float64 numpy oracle (``"host"``), as
+    tensors on that device. The build is timed into ``engine.build_s``."""
+    t0 = time.perf_counter()
+    mesh, met = engine.mesh, engine.metric
+    if backend == "device":
+        tabs = build(engine.points, *args, mesh.size, met, backend="device",
+                     device=mesh.device)
+    elif backend == "host":
+        tabs = stack_device_forests(build(engine.points.cpu().numpy(), *args,
+                                          mesh.size, met.host))
+    else:
+        raise ValueError(f"unknown forest_backend {backend!r} "
+                         "(want 'device' or 'host')")
+    tabs = {k: (met.as_device(v, mesh.device) if k == "coords"
+                else torch.as_tensor(v, device=mesh.device))
+            for k, v in tabs.items()}
+    _wait(engine.device)
+    engine.build_s = time.perf_counter() - t0
+    return tabs
+
+
 def drive(engine: Engine, max_grows: int = 8):
     """THE plan → run → grow-on-overflow loop.
 
@@ -154,23 +182,7 @@ class PointPartitionEngine(Engine):
         self.forest_backend = forest_backend
         self.build_s = 0.0
         if traversal == "tree" and forest is None:
-            t0 = time.perf_counter()
-            if forest_backend == "device":
-                forest = build_block_forests(
-                    self.points, mesh.size, self.metric, backend="device",
-                    device=mesh.device)
-            elif forest_backend == "host":
-                forest = stack_device_forests(build_block_forests(
-                    self.points.cpu().numpy(), mesh.size, self.metric.host))
-            else:
-                raise ValueError(f"unknown forest_backend {forest_backend!r} "
-                                 "(want 'device' or 'host')")
-            forest = {k: (self.metric.as_device(v, mesh.device)
-                          if k == "coords"
-                          else torch.as_tensor(v, device=mesh.device))
-                      for k, v in forest.items()}
-            _wait(self.device)
-            self.build_s = time.perf_counter() - t0
+            forest = _timed_forest(self, build_block_forests, forest_backend)
         self.forest = forest
         # the traversal's tables (with their child ranges) once per engine
         self.device_forest = (None if forest is None else
@@ -288,7 +300,8 @@ class SpatialPartitionEngine(Engine):
     def __init__(self, points, eps, mesh, metric, *, k_cap: int = 128,
                  planner: str = "device", m_centers: int | None = None,
                  traversal: str = "tiles", plan: LandmarkPlan | None = None,
-                 seed: int = 0, ghost_mode: str = "coll"):
+                 seed: int = 0, ghost_mode: str = "coll",
+                 forest_backend: str = "device"):
         if ghost_mode not in ("coll", "ring", "auto"):
             raise ValueError(f"unknown ghost_mode {ghost_mode!r} "
                              "(want 'coll', 'ring' or 'auto')")
@@ -310,12 +323,20 @@ class SpatialPartitionEngine(Engine):
         self.centers = self.points[torch.as_tensor(idx, device=mesh.device)]
         self.m_centers = len(self.centers)
         # the host (n x m) Voronoi argmin (the host metric's cdist, as the
-        # reference's) feeds the LPT assignment and the host planner
+        # reference's) feeds the LPT assignment, the host planner and the
+        # tree flavour's cell forests
         self.cell = np.argmin(self.metric.host.cdist(
             self._host_points(), self.centers.cpu().numpy()), axis=1)
         self.f = lpt_assignment(
             np.bincount(self.cell, minlength=self.m_centers),
             nranks).astype(np.int32)
+        self.forest = None
+        if traversal == "tree":
+            # the cell forests once per engine: the grow loop changes only
+            # capacities
+            self.forest = DeviceForest.from_tables(_timed_forest(
+                self, build_cell_forests, forest_backend, self.cell, self.f),
+                mesh.device)
 
     def _host_points(self) -> np.ndarray:
         return self.points.cpu().numpy()
@@ -379,6 +400,7 @@ class SpatialPartitionEngine(Engine):
         return landmark_run(
             self.points, self.eps, self.centers, self.f, self.mesh, plan,
             metric=self.metric, traversal=self.traversal,
+            forest=self.forest, cell=self.cell,
             ghost_mode=self.resolved_ghost_mode(plan))
 
     def overflowed(self, out):
@@ -388,7 +410,8 @@ class SpatialPartitionEngine(Engine):
         return grow_plan(plan)
 
     def neighbor_tables(self, out):
-        return [(out[0], out[1]), (out[3], out[4])]
+        # the engine's tables come as per-launch parts
+        return [*zip(out[0], out[1]), *zip(out[3], out[4])]
 
     def _landmark_comm_bytes(self, plan: LandmarkPlan) -> dict:
         """Per-channel exchange bytes. ``coalesce`` moves three
@@ -465,10 +488,12 @@ def build_nng(
     (default max(2·nranks, 32)) drawn from ``seed``; ``planner`` "device"
     (exact counting pass, the default) or "host" (numpy pass); the
     capacities double on overflow. ``ghost_mode`` "coll" (capacity-padded
-    all-to-all of ghost copies, the default) or "auto" where it resolves
-    to "coll" (the resolved mode lands in ``meta["ghost_mode"]``);
-    ``ghost_mode="ring"`` and ``traversal="tree"`` raise
-    ``NotImplementedError`` (ROADMAP item 7's next slice)."""
+    all-to-all of ghost copies, the default), "ring" (the compacted block
+    rotates with its Lemma-1 test as packed cell words; no ghost copies)
+    or "auto" (per plan, from the exact byte models; the resolved mode
+    lands in ``meta["ghost_mode"]``). With ``traversal="tree"`` the cells'
+    cover forests are built once, on the card or (``forest_backend=
+    "host"``) by the float64 numpy oracle, timed in ``RunStats.build_s``."""
     if partition not in ("point", "spatial"):
         raise ValueError(
             f"unknown partition {partition!r} (want 'point' or 'spatial')")
@@ -502,7 +527,7 @@ def build_nng(
         engine = SpatialPartitionEngine(
             points, eps, mesh, met, k_cap=k_cap or 128, planner=planner,
             m_centers=m_centers, traversal=traversal, seed=seed,
-            ghost_mode=ghost_mode)
+            ghost_mode=ghost_mode, forest_backend=forest_backend)
     out, plan, replans, elapsed = drive(engine, max_grows=max_grows)
     stats = engine.run_stats(out, plan)
     stats.replans = replans
@@ -513,10 +538,10 @@ def build_nng(
         "traversal": traversal, "nranks": mesh.size, "padded": pad,
         "plan": plan,
     }
+    if traversal == "tree":
+        meta["forest_backend"] = forest_backend
     if partition == "point":
         meta["overlap"] = bool(overlap)
-        if traversal == "tree":
-            meta["forest_backend"] = forest_backend
         if engine.ring_schedule is not None:
             meta["ring_schedule"] = tuple(engine.ring_schedule)
     else:

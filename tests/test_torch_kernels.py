@@ -17,13 +17,15 @@ from repro.kernels import bits_epilogue as jbe
 from repro.kernels import nng_tile as jnt
 from repro.kernels import ops as jops
 from repro.kernels import tree_frontier as jtf
+from repro_torch.core.metrics import get_metric
 from repro_torch.kernels import bits_epilogue as tbe
 from repro_torch.kernels import nng_tile as tnt
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import tree_frontier as ttf
 from tests.test_torch_kernels_gpu import (as_words, frontier_case,
-                                          gap_safe_eps, grouped_case,
-                                          hamming_points, pair_dists,
+                                          gap_safe_eps, ghost_case,
+                                          grouped_case, hamming_points,
+                                          pack_cells, pair_dists,
                                           random_words, range_deltas)
 
 U32 = 2.0 ** -24        # fp32 unit roundoff
@@ -461,6 +463,153 @@ def test_grouped_tile_sorted_and_disjoint(metric):
 
 
 # ---------------------------------------------------------------------------
+# the ghost tiles (the landmark engine's ghost ring)
+# ---------------------------------------------------------------------------
+
+GHOST_REF = {"euclidean": (tnt.nng_tile_ghost_ref, jnt.nng_tile_ghost_ref,
+                           jnt.nng_tile_ghost_pallas),
+             "hamming": (tnt.nng_tile_ghost_hamming_ref,
+                         jnt.nng_tile_ghost_hamming_ref,
+                         jnt.nng_tile_ghost_hamming_pallas),
+             "manhattan": (tnt.nng_tile_ghost_l1_ref,
+                           jnt.nng_tile_ghost_l1_ref,
+                           jnt.nng_tile_ghost_l1_pallas)}
+
+
+@pytest.mark.parametrize("m", [32, 70])
+@pytest.mark.parametrize("metric,q,p,d", [
+    ("euclidean", 256, 512, 16), ("euclidean", 70, 130, 6),
+    ("hamming", 128, 256, 8), ("hamming", 100, 190, 5),
+    ("manhattan", 128, 256, 8), ("manhattan", 100, 190, 5),
+])
+def test_ghost_tile_matches_reference(monkeypatch, metric, q, p, d, m):
+    """Random y cells with padding (-1) and random x cell words over m = 32
+    (one word) and 70 (three) cells, on tile-aligned and ragged shapes:
+    the wrapper and the plain version against the reference's oracle
+    (``*_ref``), its Pallas kernel called directly in interpret mode (on
+    the aligned shapes) and its ``nng_tile_bits_ghost`` under both modes,
+    bit for bit, the block counters too. Hamming on any input; L2 and L1
+    at an eps low in the pair distances and 1e-4·eps from every pair."""
+    rng = np.random.default_rng(q + p + d + m)
+    if metric == "hamming":
+        x = rng.integers(0, 2**32, size=(q, d), dtype=np.uint32)
+        y = rng.integers(0, 2**32, size=(p, d), dtype=np.uint32)
+    else:
+        x = rng.normal(size=(q, d)).astype(np.float32)
+        y = rng.normal(size=(p, d)).astype(np.float32)
+    gb = pack_cells(rng.random((q, m)) < 0.3)
+    gb[::9] = 0
+    yg = rng.integers(-1, m, size=p).astype(np.int32)
+    eps = _quantile_eps(x, y, metric)
+    args = [as_words(a) for a in (x, y, gb, yg)]
+    got = tops.nng_tile_bits_ghost(*args, eps, metric=metric)
+    pad = -p % 32
+    plain_fn, ref_fn, pallas_fn = GHOST_REF[metric]
+    yp, ygp = np.pad(y, ((0, pad), (0, 0))), np.pad(yg, (0, pad),
+                                                    constant_values=-1)
+    plain = plain_fn(args[0], as_words(yp), args[2], as_words(ygp), eps)
+    refs = _reference_modes(monkeypatch, lambda: jops.nng_tile_bits_ghost(
+        x, y, gb, yg, eps, metric=metric))
+    direct = [ref_fn(jnp.asarray(x), jnp.asarray(yp), jnp.asarray(gb),
+                     jnp.asarray(ygp), eps)]
+    tq, tp = get_metric(metric).tile_shape(q, p)
+    if q % tq == 0 and p % tp == 0:
+        direct.append(pallas_fn(jnp.asarray(x), jnp.asarray(y),
+                                jnp.asarray(gb), jnp.asarray(yg), eps, tq=tq,
+                                tp=tp, interpret=True))
+    assert int(got[0].sum()) > 0
+    nw = -(-p // 32)
+    for rc, rb in [r[:2] for r in refs] + direct:
+        for ours in (got, plain):
+            np.testing.assert_array_equal(ours[0].numpy(), np.asarray(rc))
+            np.testing.assert_array_equal(as_u32(ours[1])[:, :nw],
+                                          np.asarray(rb)[:, :nw])
+    for ref in refs:
+        assert (int(got[2]), int(got[3])) == (int(ref[2]), int(ref[3]))
+
+
+@pytest.mark.parametrize("m", [32, 70])
+def test_ghost_hit_and_unpack_match_reference(m):
+    """The direct bit test equals the reference's one-hot contraction
+    (``_ghost_hit``) and ``unpack_words`` its ``_ghost_unpack``."""
+    rng = np.random.default_rng(m)
+    gb = pack_cells(rng.random((50, m)) < 0.4)
+    yg = rng.integers(-1, m, size=96).astype(np.int32)
+    d_ok = rng.random((50, 96)) < 0.7
+    xb = jnt._ghost_unpack(jnp.asarray(gb))
+    np.testing.assert_array_equal(tnt.unpack_words(as_words(gb)).numpy(),
+                                  np.asarray(xb))
+    ours = tnt.ghost_hit(torch.from_numpy(d_ok), as_words(gb),
+                         torch.from_numpy(yg))
+    ref = jnt._ghost_hit(jnp.asarray(d_ok), xb, jnp.asarray(yg),
+                         jnp.asarray(yg) >= 0)
+    np.testing.assert_array_equal(ours.numpy(), np.asarray(ref))
+    assert ours.any() and not ours.all()
+
+
+@pytest.mark.parametrize("q,p,tq,tp,m", [(600, 1200, 256, 512, 32),
+                                         (600, 1200, 128, 256, 70),
+                                         (96, 300, 32, 128, 70),
+                                         (40, 256, 8, 128, 32)])
+def test_ghost_block_active_matches_reference(q, p, tq, tp, m):
+    """Cell-sorted y with trailing padding and sparse x cell sets near each
+    row's share of the cells (the engine's layout): the live-block map
+    equals the reference's, and it both keeps and skips blocks."""
+    rng = np.random.default_rng(q + tq + m)
+    yg = np.sort(rng.integers(0, m, size=p)).astype(np.int32)
+    yg[p - p // 7:] = -1
+    sets = np.zeros((q, m), bool)
+    for i in range(0, q, 3):
+        sets[i, np.clip(i * m // q + rng.integers(-2, 3, size=2), 0,
+                        m - 1)] = True
+    gb = np.pad(pack_cells(sets), ((0, -q % tq), (0, 0)))
+    yg = np.pad(yg, (0, -p % tp), constant_values=-1)
+    ours = tops.ghost_block_active(as_words(gb), torch.from_numpy(yg), tq,
+                                   tp)
+    ref = jops.ghost_block_active(jnp.asarray(gb), jnp.asarray(yg), tq, tp)
+    np.testing.assert_array_equal(ours.numpy(), np.asarray(ref))
+    assert ours.any() and not ours.all()
+
+
+@pytest.mark.parametrize("metric", ["euclidean", "hamming", "manhattan"])
+def test_ghost_tile_sorted_and_disjoint(metric):
+    """The shared cases of the card's test, on the plain path: cell-sorted
+    y skips blocks and keeps its hits; disjoint cell sets hit nothing. The
+    plain version against the reference's oracle."""
+    for q, p, d, m, pattern in ((600, 1200, 9, 70, "sorted"),
+                                (300, 515, 40, 70, "disjoint")):
+        x, y, gb, yg, eps = ghost_case(metric, q, p, d, m, q + d, pattern)
+        cnt, bits, sched, skip = tops.nng_tile_bits_ghost(
+            *(as_words(a) for a in (x, y, gb, yg)), eps, metric=metric)
+        rc, rb, rs, rk = jops.nng_tile_bits_ghost(x, y, gb, yg, eps,
+                                                  metric=metric)
+        np.testing.assert_array_equal(cnt.numpy(), np.asarray(rc))
+        np.testing.assert_array_equal(as_u32(bits), np.asarray(rb))
+        assert (int(sched), int(skip)) == (int(rs), int(rk))
+        assert 0 < int(skip) <= int(sched)
+        if pattern == "disjoint":
+            assert int(skip) == int(sched) and not bits.any()
+        else:
+            assert int(cnt.sum()) > 0
+
+
+def test_ghost_tile_generic_path_matches_plain():
+    """A user metric with only ``cdist`` (here L2's own) takes the generic
+    path (``ghost_hit`` over ``metric.cdist``) and gives the plain L2
+    version's bits."""
+    from repro_torch.core.metrics import Metric
+    euc = get_metric("euclidean")
+    user = Metric(name="l2-user", host=euc.host, cdist=euc.cdist)
+    x, y, gb, yg, eps = ghost_case("euclidean", 70, 130, 6, 70, 5)
+    args = [as_words(a) for a in (x, y, gb, yg)]
+    got = tops.nng_tile_bits_ghost(*args, eps, metric=user)
+    want = tops.nng_tile_bits_ghost(*args, eps, metric="euclidean")
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert int(got[0].sum()) > 0
+
+
+# ---------------------------------------------------------------------------
 # dispatch: CPU tensors take the plain versions, the wrappers refuse them
 # ---------------------------------------------------------------------------
 
@@ -491,6 +640,11 @@ def test_cuda_wrappers_refuse_cpu_tensors():
                     (tnt.nng_tile_grouped_l1_cuda, x)):
         with pytest.raises(ValueError, match="CUDA tensor"):
             fn(pts, pts, i4, i4, i4, i4, 1.0)
+    for fn, pts in ((tnt.nng_tile_ghost_cuda, x),
+                    (tnt.nng_tile_ghost_hamming_cuda, w),
+                    (tnt.nng_tile_ghost_l1_cuda, x)):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            fn(pts, pts, torch.zeros((4, 1), dtype=torch.int32), i4, 1.0)
 
 
 def test_cpu_dispatch_takes_plain_version():
@@ -504,7 +658,10 @@ def test_cpu_dispatch_takes_plain_version():
                 ttf.tree_frontier_l1_cuda.launches,
                 tnt.nng_tile_grouped_cuda.launches,
                 tnt.nng_tile_grouped_hamming_cuda.launches,
-                tnt.nng_tile_grouped_l1_cuda.launches)
+                tnt.nng_tile_grouped_l1_cuda.launches,
+                tnt.nng_tile_ghost_cuda.launches,
+                tnt.nng_tile_ghost_hamming_cuda.launches,
+                tnt.nng_tile_ghost_l1_cuda.launches)
     before = counts()
     x = torch.randn(10, 3)
     cnt, bits = tops.nng_tile_bits(x, x, torch.ones(10, dtype=torch.int32), 1.0)
@@ -527,4 +684,7 @@ def test_cpu_dispatch_takes_plain_version():
     for metric, pts in (("euclidean", x), ("hamming", w), ("manhattan", x)):
         tops.nng_tile_bits_grouped(pts, pts, g, g, torch.arange(10),
                                    torch.arange(10), 1.0, metric=metric)
+        tops.nng_tile_bits_ghost(pts, pts, torch.ones((10, 1),
+                                                  dtype=torch.int32), g, 1.0,
+                                 metric=metric)
     assert counts() == before

@@ -7,8 +7,8 @@ reference package, so it runs on a GPU machine that has neither:
     python -m pytest -m gpu tests/test_torch_kernels_gpu.py
 
 ``gap_safe_eps``, ``random_words``, ``hamming_points``, ``frontier_case``,
-``range_deltas`` and ``grouped_case`` are shared with the CPU tests in
-``test_torch_kernels.py``.
+``range_deltas``, ``grouped_case`` and ``ghost_case`` are shared with the
+CPU tests in ``test_torch_kernels.py``.
 
 Tolerances: the Hamming kernels are exact integer arithmetic and must equal
 their plain versions bit for bit on every input. The float kernels must
@@ -354,6 +354,82 @@ def test_grouped_tile_cuda_matches_plain(cuda_device, metric, q, p, d,
     cnt, bits = kern(*(t.to(cuda_device) for t in args), eps)
     assert kern.launches == before + 1
     rc, rb, _, _ = tops.nng_tile_bits_grouped(*args, eps, metric=metric)
+    assert torch.equal(cnt.cpu(), rc)
+    assert torch.equal(bits.cpu(), rb)
+    if pattern == "disjoint":
+        assert not bits.any() and not cnt.any()
+    else:
+        assert int(rc.sum()) > 0
+
+
+# ---------------------------------------------------------------------------
+# the ghost tiles (the landmark engine's ghost ring)
+# ---------------------------------------------------------------------------
+
+def pack_cells(mask):
+    """(q, m) bool cell sets -> (q, ceil(m/32)) uint32 words, bit c of word
+    c // 32 (the ``pack_words`` layout)."""
+    q, m = mask.shape
+    padded = np.zeros((q, -(-m // 32) * 32), bool)
+    padded[:, :m] = mask
+    return np.packbits(padded, axis=1, bitorder="little").view(np.uint32)
+
+
+def ghost_case(metric, q, p, d, m, seed, pattern="random"):
+    """x, y, x_gbits (uint32 words), y_group (numpy) and an eps for one
+    ghost tile over ``m`` cells.
+
+    ``pattern``: "random" y cells in [-1, m) (-1 is padding) and x cell sets
+    of density 0.3; "sorted" y cells ascending with trailing padding, as
+    the engine's cell-sorted W, and x sets of 1-3 cells near row i's
+    share of the cells (i·m/q), so that row blocks see few cells; "disjoint" y cells in [m/2, m) and x sets inside [0, m/2), so no block
+    is live.
+    Points and eps as ``grouped_case``."""
+    x, y, _, eps = tile_case(metric, q, p, d, seed)
+    if metric != "hamming" and q * p < 20_000:
+        eps = gap_safe_eps(x, y, 0.05, metric=metric, window=20)
+    rng = np.random.default_rng(seed + 2)
+    if pattern == "random":
+        yg = rng.integers(-1, m, size=p)
+        sets = rng.random((q, m)) < 0.3
+    elif pattern == "sorted":
+        yg = np.sort(rng.integers(0, m, size=p))
+        yg[p - p // 17:] = -1
+        sets = np.zeros((q, m), bool)
+        for i in range(q):
+            near = i * m // q + rng.integers(-2, 3, size=rng.integers(1, 4))
+            sets[i, np.clip(near, 0, m - 1)] = True
+    else:
+        yg = rng.integers(m // 2, m, size=p)
+        sets = rng.random((q, m)) < 0.3
+        sets[:, m // 2:] = False
+    sets[::9] = False                       # rows with no ghost cell
+    return x, y, pack_cells(sets), yg.astype(np.int32), eps
+
+
+GHOST_KERNELS = {"euclidean": tnt.nng_tile_ghost_cuda,
+                 "hamming": tnt.nng_tile_ghost_hamming_cuda,
+                 "manhattan": tnt.nng_tile_ghost_l1_cuda}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", ["euclidean", "hamming", "manhattan"])
+@pytest.mark.parametrize("q,p,d,m,pattern", [
+    (37, 64, 3, 32, "random"), (1000, 777, 25, 70, "random"),
+    (512, 1024, 128, 32, "sorted"), (600, 1200, 9, 70, "sorted"),
+    (300, 515, 40, 70, "disjoint"), (260, 300, 7, 2000, "random")])
+def test_ghost_tile_cuda_matches_plain(cuda_device, metric, q, p, d, m,
+                                       pattern):
+    """Hamming bit for bit; L2 and L1 off the knife (gap-safe eps). m = 32
+    is one ghost word a row, 70 three and 2000 sixty-three. The
+    all-disjoint pattern stores zero words everywhere."""
+    x, y, gb, yg, eps = ghost_case(metric, q, p, d, m, q + d, pattern)
+    args = [as_words(a) for a in (x, y, gb, yg)]
+    kern = GHOST_KERNELS[metric]
+    before = kern.launches
+    cnt, bits = kern(*(t.to(cuda_device) for t in args), eps)
+    assert kern.launches == before + 1
+    rc, rb, _, _ = tops.nng_tile_bits_ghost(*args, eps, metric=metric)
     assert torch.equal(cnt.cpu(), rc)
     assert torch.equal(bits.cpu(), rb)
     if pattern == "disjoint":

@@ -30,6 +30,7 @@ from repro.core import landmark as rland
 from repro.core.distributed import device as rdev
 from repro.core.distributed import make_nng_mesh as ref_mesh
 from repro.nng import build_nng as ref_build_nng
+from repro_torch.core import flat_tree as tft
 from repro_torch.core import landmark as tland
 from repro_torch.core.brute import brute_force_graph
 from repro_torch.core.distributed import device as tdev
@@ -76,7 +77,7 @@ def padded(pts, nranks):
 
 
 def landmark_safe_eps(pts, metric, target, ranks, rel=1e-4, knife=4,
-                      m=32, seed=0):
+                      m=32, seed=0, tree_ranks=()):
     """An eps near ``target`` that no decision of the landmark engine sits
     near, for every ring size in ``ranks``: every float64 pair distance,
     and every Lemma-1 threshold (tru[p, i] − d(p, C) − slack[p]) / 2 of the
@@ -84,8 +85,12 @@ def landmark_safe_eps(pts, metric, target, ranks, rel=1e-4, knife=4,
     (``select_centers`` on the padded n; float64 distances, the engine's
     own fp32 slack), at least ``rel``·eps away; for euclidean also
     ``knife`` fp32 rounding units of the expansion's ‖x‖² + ‖y‖² (in d²)
-    away. Hamming needs no gap: its distances and its zero-slack ghost
-    test are exact integers."""
+    away. With ``tree_ranks``, also every d ± r of every point against
+    every internal node of the cell forests that ring size's engine builds
+    (the tree flavour's emit and expand tests; ``tree_safe_eps`` in
+    ``test_torch_tree.py``), for euclidean widened by the fp32 error of d
+    itself, which near d = 0 is the square root of d²'s. Hamming needs no gap: its distances and its
+    zero-slack ghost and tree tests are exact integers."""
     if metric == "hamming":
         return float(target)
     x64 = pts.astype(np.float64)
@@ -107,10 +112,35 @@ def landmark_safe_eps(pts, metric, target, ranks, rel=1e-4, knife=4,
         cs = (centers.astype(np.float64) ** 2).sum(1)
         vals.append((((tru - d_min[:, None] - slack[:, None]) / 2).ravel(),
                      (xs[:, None] + cs[None, :]).ravel()))
+    tree_vals = []
+    for r in tree_ranks:
+        x = padded(pts, r)
+        eng = SpatialPartitionEngine(x, target, cpu_mesh(r), metric)
+        tabs = tft.stack_device_forests(tft.build_cell_forests(
+            x, eng.cell, eng.f, r, metric))
+        xs = (x.astype(np.float64) ** 2).sum(1)
+        for fr in range(r):
+            inner = (tabs["cell"][fr] >= 0) & (tabs["leaf"][fr] == 0)
+            ctr = tabs["coords"][fr][inner]
+            rad = tabs["radius"][fr][inner].astype(np.float64)
+            d = pair_dists(x, ctr, metric)
+            # an fp32 d² is a few units of ‖x‖² + ‖c‖² off, so an fp32 d
+            # is off by that over 2d, or by its square root near d = 0 (a
+            # query at its own node's point)
+            dd2 = knife * U32 * (xs[:, None]
+                                 + (ctr.astype(np.float64) ** 2).sum(1))
+            hd = np.minimum(np.sqrt(dd2), dd2 / np.maximum(2 * d, 1e-300))
+            for v in (d + rad, d - rad):
+                tree_vals.append((v.ravel(), hd.ravel()))
     v = np.concatenate([a for a, _ in vals])
     scale = np.concatenate([b for _, b in vals])
     half = rel * target + (knife * U32 * scale / (2 * target)
                            if metric == "euclidean" else 0.0 * scale)
+    if tree_vals:
+        v = np.concatenate([v] + [a for a, _ in tree_vals])
+        half = np.concatenate([half] + [
+            rel * target + (b if metric == "euclidean" else 0.0 * b)
+            for _, b in tree_vals])
     near = np.abs(v - target) < 0.5 * target
     lo, hi = np.sort(v[near] - half[near]), np.sort(v[near] + half[near])
     # the uncovered points: a candidate c is safe iff no [lo, hi] holds it
@@ -329,6 +359,106 @@ def test_spatial_build_nng_matches_brute_and_reference(case, nranks,
             assert getattr(st, field) == getattr(ref.stats, field), field
 
 
+COMBOS = [("coll", "tree"), ("ring", "tiles"), ("ring", "tree")]
+
+
+@pytest.fixture(scope="module", params=METRICS)
+def mode_case(request):
+    """Points, an eps that is landmark-safe at every ring size and also
+    tree-safe over the one-rank cell forests, the float64 oracle, and the
+    reference's one-device graphs for the ghost ring and the tree
+    flavour."""
+    metric = request.param
+    pts = points(metric)
+    eps = landmark_safe_eps(pts, metric, TARGET[metric], RANKS,
+                            tree_ranks=[1])
+    oracle = brute_force_graph(pts, eps, metric)
+    refs = {c: ref_build_nng(pts, eps, metric=metric, partition="spatial",
+                             ghost_mode=c[0], traversal=c[1])
+            for c in COMBOS}
+    return metric, pts, eps, oracle, refs
+
+
+@pytest.mark.parametrize("nranks", RANKS)
+@pytest.mark.parametrize("combo", COMBOS)
+def test_spatial_ring_and_tree_match_brute_and_reference(mode_case, nranks,
+                                                         combo):
+    """The ghost ring (both traversals) and the tree flavour of the
+    collective exchange: the float64 oracle's and the reference's edges
+    at every ring size (even rings evaluate the boundary round on one
+    side only); at one rank the reference's plan, counters, comm_bytes
+    and meta."""
+    metric, pts, eps, oracle, refs = mode_case
+    mode, trav = combo
+    g = build_nng(pts, eps, metric=metric, partition="spatial",
+                  ghost_mode=mode, traversal=trav, mesh=cpu_mesh(nranks))
+    ref = refs[combo]
+    assert g == oracle
+    np.testing.assert_array_equal(g.edge_key(), ref.edge_key())
+    assert g.meta["ghost_mode"] == mode and g.meta["traversal"] == trav
+    st = g.stats
+    assert set(st.comm_bytes) == {"coalesce",
+                                  "ghost_ring" if mode == "ring" else "ghost"}
+    if trav == "tree":
+        assert g.meta["forest_backend"] == "device" and st.build_s > 0
+        assert st.tiles_scheduled == 0 and st.nodes_pruned > 0
+    else:
+        assert 0 < st.tiles_scheduled and st.nodes_pruned == 0
+    if nranks == 1:
+        assert set(g.meta) == set(ref.meta)
+        for key in ref.meta:
+            want = ref.meta[key]
+            got = g.meta[key]
+            if key == "plan":
+                got, want = dataclasses.asdict(got), dataclasses.asdict(want)
+            assert got == want, key
+        for field in ("tiles_scheduled", "tiles_skipped", "dists_evaluated",
+                      "nodes_pruned", "comm_bytes", "replans"):
+            assert getattr(st, field) == getattr(ref.stats, field), field
+
+
+@pytest.mark.parametrize("nranks", [3, 8])
+@pytest.mark.parametrize("trav", ["tiles", "tree"])
+def test_spatial_ring_host_planner_and_forest(mode_case, nranks, trav):
+    """The ghost ring under the host planner (its cap_rank), the tree
+    flavour on the float64 host forests: still exact."""
+    metric, pts, eps, oracle, refs = mode_case
+    g = build_nng(pts, eps, metric=metric, partition="spatial",
+                  ghost_mode="ring", traversal=trav, planner="host",
+                  forest_backend="host", mesh=cpu_mesh(nranks))
+    assert g == oracle
+    np.testing.assert_array_equal(g.edge_key(),
+                                  refs[("ring", trav)].edge_key())
+    assert g.meta["planner"] == "host"
+    assert g.meta.get("forest_backend") == ("host" if trav == "tree"
+                                            else None)
+
+
+@pytest.mark.parametrize("trav", ["tiles", "tree"])
+@pytest.mark.parametrize("cause", ["cap_rank", "k_cap"])
+def test_spatial_ring_overflow_grows(mode_case, cause, trav):
+    """On the ring, valid coalesce rows past ``cap_rank`` and a count past
+    ``k_cap`` set the flag; one grow doubles the plan and the graph is
+    exact."""
+    metric, pts, eps, oracle, _ = mode_case
+    nranks = 3
+    max_deg = int(np.bincount(np.concatenate([oracle.src, oracle.dst]),
+                              minlength=N).max())
+    run_pts = padded(pts, nranks)
+    mesh = cpu_mesh(nranks)
+    full = SpatialPartitionEngine(run_pts, eps, mesh, metric).initial_plan()
+    small = {"cap_rank": full.cap_rank // 2 + 4,
+             "k_cap": max_deg // 2 + 1}[cause]
+    eng = SpatialPartitionEngine(run_pts, eps, mesh, metric, traversal=trav,
+                                 ghost_mode="ring",
+                                 plan=dataclasses.replace(full,
+                                                          **{cause: small}))
+    out, final, replans, _ = drive(eng)
+    assert replans == 1
+    assert getattr(final, cause) == 2 * small
+    assert NNGraph.from_neighbor_tables(N, eng.neighbor_tables(out)) == oracle
+
+
 @pytest.mark.parametrize("metric", METRICS)
 @pytest.mark.parametrize("cause", ["cap_coal", "cap_ghost", "g_per_pt",
                                    "k_cap"])
@@ -364,23 +494,37 @@ def test_spatial_overflow_grows(metric, cause):
 
 def test_spatial_auto_ghost_mode():
     """``ghost_mode="auto"``: where the byte models pick the collective
-    exchange it runs and reports "coll", as the reference; where they pick
-    the ring (one rank: no hops) it raises, naming the ROADMAP item."""
+    exchange it runs and reports "coll"; where they pick the ring (one
+    rank: no hops) it runs the ring and reports "ring", with the
+    reference's plan, counters and ``comm_bytes`` (the reference's run is
+    on one device too). An unknown mode or traversal raises."""
     pts = points("euclidean")
     eps = landmark_safe_eps(pts, "euclidean", TARGET["euclidean"], [1, 8],
                             m=AUTO_M)
+    oracle = brute_force_graph(pts, eps)
     g = build_nng(pts, eps, partition="spatial", ghost_mode="auto",
                   m_centers=AUTO_M, mesh=cpu_mesh(8))
     ref = ref_build_nng(pts, eps, partition="spatial", ghost_mode="auto",
                         m_centers=AUTO_M)
     assert g.meta["ghost_mode"] == "coll" and g.meta["m_centers"] == AUTO_M
-    assert g == brute_force_graph(pts, eps)
+    assert g == oracle
     np.testing.assert_array_equal(g.edge_key(), ref.edge_key())
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-        build_nng(pts, eps, partition="spatial", ghost_mode="auto",
-                  m_centers=AUTO_M, mesh=cpu_mesh(1))
+    g1 = build_nng(pts, eps, partition="spatial", ghost_mode="auto",
+                   m_centers=AUTO_M, mesh=cpu_mesh(1))
+    assert g1.meta["ghost_mode"] == ref.meta["ghost_mode"] == "ring"
+    assert g1 == oracle
+    np.testing.assert_array_equal(g1.edge_key(), ref.edge_key())
+    assert dataclasses.asdict(g1.meta["plan"]) == \
+        dataclasses.asdict(ref.meta["plan"])
+    for field in ("tiles_scheduled", "tiles_skipped", "dists_evaluated",
+                  "nodes_pruned", "comm_bytes", "replans"):
+        assert getattr(g1.stats, field) == getattr(ref.stats, field), field
+    assert set(g1.stats.comm_bytes) == {"coalesce", "ghost_ring"}
     with pytest.raises(ValueError, match="ghost_mode"):
         build_nng(pts, eps, partition="spatial", ghost_mode="bogus",
+                  device="cpu")
+    with pytest.raises(ValueError, match="traversal"):
+        build_nng(pts, eps, partition="spatial", traversal="bogus",
                   device="cpu")
 
 
@@ -427,14 +571,12 @@ import numpy as np
 from repro.nng import build_nng
 out = []
 with np.load(sys.argv[1]) as f:
-    for metric, planner, mode in (("euclidean", "device", "coll"),
-                                  ("hamming", "device", "coll"),
-                                  ("manhattan", "device", "coll"),
-                                  ("euclidean", "host", "auto")):
+    for metric, planner, mode, trav in json.loads(sys.argv[2]):
         pts = f[metric]
-        eps = float(f["auto_eps" if mode == "auto" else metric + "_eps"])
+        eps = float(f[("auto" if mode == "auto" else metric)
+                      + ("_tree" if trav == "tree" else "") + "_eps"])
         g = build_nng(pts, eps, metric=metric, partition="spatial",
-                      planner=planner, ghost_mode=mode,
+                      planner=planner, ghost_mode=mode, traversal=trav,
                       m_centers=16 if mode == "auto" else None)
         st = g.stats
         out.append({
@@ -442,6 +584,7 @@ with np.load(sys.argv[1]) as f:
             "edge_sha": hashlib.sha256(g.edge_key().tobytes()).hexdigest(),
             "m_centers": g.meta["m_centers"],
             "ghost_mode": g.meta["ghost_mode"], "replans": st.replans,
+            "forest_backend": g.meta.get("forest_backend"),
             "tiles_scheduled": st.tiles_scheduled,
             "tiles_skipped": st.tiles_skipped,
             "dists_evaluated": st.dists_evaluated,
@@ -451,31 +594,48 @@ print(json.dumps(out))
 """
 
 N8 = 600
+RUNS_8DEV = [("euclidean", "device", "coll", "tiles"),
+             ("hamming", "device", "coll", "tiles"),
+             ("manhattan", "device", "coll", "tiles"),
+             ("euclidean", "host", "auto", "tiles"),
+             ("euclidean", "device", "ring", "tiles"),
+             ("hamming", "device", "ring", "tiles"),
+             ("manhattan", "device", "ring", "tiles"),
+             ("euclidean", "device", "ring", "tree"),
+             ("hamming", "device", "ring", "tree"),
+             ("euclidean", "device", "coll", "tree"),
+             ("manhattan", "device", "coll", "tree")]
 
 
 def test_spatial_counters_match_reference_8dev(tmp_path):
     """All three metrics (and the host planner under ghost_mode="auto",
-    16 centres)
-    against the reference on 8 devices: edges, plan, m_centers, ghost_mode,
-    replans, tiles_scheduled / tiles_skipped / dists_evaluated /
-    nodes_pruned and both comm_bytes channels."""
+    16 centres), the ghost ring on both traversals and the tree flavour of
+    the collective exchange, against the reference on 8 devices: edges,
+    plan, m_centers, the resolved ghost_mode, forest_backend, replans,
+    tiles_scheduled / tiles_skipped / dists_evaluated / nodes_pruned and
+    both comm_bytes channels. The tree runs take an eps that is also
+    tree-safe over the 8 ranks' cell forests."""
     pts = {m: points(m, N8, SEED) for m in METRICS}
     eps = {m: landmark_safe_eps(pts[m], m, TARGET[m], [8]) for m in METRICS}
+    tree_eps = {m: landmark_safe_eps(pts[m], m, TARGET[m], [8],
+                                     tree_ranks=[8]) for m in METRICS}
     auto_eps = landmark_safe_eps(pts["euclidean"], "euclidean",
                                  TARGET["euclidean"], [8], m=AUTO_M)
     path = tmp_path / "cases.npz"
     np.savez(path, **pts, **{m + "_eps": v for m, v in eps.items()},
+             **{m + "_tree_eps": v for m, v in tree_eps.items()},
              auto_eps=auto_eps)
-    code = f"import sys; sys.argv[1:] = [{str(path)!r}]\n" + REF_8DEV
+    code = (f"import sys; sys.argv[1:] = [{str(path)!r}, "
+            f"{json.dumps(RUNS_8DEV)!r}]\n" + REF_8DEV)
     refs = json.loads(run_subprocess(code, devices=8).strip()
                       .splitlines()[-1])
-    runs = [("euclidean", "device", "coll"), ("hamming", "device", "coll"),
-            ("manhattan", "device", "coll"), ("euclidean", "host", "auto")]
-    for (metric, planner, mode), ref in zip(runs, refs):
-        key = (metric, planner, mode)
-        g = build_nng(pts[metric], auto_eps if mode == "auto" else
-                      eps[metric], metric=metric,
-                      partition="spatial", planner=planner, ghost_mode=mode,
+    assert len(refs) == len(RUNS_8DEV)
+    for (metric, planner, mode, trav), ref in zip(RUNS_8DEV, refs):
+        key = (metric, planner, mode, trav)
+        e = (auto_eps if mode == "auto" else
+             (tree_eps if trav == "tree" else eps)[metric])
+        g = build_nng(pts[metric], e, metric=metric, partition="spatial",
+                      planner=planner, ghost_mode=mode, traversal=trav,
                       m_centers=AUTO_M if mode == "auto" else None,
                       mesh=cpu_mesh(8))
         st = g.stats
@@ -484,10 +644,15 @@ def test_spatial_counters_match_reference_8dev(tmp_path):
         assert hashlib.sha256(g.edge_key().tobytes()).hexdigest() == \
             ref["edge_sha"], key
         assert g.meta["m_centers"] == ref["m_centers"], key
-        assert g.meta["ghost_mode"] == ref["ghost_mode"] == "coll", key
+        assert g.meta["ghost_mode"] == ref["ghost_mode"] == (
+            "coll" if mode == "auto" else mode), key
+        assert g.meta.get("forest_backend") == ref["forest_backend"], key
         assert st.replans == ref["replans"], key
         for field in ("tiles_scheduled", "tiles_skipped", "dists_evaluated",
                       "nodes_pruned"):
             assert getattr(st, field) == ref[field], (key, field)
         assert st.comm_bytes == ref["comm_bytes"], key
-        assert st.tiles_skipped > 0, key
+        if trav == "tiles":
+            assert st.tiles_skipped > 0, key
+        else:
+            assert st.nodes_pruned > 0, key

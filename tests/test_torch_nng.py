@@ -174,23 +174,34 @@ def test_cdist_only_metric_end_to_end():
 
 
 def test_unported_paths_raise():
+    """The paths that raised before the ghost ring and the spatial tree
+    flavour were ported now run: ``ghost_mode="ring"`` and
+    ``traversal="tree"`` on the spatial partition give the float64 graph,
+    and ``tree_traverse`` with all-zero ghost words finds nothing. What
+    is unknown still raises ``ValueError``."""
     from repro_torch.core.distributed import DeviceForest, tree_traverse
     from repro_torch.core.flat_tree import (build_block_forests,
                                             stack_device_forests)
     pts = synthetic_pointset(16, 3, seed=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-        build_nng(pts, 1.0, partition="spatial", ghost_mode="ring",
-                  device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-        build_nng(pts, 1.0, partition="spatial", traversal="tree",
-                  device="cpu")
+    eps = gap_safe_eps(pts, 0.2)
+    oracle = brute_force_graph(pts, eps)
+    assert oracle.num_edges > 5
+    for mode, trav in (("ring", "tiles"), ("coll", "tree"), ("ring", "tree")):
+        g = build_nng(pts, eps, partition="spatial", ghost_mode=mode,
+                      traversal=trav, device="cpu")
+        assert g == oracle, (mode, trav)
+        assert g.meta["ghost_mode"] == mode
     forest = DeviceForest.from_tables(
         stack_device_forests(build_block_forests(pts, 1))).rank(0)
     x = torch.from_numpy(pts)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-        tree_traverse(x, torch.arange(16, dtype=torch.int32), None, forest,
-                      1.0, 4, "euclidean",
-                      qghost_bits=torch.zeros((16, 1), dtype=torch.int32))
+    nbrs, cnt, dists, _ = tree_traverse(
+        x, torch.arange(16, dtype=torch.int32), None, forest, eps, 4,
+        "euclidean", qghost_bits=torch.zeros((16, 1), dtype=torch.int32))
+    assert int(cnt.sum()) == 0 and int(dists) == 0
+    assert bool((nbrs == 2**31 - 1).all())
+    with pytest.raises(ValueError, match="ghost_mode"):
+        build_nng(pts, eps, partition="spatial", ghost_mode="bogus",
+                  device="cpu")
     with pytest.raises(ValueError, match="traversal"):
         build_nng(pts, 1.0, traversal="no-such-traversal", device="cpu")
     for name, dtype, exact in (("hamming", torch.int32, True),

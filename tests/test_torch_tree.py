@@ -316,9 +316,139 @@ def test_tree_traverse_self_pairs_and_ghost_bits():
     nbrs, cnt, _, _ = tree_traverse(x, ids, torch.zeros(96, dtype=torch.int32),
                                     fr, 0.0, 8, "euclidean")
     assert int(cnt.sum()) == 0 and bool((nbrs == SENTINEL).all())
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-        tree_traverse(x, ids, None, fr, 1.0, 8, "euclidean",
-                      qghost_bits=torch.zeros((96, 1), dtype=torch.int32))
+    # the ghost scope: every node of this forest is cell 0, so bit 0 set
+    # scopes a query as qcells 0 does, and no bit scopes it nowhere; both
+    # equal the reference's ghost traversal
+    eps = gap_safe_eps(pts, 0.1)
+    want = tree_traverse(x, ids, torch.zeros(96, dtype=torch.int32), fr, eps,
+                         32, "euclidean")
+    for bit, rows in ((1, 96), (0, 0)):
+        words = np.full((96, 1), bit, np.uint32)
+        got = tree_traverse(x, ids, None, fr, eps, 32, "euclidean",
+                            qghost_bits=torch.from_numpy(words.view(np.int32)))
+        ref = ref_traverse(jnp.asarray(pts), jnp.asarray(ids.numpy()), None,
+                           RefForest.from_tables(
+                               {k: v[0] for k, v in tabs.items()}),
+                           eps, 32, "euclidean",
+                           qghost_bits=jnp.asarray(words))
+        np.testing.assert_array_equal(got[0].numpy(), np.asarray(ref[0]))
+        np.testing.assert_array_equal(got[1].numpy(), np.asarray(ref[1]))
+        assert int(got[2]) == float(ref[2]) and int(got[3]) == float(ref[3])
+        if rows:
+            for a, b in zip(got, want):
+                assert torch.equal(a, b)
+            assert int(got[1].sum()) > 0
+        else:
+            assert int(got[1].sum()) == 0 and int(got[2]) == 0
+
+
+# ---------------------------------------------------------------------------
+# the landmark engine's cell forests and per-query scopes
+# ---------------------------------------------------------------------------
+
+def cell_case(metric, n=360, m=9, nranks=4, seed=21):
+    """Points, a Voronoi assignment over m - 1 centres (cell m - 1 owns no
+    point) and a cell -> rank map that leaves rank nranks - 1 without a
+    cell."""
+    pts = synthetic_pointset(n, 3 if metric == "hamming" else 5, metric,
+                             seed=seed)
+    centres = pts[np.random.default_rng(seed).choice(n, m - 1,
+                                                     replace=False)]
+    cell = np.argmin(pair_dists(pts, centres, metric), axis=1)
+    f = np.arange(m) % (nranks - 1)
+    return pts, cell, f.astype(np.int32)
+
+
+@pytest.mark.parametrize("metric", ["euclidean", "hamming"])
+def test_cell_forests_match_reference(metric):
+    """The host builder's per-rank forests (one tree per owned cell, cells
+    ascending, the cell -2 placeholder for a rank with no cell) equal the
+    reference's table for table; the on-card builder is structurally equal
+    to them and to the reference's device builder."""
+    pts, cell, f = cell_case(metric)
+    host = tft.build_cell_forests(pts, cell, f, 4, metric, leaf_size=6)
+    ref_host = rft.build_cell_forests(pts, cell, f, 4, metric, leaf_size=6)
+    ours_st = tft.stack_device_forests(host)
+    for key, want in rft.stack_device_forests(ref_host).items():
+        np.testing.assert_array_equal(ours_st[key], want, err_msg=key)
+    assert (ours_st["cell"][3] == -2).sum() == 1       # the placeholder
+    assert set(np.unique(ours_st["cell"][0])) == {-1, 0, 3, 6}
+    dev = tft.build_cell_forests(pts, cell, f, 4, metric, leaf_size=6,
+                                 backend="device", device="cpu")
+    dev2 = dict(tft.build_cell_forests(torch.from_numpy(
+        pts.view(np.int32) if metric == "hamming" else pts), cell, f, 4,
+        metric, leaf_size=6, backend="device", device="cpu"))
+    for key in dev:
+        assert torch.equal(dev[key], dev2[key]), key
+    from repro_torch.core.flat_tree_device import build_cell_forests_device
+    ours = build_cell_forests_device(pts, cell, f, 4, metric, leaf_size=6,
+                                     include_child_ranges=True, device="cpu")
+    if metric == "hamming":
+        ours = dict(ours, coords=ours["coords"].numpy().view(np.uint32))
+    _assert_forest_parity(host, ours, metric)
+    from repro.core.flat_tree_device import \
+        build_cell_forests_device as ref_cell_device
+    refd = as_numpy(ref_cell_device(pts, cell, f, 4, metric, leaf_size=6,
+                                    include_child_ranges=True))
+    for key in refd:
+        ours_k = np.asarray(ours[key])
+        assert ours_k.shape == refd[key].shape, key
+        if key == "radius":
+            np.testing.assert_allclose(ours_k, refd[key], rtol=1e-6, atol=0)
+        else:
+            np.testing.assert_array_equal(ours_k, refd[key], err_msg=key)
+
+
+@pytest.mark.parametrize("scope", ["qcells", "ghost"])
+@pytest.mark.parametrize("q_chunk,sparse_div", [(None, 16), (37, 16),
+                                                (None, 1), (64, 10**9)])
+def test_tree_traverse_cell_scopes_match_reference(monkeypatch, scope,
+                                                   q_chunk, sparse_div):
+    """One traversal of a cell forest (one rank owning every cell) with the
+    landmark engine's scopes: per-query cells from several cells in a pass
+    (some -1, as padding rows), and per-query ghost words over 9 cells. On
+    the pair-list branch (``SPARSE_DIV`` 1), the dense one (a huge one),
+    the default choice and small passes: neighbours, counts and both
+    counters equal the reference's."""
+    from repro_torch.core.distributed import device
+    monkeypatch.setattr(device, "SPARSE_DIV", sparse_div)
+    pts, cell, _ = cell_case("euclidean")
+    tabs = tft.stack_device_forests(tft.build_cell_forests(
+        pts, cell, np.zeros(9, np.int32), 1, "euclidean", leaf_size=6))
+    one = {k: v[0] for k, v in tabs.items()}
+    # cross-cell pairs are farther apart: the ghost scope's eps is wider
+    eps = tree_safe_eps(pts, 1, 0.5 if scope == "qcells" else 2.0,
+                        tabs=tabs)
+    rng = np.random.default_rng(4)
+    q = pts[:200]
+    qids = np.arange(200, dtype=np.int32)
+    if scope == "qcells":
+        qcells = cell[:200].astype(np.int32)
+        qcells[::11] = -1
+        ghost = None
+        ours_g = None
+    else:
+        sets = rng.random((200, 9)) < 0.3
+        sets[np.arange(200), cell[:200]] = False     # own cell cleared
+        sets[::7] = False
+        qcells = None
+        ghost = np.packbits(np.pad(sets, ((0, 0), (0, 23))), axis=1,
+                            bitorder="little").view(np.uint32)
+        ours_g = torch.from_numpy(ghost.view(np.int32))
+    rn, rc, rd, rp = ref_traverse(
+        jnp.asarray(q), jnp.asarray(qids),
+        None if qcells is None else jnp.asarray(qcells),
+        RefForest.from_tables(one), eps, 64, "euclidean",
+        qghost_bits=None if ghost is None else jnp.asarray(ghost))
+    tn, tc, td, tp = tree_traverse(
+        torch.from_numpy(q), torch.from_numpy(qids),
+        None if qcells is None else torch.from_numpy(qcells),
+        DeviceForest.from_tables(one), eps, 64, "euclidean",
+        qghost_bits=ours_g, q_chunk=q_chunk)
+    assert int(np.asarray(rc).sum()) > 100 and int(tp) > 0
+    np.testing.assert_array_equal(tn.numpy(), np.asarray(rn))
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(rc))
+    assert int(td) == float(rd) and int(tp) == float(rp)
 
 
 # ---------------------------------------------------------------------------
@@ -352,7 +482,8 @@ def _mixed_blocks():
     return pts.astype(np.float32)
 
 
-def tree_safe_eps(pts, nranks, target, rel=5e-5, metric="euclidean"):
+def tree_safe_eps(pts, nranks, target, rel=5e-5, metric="euclidean",
+                  tabs=None):
     """An eps near ``target`` that no tree decision of the ring sits near.
 
     Leaves and dense tiles decide d(q, p) <= eps; an internal node v
@@ -364,11 +495,13 @@ def tree_safe_eps(pts, nranks, target, rel=5e-5, metric="euclidean"):
     eps may be decided differently and move the work counters (not the
     edges). This eps keeps every such value — all pair distances, and
     d ± r_v for every point against every internal node of every rank's
-    forest, under ``metric`` (euclidean or manhattan) — at least
-    ``rel``·eps away."""
+    forest (the ring's block forests, or the stacked ``tabs`` given),
+    under ``metric`` (euclidean or manhattan) — at least ``rel``·eps
+    away."""
     vals = [pair_dists(pts, pts, metric).ravel()]
-    tabs = tft.stack_device_forests(tft.build_block_forests(pts, nranks,
-                                                            metric))
+    if tabs is None:
+        tabs = tft.stack_device_forests(tft.build_block_forests(
+            pts, nranks, metric))
     for f in range(nranks):
         inner = (tabs["cell"][f] >= 0) & (tabs["leaf"][f] == 0)
         ctr = tabs["coords"][f][inner]
