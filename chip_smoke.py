@@ -36,7 +36,10 @@ each printed as it runs; any failed check raises and exits non-zero:
      kernels' times at the path's shapes beside their bounds, each
      bound from the launch's own inputs [6e]; a Gaussian block whose
      traversal takes the dense branch, its passes timed dense and from
-     pair lists, all equal, and its counts equal to the tile kernel's [6f];
+     pair lists, with shared and per-query scopes, all equal, each
+     call's peak memory within the bytes its passes were planned under
+     (``traverse_pass_bytes``), and its counts equal to the tile
+     kernel's [6f];
   7. Hamming at the ``nng-word2bits`` configuration's full size (399360 x
      25 words, synthetic stand-in from seed 0), eps = 40, 8 logical ranks:
      ``nng_tile_hamming`` and ``tree_frontier_hamming`` bit-identical to
@@ -84,7 +87,19 @@ each printed as it runs; any failed check raises and exits non-zero:
      each call [10e]; the three ghost kernels' times at their captured
      launches beside their bounds over the pairs the function needs (the
      live blocks' pairs printed beside), their plain versions' and the
-     library yardstick's [10f].
+     library yardstick's [10f];
+ 11. the distance-kernel API (the reference's ``repro.kernels``
+     ``pairwise_sqdist``, ``pairwise_hamming``, ``eps_count``; no engine
+     calls it): the three kernels against their plain versions and
+     float64 on ragged shapes (d up to 700, w in 1, 3, 25, 26, q or p = 1)
+     [11a]; at the reference micro-bench's 2048² shapes, timed [11b]; at
+     full width through the public calls, with the launches read from
+     those calls alone: 8192 of [3]'s points against one rank's block,
+     8192 of [7]'s word rows against all of them (an output past 2^31
+     elements, bit for bit), and [5]'s 131072² block counted (equal to
+     ``nng_tile``'s cnt bit for bit, to the plain version off the knife)
+     [11c]; their times beside their bounds, plain versions and library
+     yardsticks [11d].
 
 Hamming distances are exact integers: no knife. Two fp32 L1 sums in
 different orders are each within d·u·D of the float64 sum D (u = 2^-24),
@@ -217,7 +232,9 @@ def main() -> int:
     from repro_torch.core.graph import NNGraph
     from repro_torch.core.metrics import get_metric
     from repro_torch.data import synthetic_pointset
+    from repro_torch import kernels as tk
     from repro_torch.kernels import _build
+    from repro_torch.kernels import ref as tref
     from repro_torch.kernels.bits_epilogue import (SENTINEL,
                                                    bits_to_cols_cuda,
                                                    bits_to_cols_ref,
@@ -244,8 +261,11 @@ def main() -> int:
                                               nng_tile_l1_ref, nng_tile_ref,
                                               pack_words, popcount32,
                                               unpack_words)
+    from repro_torch.kernels.eps_count import eps_count_cuda, eps_count_plain
     from repro_torch.kernels.ops import (_pad_rows, ghost_block_active,
                                          grouped_block_active)
+    from repro_torch.kernels.pairwise_hamming import pairwise_hamming_cuda
+    from repro_torch.kernels.pairwise_l2 import pairwise_sqdist_cuda
     from repro_torch.kernels.tree_frontier import (
         TN, TQ, tree_frontier_cuda, tree_frontier_hamming_cuda,
         tree_frontier_hamming_ref, tree_frontier_l1_cuda,
@@ -437,11 +457,12 @@ def main() -> int:
                                                               orig_pack)
         return res, wall, launch_in, first, packs
 
-    def timed_traverse(qp, qids, forest_r, eps, k, q_chunk, sparse_div):
+    def timed_traverse(qp, qids, forest_r, eps, k, q_chunk, sparse_div,
+                       ghost=None):
         """One untraced ``tree_traverse`` with ``SPARSE_DIV`` set to
         ``sparse_div`` (1: every level from pair lists; huge: every level
-        dense). Returns (result, wall s, peak bytes above what was
-        resident)."""
+        dense), with per-query ``ghost`` scope words if given. Returns
+        (result, wall s, peak bytes above what was resident)."""
         keep = tdev.SPARSE_DIV
         tdev.SPARSE_DIV = sparse_div
         try:
@@ -451,7 +472,8 @@ def main() -> int:
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             res = tree_traverse(qp, qids, torch.zeros_like(qids), forest_r,
-                                eps, k, "euclidean", q_chunk=q_chunk)
+                                eps, k, "euclidean", qghost_bits=ghost,
+                                q_chunk=q_chunk)
             torch.cuda.synchronize()
             return (res, time.perf_counter() - t0,
                     torch.cuda.max_memory_allocated() - base)
@@ -564,13 +586,16 @@ def main() -> int:
     del real_bits, words
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    nng_tile_cuda.launches = 0
-    bits_to_cols_cuda.launches = 0
+    API_KERNELS = (pairwise_sqdist_cuda, pairwise_hamming_cuda,
+                   eps_count_cuda)
+    for fn in (nng_tile_cuda, bits_to_cols_cuda) + API_KERNELS:
+        fn.launches = 0
     t0 = time.perf_counter()
     g = build_nng(pts, EPS, mesh=mesh, k_cap=K_CAP)
     wall = time.perf_counter() - t0
     launches = {"nng_tile": nng_tile_cuda.launches,
                 "bits_to_cols": bits_to_cols_cuda.launches}
+    api_on_path = {fn.__name__[:-5]: fn.launches for fn in API_KERNELS}
     st = g.stats
     print(f"[3] build_nng(n={N}, d={DIM}, eps={EPS}, nranks={NRANKS}, "
           f"k_cap={K_CAP}): {g.num_edges} edges, mean degree "
@@ -581,9 +606,12 @@ def main() -> int:
           f"{st.tiles_skipped:.0f} dists_evaluated {st.dists_evaluated:.6g}")
     print(f"[3] comm_bytes {json.dumps(st.comm_bytes)}")
     print(f"[3] max_memory_allocated {torch.cuda.max_memory_allocated()} B")
-    print(f"[3] launches {json.dumps(launches)}")
+    print(f"[3] launches {json.dumps(launches)}; the distance-kernel API's "
+          f"kernels (phase 11) on this call {json.dumps(api_on_path)}")
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the main path never launched: {launches}")
+    check(not any(api_on_path.values()),
+          f"build_nng launched a distance-API kernel: {api_on_path}")
     check(st.replans <= 1, f"{st.replans} grows (expected at most one)")
     check(g.num_edges > 0, "the main path found no edges")
 
@@ -743,10 +771,19 @@ def main() -> int:
                                                 k_path, None, 1 << 62)
     check(all(torch.equal(a, b) for a, b in zip(ship, dense)),
           "[6a] the traversal differs when every level goes dense")
+    # the pass budget at the smoke forest's level width: each peak within
+    # the bytes its passes were planned under plus the results kept (the
+    # neighbour and count tables, twice over for their concatenation)
+    planned6 = (tdev.traverse_pass_bytes(q_chunk, W, NL)
+                + 2 * n_loc * (k_path + 1) * 4)
     print(f"[6a] the same traversal untraced: {ship_s:.3f} s wall, peak "
           f"{ship_peak} B above the resident tensors; with every level "
           f"dense {dense_s:.3f} s, peak {dense_peak} B; the same "
-          f"neighbours, counts and counters")
+          f"neighbours, counts and counters; planned {planned6} B "
+          f"(traverse_pass_bytes of a pass and the results)")
+    check(max(ship_peak, dense_peak) <= planned6,
+          f"[6a] a traversal's peak passes the {planned6} B its passes were "
+          "planned under")
     del ship, dense
 
     def frontier_vs_plain(label, q, c, rad, leaf, act):
@@ -1005,22 +1042,53 @@ def main() -> int:
     del g_first, g_launch
     # the shipped traversal, and the same passes of DENSE_CHUNK rows with
     # every level dense (the default here) and with every level from pair
-    # lists (SPARSE_DIV 1: no limit), each timed alone with its peak memory
+    # lists (SPARSE_DIV 1: no limit), each timed alone with its peak memory;
+    # then the pass budget: the shipped passes and every level dense (mask
+    # and leaf-range emission), each with the block forest's one shared
+    # scope and with per-query scopes (every query's ghost words hold the
+    # forest's one cell: the same graph through the scoped path). Each
+    # call's peak must stay within the bytes its passes were planned under
+    # (traverse_pass_bytes) plus the results it keeps (the neighbour and
+    # count tables, twice over for their final concatenation).
+    n_g, nl_g = GF.radius.shape[1], GF.leaf_ids.shape[0]
+    every_dense = 1 << 62
+    all_cell0 = torch.ones((DENSE_N, 1), dtype=torch.int32, device=dev)
     runs = {}
-    for label, chunk, div in (("default passes", None, tdev.SPARSE_DIV),
-                              (f"passes of {DENSE_CHUNK}, dense",
-                               DENSE_CHUNK, tdev.SPARSE_DIV),
-                              (f"passes of {DENSE_CHUNK}, pair lists",
-                               DENSE_CHUNK, 1)):
-        runs[label] = timed_traverse(gq, gids, GF, DENSE_EPS, K_CAP, chunk,
-                                     div)
-    ref_out = runs["default passes"][0]
-    for label, (out, wall_, peak_) in runs.items():
+    for label, chunk, div, gh in (
+            ("default passes", None, tdev.SPARSE_DIV, None),
+            (f"passes of {DENSE_CHUNK}, dense", DENSE_CHUNK, tdev.SPARSE_DIV,
+             None),
+            (f"passes of {DENSE_CHUNK}, pair lists", DENSE_CHUNK, 1, None),
+            ("default passes, per-query scopes", None, tdev.SPARSE_DIV,
+             all_cell0),
+            ("default passes, every level dense", None, every_dense, None),
+            ("default passes, every level dense, per-query scopes", None,
+             every_dense, all_cell0),
+            (f"passes of {4 * DENSE_CHUNK}, every level dense",
+             4 * DENSE_CHUNK, every_dense, None),
+            (f"passes of {4 * DENSE_CHUNK}, every level dense, per-query "
+             f"scopes", 4 * DENSE_CHUNK, every_dense, all_cell0)):
+        runs[label] = (timed_traverse(gq, gids, GF, DENSE_EPS, K_CAP, chunk,
+                                      div, ghost=gh), chunk, div, gh)
+    ref_out = runs["default passes"][0][0]
+    kept = 2 * DENSE_N * (K_CAP + 1) * 4
+    for label, ((out, wall_, peak_), chunk, div, gh) in runs.items():
         check(all(torch.equal(a, b) for a, b in zip(out, ref_out)),
               f"[6f] {label}: neighbours, counts or counters differ from "
               "the default passes")
+        scoped = gh is not None
+        rows = min(chunk or tdev.traverse_q_chunk(n_g, nl_g, scoped=scoped),
+                   DENSE_N)
+        planned = tdev.traverse_pass_bytes(rows, n_g, nl_g, scoped) + kept
+        per_node = (peak_ - kept - 4 * rows * (nl_g + 1)) / (rows * n_g)
         print(f"[6f] {label}: {wall_:.3f} s wall, peak {peak_} B above the "
-              f"resident tensors")
+              f"resident tensors; passes of {rows} rows; {per_node:.3f} B a "
+              f"row and node above the delta table and the results; "
+              f"planned {planned} B")
+        if div != 1:
+            check(peak_ <= planned, f"[6f] {label}: peak {peak_} B above the "
+                                    f"{planned} B its passes were planned "
+                                    "under")
     # every decision on this tree is a leaf's d² test, which is the tile's
     g_cnt, g_bits = nng_tile_cuda(gq, G, torch.ones(
         DENSE_N, dtype=torch.int32, device=dev), DENSE_EPS)
@@ -1035,7 +1103,7 @@ def main() -> int:
           f"at its busiest level, {64 * g_pairs} B at 64 B a pair against "
           f"the {tdev.TRAVERSE_BUDGET} B pass budget")
     check(cnt_diff == 0, "[6f] the tree's counts differ from the tile's")
-    del G, GF, gq, res, runs, ref_out, out, g_bits, g_cnt
+    del G, GF, gq, res, runs, ref_out, out, g_bits, g_cnt, all_cell0
     torch.cuda.empty_cache()
     print(f"[6f] script wall {time.perf_counter() - t_start:.1f} s")
 
@@ -2286,6 +2354,272 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"[10f] script wall {time.perf_counter() - t_start:.1f} s")
 
+    # -- 11. the distance-kernel API -----------------------------------------
+    # The reference's public kernel API (repro.kernels.pairwise_sqdist,
+    # pairwise_hamming, eps_count), which no engine calls: its three kernels
+    # against their plain versions and float64 on ragged shapes [11a], at
+    # the reference micro-bench's shapes [11b], and at full width through
+    # the public calls, each kernel's launches counted from those calls
+    # alone [11c]; their times beside their bounds [11d].
+    print(f"[11] the distance-kernel API; script wall "
+          f"{time.perf_counter() - t_start:.1f} s")
+    torch.cuda.empty_cache()
+
+    def sq_bound(a, b):
+        """(q, p) float64 bound 2·(d + 2)·u·(‖a_i‖² + ‖b_j‖²): two fp32
+        evaluations of the expansion, or one and the exact value."""
+        a, b = a.double(), b.double()
+        return (2 * (a.shape[1] + 2) * U32) * ((a * a).sum(1)[:, None]
+                                               + (b * b).sum(1)[None, :])
+
+    def sq64(a, b):
+        """(q, p) float64 squared distances by the float64 expansion."""
+        a, b = a.double(), b.double()
+        return ((a * a).sum(1)[:, None] + (b * b).sum(1)[None, :]
+                - 2.0 * a @ b.T).clamp_min_(0)
+
+    def sqdist_within(label, got, want, a, b, rows=1024):
+        """Fail unless ``got`` is within ``sq_bound`` of ``want`` (a tensor
+        or a function of the row slice) everywhere; returns max |diff|."""
+        err = 0.0
+        for r0 in range(0, a.shape[0], rows):
+            sl = slice(r0, r0 + rows)
+            w = want(sl) if callable(want) else want[sl]
+            diff = (got[sl].double() - w.double()).abs_()
+            bad = int((diff > sq_bound(a[sl], b)).sum())
+            check(bad == 0, f"{label}: {bad} elements differ by more than "
+                            "2·(d+2)·u·(‖x‖²+‖y‖²)")
+            err = max(err, float(diff.max()))
+            del w, diff
+        return err
+
+    def count_knife_check(label, cnt_a, cnt_b, a, b, thr):
+        """Fail unless every row whose two counts differ has at least as
+        many pairs on the knife edge of ``thr`` (float64 d²) as the
+        counts differ by; returns max |cnt diff|."""
+        rows_ = (cnt_a != cnt_b).nonzero()[:, 0]
+        bn = (b.double() ** 2).sum(1)
+        worst = 0
+        for r0 in range(0, len(rows_), 256):
+            r = rows_[r0:r0 + 256]
+            d2 = sq64(a[r], b)
+            scale = (a[r].double() ** 2).sum(1)[:, None] + bn[None, :]
+            knife = (KNIFE_ULPS * U32 * scale).clamp_min_(KNIFE_REL * thr)
+            on = ((d2 - thr).abs() <= knife).sum(1)
+            diff = (cnt_a[r] - cnt_b[r]).abs()
+            bad = int((diff > on).sum())
+            check(bad == 0, f"{label}: {bad} rows' counts differ by more "
+                            "than their knife-edge pairs")
+            worst = max(worst, int(diff.max()))
+            del d2, scale, knife
+        print(f"    {label}: counts differ on {len(rows_)} of {len(cnt_a)} "
+              f"rows, each by no more than its knife-edge pairs")
+        return worst
+
+    # -- 11a. ragged shapes against the plain versions and float64 ----------
+    gen11 = torch.Generator(device=dev).manual_seed(SEED)
+    for q, p, d in ((1, 1, 1), (1, 300, 17), (300, 1, 700), (127, 129, 700),
+                    (129, 127, 1), (300, 300, 17), (1000, 777, 700)):
+        a = torch.randn(q, d, generator=gen11, device=dev)
+        b = torch.randn(p, d, generator=gen11, device=dev) + 0.5
+        got = pairwise_sqdist_cuda(a, b)
+        e_p = sqdist_within(f"[11a] pairwise_sqdist ({q},{p},{d}) vs plain",
+                            got, tref.pairwise_sqdist_blas3_ref(a, b), a, b)
+        e_64 = sqdist_within(f"[11a] pairwise_sqdist ({q},{p},{d}) vs "
+                             f"float64", got, sq64(a, b), a, b)
+        check(bool((got >= 0).all()), "[11a] pairwise_sqdist below zero")
+        eps_r = float(sq64(a, b).flatten().float().quantile(0.05).sqrt())
+        cnt_k = eps_count_cuda(a, b, eps_r)
+        cnt_t, _ = nng_tile_cuda(a, b, torch.ones(p, dtype=torch.int32,
+                                                  device=dev), eps_r)
+        check(torch.equal(cnt_k, cnt_t), f"[11a] eps_count ({q},{p},{d}) "
+                                         "differs from nng_tile's cnt")
+        count_knife_check(f"[11a] eps_count ({q},{p},{d}) vs plain", cnt_k,
+                          eps_count_plain(a, b, eps_r), a, b,
+                          eps2_f32(eps_r))
+        print(f"[11a] pairwise_sqdist ({q},{p},{d}): max |diff| {e_p:.4g} "
+              f"vs plain, {e_64:.4g} vs float64, within the bound; eps_count "
+              f"at eps {eps_r:.6g} equal to nng_tile's cnt")
+    for q, p, w in ((1, 1, 1), (1, 300, 3), (300, 1, 25), (127, 129, 26),
+                    (129, 127, 1), (300, 300, 25), (1000, 777, 26)):
+        a = torch.randint(-2**31, 2**31, (q, w), generator=gen11,
+                          device=dev, dtype=torch.int64).to(torch.int32)
+        b = torch.randint(-2**31, 2**31, (p, w), generator=gen11,
+                          device=dev, dtype=torch.int64).to(torch.int32)
+        a[::7] = -1
+        b[::5] = a[0]
+        check(torch.equal(pairwise_hamming_cuda(a, b),
+                          tref.pairwise_hamming_ref(a, b)),
+              f"[11a] pairwise_hamming ({q},{p},{w}) differs from its plain "
+              "version")
+    print("[11a] pairwise_hamming bit-identical to its plain version at "
+          "w in (1, 3, 25, 26), q or p = 1 among them")
+
+    # -- 11b. the reference micro-bench's shapes -----------------------------
+    brng = np.random.default_rng(0)
+    bx = torch.from_numpy(brng.normal(size=(2048, 128)).astype(
+        np.float32)).to(dev)
+    bw = torch.from_numpy(brng.integers(0, 2**32, size=(2048, 25),
+                                        dtype=np.uint32).view(np.int32)).to(dev)
+    b_eps = DENSE_EPS
+    for key, fn, plain, ops_, rate, nbytes in (
+            ("kernel/pairwise_sqdist/2048x2048x128",
+             lambda: tk.pairwise_sqdist(bx, bx),
+             lambda: tref.pairwise_sqdist_blas3_ref(bx, bx),
+             2 * 2048 * 2048 * 128, PEAK_FP32, 4 * (2 * 2048 * 128 + 2048**2)),
+            ("kernel/pairwise_hamming/2048x2048x800b",
+             lambda: tk.pairwise_hamming(bw, bw),
+             lambda: tref.pairwise_hamming_ref(bw, bw),
+             2048 * 2048 * 25, popc_rate, 4 * (2 * 2048 * 25 + 2048**2)),
+            ("kernel/eps_count/2048x2048x128",
+             lambda: tk.eps_count(bx, bx, b_eps),
+             lambda: eps_count_plain(bx, bx, b_eps),
+             2 * 2048 * 2048 * 128, PEAK_FP32, 4 * (2 * 2048 * 128 + 2048))):
+        ms = cuda_ms(torch, fn, 20)
+        got, want = fn(), plain()
+        if "sqdist" in key:
+            sqdist_within(f"[11b] {key} vs plain", got, want, bx, bx)
+        elif "hamming" in key:
+            check(torch.equal(got, want), f"[11b] {key} differs from plain")
+        else:
+            cnt_t, _ = nng_tile_cuda(bx, bx, torch.ones(
+                2048, dtype=torch.int32, device=dev), b_eps)
+            check(torch.equal(got, cnt_t), f"[11b] {key} differs from "
+                                           "nng_tile's cnt")
+            count_knife_check(f"[11b] {key} vs plain", got, want, bx, bx,
+                              eps2_f32(b_eps))
+        bound = max(ops_ / rate, nbytes / PEAK_BYTES) * 1e3
+        print(f"[11b] {key}: {ms:.4f} ms median of 20 (the public call on "
+              f"the card's tensors); {ops_ / ms / 1e9:.4g} G"
+              f"{'popc' if 'hamming' in key else 'flop'}/s; bound "
+              f"{bound:.4f} ms")
+    del bx, bw
+
+    # -- 11c. full width through the public calls ----------------------------
+    P = torch.from_numpy(pts).to(dev)
+    sx = P[:8192].contiguous()              # a chunk of [3]'s points
+    ex = P[:n_loc].contiguous()             # rank 0's block, as in [5]
+    ey = P[n_loc:2 * n_loc].contiguous()    # one rank's block, as in [5]
+    del P
+    HX = get_metric("hamming").as_device(hpts, dev)
+    hx8 = HX[:8192].contiguous()
+    torch.cuda.empty_cache()
+    for fn in API_KERNELS:
+        fn.launches = 0
+    d2_full = tk.pairwise_sqdist(sx, ey)
+    ham_full = tk.pairwise_hamming(hx8, HX)
+    cnt_full = tk.eps_count(ex, ey, EPS)
+    torch.cuda.synchronize()
+    api_launches = {fn.__name__[:-5]: fn.launches for fn in API_KERNELS}
+    print(f"[11c] public calls: pairwise_sqdist {tuple(sx.shape)} x "
+          f"{tuple(ey.shape)}, pairwise_hamming {tuple(hx8.shape)} x "
+          f"{tuple(HX.shape)} words ({ham_full.numel()} int32 outputs, "
+          f"{ham_full.numel() / 2**31:.3f} x 2^31), eps_count "
+          f"{tuple(ex.shape)} x {tuple(ey.shape)} at eps {EPS}; launches "
+          f"{json.dumps(api_launches)}")
+    check(all(v > 0 for v in api_launches.values()),
+          f"a kernel of the distance-kernel API never launched: "
+          f"{api_launches}")
+    # pairwise_sqdist: against its plain version (one call) and float64 on
+    # sampled rows
+    sq_plain, sq_plain_ms = events_ms(
+        torch, lambda: tref.pairwise_sqdist_blas3_ref(sx, ey))
+    sq_err = sqdist_within("[11c] pairwise_sqdist vs plain", d2_full,
+                           sq_plain, sx, ey)
+    del sq_plain
+    rows11 = torch.from_numpy(np.sort(np.random.default_rng(
+        SAMPLE_SEED).choice(8192, 64, replace=False))).to(dev)
+    sq_err64 = sqdist_within("[11c] pairwise_sqdist sampled rows vs float64",
+                             d2_full[rows11], sq64(sx[rows11], ey),
+                             sx[rows11], ey)
+    print(f"[11c] pairwise_sqdist within 2·(d+2)·u·(‖x‖²+‖y‖²) of its plain "
+          f"version everywhere (max |diff| {sq_err:.4g}) and of float64 on "
+          f"64 sampled rows (max |diff| {sq_err64:.4g}); min "
+          f"{float(d2_full.min()):.6g}")
+    del d2_full
+    # pairwise_hamming: bit for bit against its plain version, row chunks
+    ham_plain_ms11 = 0.0
+    for r0 in range(0, 8192, 512):
+        want, ms = events_ms(torch, lambda: tref.pairwise_hamming_ref(
+            hx8[r0:r0 + 512], HX))
+        ham_plain_ms11 += ms
+        check(torch.equal(ham_full[r0:r0 + 512], want),
+              f"[11c] pairwise_hamming differs from its plain version in "
+              f"rows {r0}..{r0 + 511}")
+        del want
+    print(f"[11c] pairwise_hamming bit-identical to its plain version on "
+          f"all {ham_full.numel()} outputs (offsets past 2^31 included)")
+    del ham_full
+    torch.cuda.empty_cache()
+    # eps_count: bit for bit against nng_tile's cnt, off the knife against
+    # its plain version
+    ones11 = torch.ones(n_loc, dtype=torch.int32, device=dev)
+    cnt_tile, bits_tile = nng_tile_cuda(ex, ey, ones11, EPS)
+    del bits_tile
+    check(torch.equal(cnt_full, cnt_tile), "[11c] eps_count differs from "
+                                           "nng_tile's cnt")
+    cnt_plain, eps_plain_ms = events_ms(
+        torch, lambda: eps_count_plain(ex, ey, EPS))
+    eps_err = count_knife_check("[11c] eps_count vs plain", cnt_full,
+                                cnt_plain, ex, ey, eps2)
+    print(f"[11c] eps_count equal to nng_tile's cnt on all {n_loc} rows "
+          f"({int(cnt_full.sum())} pairs)")
+    del cnt_tile, cnt_plain, cnt_full
+
+    # -- 11d. times at full width --------------------------------------------
+    q_, p_, d_ = sx.shape[0], ey.shape[0], DIM
+    sq_ms = cuda_ms(torch, lambda: pairwise_sqdist_cuda(sx, ey), 5)
+    sq_ops = 2 * q_ * p_ * d_ + 2 * (q_ + p_) * d_ + 3 * q_ * p_
+    sq_bytes = 4 * (q_ + p_) * d_ + 4 * q_ * p_
+    sq_b_ops, sq_b_bytes = sq_ops / PEAK_FP32 * 1e3, sq_bytes / PEAK_BYTES * 1e3
+    sq_lib_ms = cuda_ms(torch, lambda: torch.mm(sx, ey.T), 5)
+    torch.cuda.empty_cache()
+    hq, hp = hx8.shape[0], HX.shape[0]
+    hw_ms = cuda_ms(torch, lambda: pairwise_hamming_cuda(hx8, HX), 3)
+    hw_pops = hq * hp * HW
+    hw_bytes = 4 * (hq + hp) * HW + 4 * hq * hp
+    hw_b_ops, hw_b_bytes = hw_pops / popc_rate * 1e3, hw_bytes / PEAK_BYTES * 1e3
+    torch.cuda.empty_cache()
+    ubits = unpack_words(HX).float()
+    hw_lib_ms = library_rows(lambda a, b: torch.cdist(a, b, p=0),
+                             ubits[:8192], ubits, rows=1024)
+    del ubits
+    torch.cuda.empty_cache()
+    # eps_count beside nng_tile on the same inputs, in turns, in one window
+    ec_tile_ms = cuda_ms(torch, lambda: nng_tile_cuda(ex, ey, ones11, EPS), 3)
+    ec_ms = cuda_ms(torch, lambda: eps_count_cuda(ex, ey, EPS), 5)
+    ec_tile_ms = min(ec_tile_ms, cuda_ms(
+        torch, lambda: nng_tile_cuda(ex, ey, ones11, EPS), 3))
+    ec_ops = 2 * n_loc * n_loc * d_ + 2 * 2 * n_loc * d_ + 3 * n_loc * n_loc
+    ec_bytes = 4 * 2 * n_loc * d_ + 4 * n_loc
+    ec_b_ops, ec_b_bytes = ec_ops / PEAK_FP32 * 1e3, ec_bytes / PEAK_BYTES * 1e3
+    print(f"[11d] pairwise_sqdist ({q_}x{p_}x{d_}): {sq_ms:.3f} ms median; "
+          f"bound {max(sq_b_ops, sq_b_bytes):.3f} ms (operations: "
+          f"{sq_ops:.4g} fp32 flops = {sq_b_ops:.3f} ms; bytes {sq_bytes} = "
+          f"{sq_b_bytes:.3f} ms); {sq_ops / sq_ms / 1e9:.2f} TFLOP/s; plain "
+          f"version {sq_plain_ms:.3f} ms (one call); torch.mm product only "
+          f"{sq_lib_ms:.3f} ms; launches {api_launches['pairwise_sqdist']}")
+    print(f"[11d] pairwise_hamming ({hq}x{hp}x{HW} words): {hw_ms:.3f} ms "
+          f"median; bound {max(hw_b_ops, hw_b_bytes):.3f} ms (operations: "
+          f"{hw_pops:.4g} popcounts at {popc_rate:.4g}/s = {hw_b_ops:.3f} "
+          f"ms; bytes {hw_bytes} = {hw_b_bytes:.3f} ms); "
+          f"{hw_pops / hw_ms / 1e9:.4g} Tpopc/s; plain version "
+          f"{ham_plain_ms11:.3f} ms (rows of 512); torch.cdist(p=0) on the "
+          f"bits as fp32 {hw_lib_ms:.3f} ms (rows of 1024); launches "
+          f"{api_launches['pairwise_hamming']}")
+    print(f"[11d] eps_count ({n_loc}x{n_loc}x{d_}): {ec_ms:.3f} ms median; "
+          f"bound {max(ec_b_ops, ec_b_bytes):.3f} ms (operations: "
+          f"{ec_ops:.4g} fp32 flops = {ec_b_ops:.3f} ms; bytes {ec_bytes} = "
+          f"{ec_b_bytes:.3f} ms); {ec_ops / ec_ms / 1e9:.2f} TFLOP/s; plain "
+          f"version {eps_plain_ms:.3f} ms (one call, rows of "
+          f"{(1 << 28) // n_loc}); torch.mm product only {lib_ms:.3f} ms "
+          f"([5], the same inputs); nng_tile {tile_ms:.3f} ms ([5]), "
+          f"{ec_tile_ms:.3f} ms here (the better of two runs around "
+          f"eps_count's); launches {api_launches['eps_count']}")
+    del sx, ex, ey, HX, hx8, ones11
+    torch.cuda.empty_cache()
+    print(f"[11d] script wall {time.perf_counter() - t_start:.1f} s")
+
     record = {"kernels": [
         {"name": "nng_tile", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/nng_tile.cu",
@@ -2386,6 +2720,30 @@ def main() -> int:
          "max_abs_err": ghost_err["manhattan"], "ms": gt_l1[0],
          "plain_ms": gl1_plain_ms, "bound_ms": gt_l1[1],
          "bound_by": gt_l1[2], "library_ms": gt_l1[3]},
+        {"name": "pairwise_sqdist", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/pairwise_sqdist.cu",
+         "replaces": "src/repro/kernels/pairwise_l2.py:69",
+         "launches": api_launches["pairwise_sqdist"], "max_abs_err": sq_err,
+         "ms": sq_ms, "plain_ms": sq_plain_ms,
+         "bound_ms": max(sq_b_ops, sq_b_bytes),
+         "bound_by": "operations" if sq_b_ops >= sq_b_bytes else "bytes",
+         "library_ms": sq_lib_ms},
+        {"name": "pairwise_hamming", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/pairwise_hamming.cu",
+         "replaces": "src/repro/kernels/pairwise_hamming.py:55",
+         "launches": api_launches["pairwise_hamming"], "max_abs_err": 0,
+         "ms": hw_ms, "plain_ms": ham_plain_ms11,
+         "bound_ms": max(hw_b_ops, hw_b_bytes),
+         "bound_by": "operations" if hw_b_ops >= hw_b_bytes else "bytes",
+         "library_ms": hw_lib_ms},
+        {"name": "eps_count", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/eps_count.cu",
+         "replaces": "src/repro/kernels/eps_count.py:62",
+         "launches": api_launches["eps_count"], "max_abs_err": eps_err,
+         "ms": ec_ms, "plain_ms": eps_plain_ms,
+         "bound_ms": max(ec_b_ops, ec_b_bytes),
+         "bound_by": "operations" if ec_b_ops >= ec_b_bytes else "bytes",
+         "library_ms": lib_ms},
     ]}
     print(json.dumps(record))
     print(smi)

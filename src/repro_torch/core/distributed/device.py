@@ -146,31 +146,53 @@ class DeviceForest(NamedTuple):
         return DeviceForest(*(a[r] for a in self))
 
 
-# bytes of a pass's temporaries per query row and node on the dense path
-# (the unpacked parent bits, the gathered active mask and the packing
-# temporaries, a byte each); the delta table adds 4 bytes per row and leaf
-# slot.
-_TRAVERSE_BYTES_PER_NODE = 4
+# Device bytes of a pass's temporaries per query row besides its int32
+# delta table (4 B a leaf slot), fitted to max_memory_allocated less the
+# delta table and the results on one NVIDIA H100 80GB HBM3 (chip_smoke.py
+# [6f]: 16384 Gaussian queries against levels of 16384 nodes; [6a] checks
+# the model at the smoke forest's 120960). A dense level's active mask
+# (the unpacked parent bits, the gathered mask, its packing) peaked at
+# 2.26 B a row and node in the shipped passes; every level dense, the
+# leaf-range emission (an unpacked _NODE_CHUNK of nodes and its int32
+# copy) peaked at 6.21 B a row and node in passes of 4096 rows; per-query
+# scopes added 0.88 B. The model charges the mask and the emission both,
+# each rounded up. (The 9.1 B a row and node measured before were mostly
+# an int64 copy of the mask for its bool sum.)
+_MASK_BYTES_PER_NODE = 3
+_EMIT_BYTES_PER_NODE = 7
+_SCOPE_BYTES_PER_NODE = 1
 TRAVERSE_BUDGET = 8 << 30
 # A level's masks are walked as (row, node) pair lists while the pairs
 # (bounded by 32 per nonzero word) stay within 1/SPARSE_DIV of the pass's
 # (rows × nodes) grid, else densely. The list costs up to about 64 bytes a
 # pair (int64 rows, nodes, child ranges and scatter indices), so this
-# bound keeps it near the dense path's modelled 4 bytes per grid cell,
-# and a level whose active pairs are many goes densely (chip_smoke.py
-# [6f] drives one and prints both paths' peaks).
+# bound keeps it near 4 bytes per grid cell, inside the model above, and
+# a level whose active pairs are many goes densely (chip_smoke.py [6f]
+# drives one and prints both paths' peaks).
 SPARSE_DIV = 16
 _NODE_CHUNK = 1 << 14        # node columns per dense emission step
 
 
+def traverse_pass_bytes(rows: int, n_nodes: int, n_leaf: int,
+                        scoped: bool = False) -> int:
+    """The device bytes a pass of ``rows`` queries over levels of
+    ``n_nodes`` slots allocates above what was resident: the (rows,
+    n_leaf + 1) int32 delta table and the level temporaries, with
+    ``scoped`` the per-query scopes' too (the results the traversal keeps
+    are not counted)."""
+    level = ((_MASK_BYTES_PER_NODE + (_SCOPE_BYTES_PER_NODE if scoped
+                                      else 0)) * n_nodes
+             + _EMIT_BYTES_PER_NODE * min(n_nodes, _NODE_CHUNK))
+    return rows * (4 * (n_leaf + 1) + level)
+
+
 def traverse_q_chunk(n_nodes: int, n_leaf: int,
-                     budget: int = TRAVERSE_BUDGET) -> int:
-    """Query rows per pass of ``tree_traverse``: the most that keep the
-    pass's temporaries (the (c, n_leaf + 1) int32 delta and the (c, N)
-    byte masks) under ``budget`` bytes, in multiples of 1024 (128 below
-    that)."""
-    per_row = 4 * (n_leaf + 1) + _TRAVERSE_BYTES_PER_NODE * n_nodes
-    c = max(budget // per_row, 128)
+                     budget: int = TRAVERSE_BUDGET,
+                     scoped: bool = False) -> int:
+    """Query rows per pass of ``tree_traverse``: the most whose
+    ``traverse_pass_bytes`` stay under ``budget``, in multiples of 1024
+    (128 below that)."""
+    c = max(budget // traverse_pass_bytes(1, n_nodes, n_leaf, scoped), 128)
     return c - c % 1024 if c >= 1024 else c - c % 128
 
 
@@ -301,7 +323,10 @@ def tree_traverse(qp, qids, qcells, forest: DeviceForest, eps, k_cap: int,
                                       device=dev)
     else:
         qcells = torch.as_tensor(qcells, dtype=torch.int32, device=dev)
-    c = int(q_chunk or traverse_q_chunk(N, n_leaf))
+    # per-query scopes cost a pass more: any query whose cell differs from
+    # the first's, or ghost words, give the passes their own scope rows
+    scoped = ghost or (nq > 0 and bool((qcells != qcells[0]).any()))
+    c = int(q_chunk or traverse_q_chunk(N, n_leaf, scoped=scoped))
     child_lo = forest.child_lo.long()
     child_hi = forest.child_hi.long()
     parent = forest.parent.long()
@@ -379,8 +404,10 @@ def tree_traverse(qp, qids, qcells, forest: DeviceForest, eps, k_cap: int,
                                       device=dev)
                 active = unpack_words(prev)[:, parent[lvl]]
                 active &= scope(lvl)
-                acts += active.sum()
                 act = pack_words(active)
+                # counted from the packed words: a bool sum would first
+                # copy the mask to int64, 8 bytes a row and node
+                acts += _popcount(act)
                 del active
             emit, prev = tree_frontier_step(
                 q, forest.coords[lvl], forest.radius[lvl], forest.leaf[lvl],
@@ -401,7 +428,8 @@ def tree_traverse(qp, qids, qcells, forest: DeviceForest, eps, k_cap: int,
                     e = unpack_words(emit[:, c0 // 32:(c0 + _NODE_CHUNK) // 32])
                     e = e.to(torch.int32)
                     delta.index_add_(1, leaf_lo[lvl][c0:c0 + e.shape[1]], e)
-                    delta.index_add_(1, leaf_hi[lvl][c0:c0 + e.shape[1]], -e)
+                    delta.index_add_(1, leaf_hi[lvl][c0:c0 + e.shape[1]], e,
+                                     alpha=-1)
         pairs = _set_bits(prev, limit)       # the last level's expand bits
         outs += _popcount(prev) if pairs is None else pairs[0].numel()
         ccnt, bits = _leaf_range_pack(delta, forest.leaf_ids, qids[s:s + c])

@@ -29,6 +29,7 @@ object every call.
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Any, Callable
 
@@ -43,6 +44,33 @@ from .metrics_host import HostMetric, get_host_metric
 
 def _round_up(v: int, mult: int) -> int:
     return ((v + mult - 1) // mult) * mult
+
+
+@contextlib.contextmanager
+def ieee_fp32():
+    """Run the block with IEEE fp32 products: float32 matmul precision
+    "highest" and TF32 off for matmuls and cuDNN, whatever the process had
+    set; the three settings are restored on exit.
+
+    The port's products (``_euclidean_cdist``, the plain tile versions) sit
+    inside fp32 error bounds that a TF32 product (10-bit mantissa) breaks:
+    the landmark engine's centre distances feed the Lemma-1 ghost test.
+    The settings are process-wide, so two threads that call the port while
+    others want TF32 race on them, as they would on the flags themselves.
+    The precision is set before the flags and restored after them: torch
+    refuses to read a precision that the two APIs set inconsistently."""
+    saved = (torch.get_float32_matmul_precision(),
+             torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    try:
+        torch.set_float32_matmul_precision("highest")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved[1]
+        torch.backends.cudnn.allow_tf32 = saved[2]
+        torch.set_float32_matmul_precision(saved[0])
 
 
 @dataclass(frozen=True, eq=False)

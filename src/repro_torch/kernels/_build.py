@@ -66,6 +66,11 @@ _ENTRY = {
                          (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P)),
     "leaf_range_pack": ("leaf_range_pack_launch",
                         (_P, _LL, _P, _P, _P, _P, _I, _I, _P)),
+    "pairwise_sqdist": ("pairwise_sqdist_launch",
+                        (_P, _P, _P, _I, _I, _I, _P)),
+    "pairwise_hamming": ("pairwise_hamming_launch",
+                         (_P, _P, _P, _I, _I, _I, _P)),
+    "eps_count": ("eps_count_launch", (_P, _P, _P, _I, _I, _I, _F, _P)),
 }
 
 _loaded: dict = {}                     # library -> loaded entry point

@@ -45,6 +45,16 @@ __device__ __forceinline__ void store_hits(const bool (&hit)[TN], int row,
   if (lane == 0 && row < q && rc != 0) atomicAdd(&cnt[row], rc);
 }
 
+// store_hits without the words: lane 0 adds the row's hits to cnt[row].
+// The counts are integer atomics, so their order does not change them.
+__device__ __forceinline__ void count_hits(const bool (&hit)[TN], int row,
+                                           int q, int32_t* __restrict__ cnt) {
+  int rc = 0;
+#pragma unroll
+  for (int j = 0; j < TN; ++j) rc += __popc(__ballot_sync(FULL, hit[j]));
+  if ((threadIdx.x & 31) == 0 && row < q && rc != 0) atomicAdd(&cnt[row], rc);
+}
+
 // A frontier block's prologue: its BM x WPB active words into shared
 // memory (zero past nq rows and nw words). Returns, to every thread,
 // whether any of them is set.

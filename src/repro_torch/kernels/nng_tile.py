@@ -265,6 +265,34 @@ def check_operands(fn: str, *specs) -> None:
         raise ValueError(f"{fn}: operands on different devices")
 
 
+# rows a launch of a dense-output kernel may cover: the grid's y limit
+# (65535 blocks) times the 128-row block
+ROWS_PER_LAUNCH = 65535 * 128
+
+
+def launch_row_chunks(lib: str, x, y, out, *tail) -> int:
+    """Launch kernel ``lib`` over ``x``'s rows in chunks of at most
+    ``ROWS_PER_LAUNCH``: entry(x, y, out, rows, p, d, *tail, stream) with
+    ``out``'s matching rows (``out`` is indexed by x's row on its first
+    axis). Raises on a launch error; returns the number of launches."""
+    q, d = x.shape
+    p = y.shape[0]
+    if q == 0 or p == 0:
+        return 0
+    launch = _build.entry(lib)
+    n = 0
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        for r0 in range(0, q, ROWS_PER_LAUNCH):
+            r1 = min(r0 + ROWS_PER_LAUNCH, q)
+            code = launch(x[r0:r1].data_ptr(), y.data_ptr(),
+                          out[r0:r1].data_ptr(), r1 - r0, p, d, *tail,
+                          stream)
+            _build.check(lib, code)
+            n += 1
+    return n
+
+
 def _launch_tile(lib: str, x, y, ints, dtype, thr, gbits=None):
     """Check the operands of tile kernel ``lib`` and launch it with
     threshold ``thr`` -> (cnt, bits, launched). ``ints`` are its int32

@@ -5,15 +5,28 @@ launches the hand-written kernel (which raises rather than fall back), on
 a CPU tensor it runs the kernel's plain PyTorch version. A metric that has
 no kernel runs its plain version, or the generic ``cdist`` path, on either
 device.
+
+The distance-kernel API (``pairwise_sqdist``, ``pairwise_hamming``,
+``eps_count``, and the row-aligned ``rowwise_sqdist`` and
+``rowwise_hamming``) takes numpy arrays or tensors: a tensor stays where it
+is unless ``device`` says otherwise, and a numpy array goes to ``device``,
+by default the CUDA card. The reference's ``pallas_mode`` (compiled,
+interpret or pure-jnp) has no counterpart: the tensor's device decides.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from . import ref
 from .bits_epilogue import (NOCOL, SENTINEL, bits_to_cols_cuda,
                             bits_to_cols_ref, leaf_range_pack_cuda,
                             leaf_range_pack_ref)
-from .nng_tile import GBIG, ghost_hit, grouped_hit, pack_words, unpack_words
+from .eps_count import eps_count_cuda, eps_count_plain
+from .nng_tile import (GBIG, ghost_hit, grouped_hit, pack_words, popcount32,
+                       unpack_words)
+from .pairwise_hamming import pairwise_hamming_cuda
+from .pairwise_l2 import pairwise_sqdist_cuda
 from .tree_frontier import _frontier_masks_float
 
 
@@ -41,6 +54,90 @@ def _pad_cols(a: torch.Tensor, mult: int, value=0):
         return a
     return torch.cat([a, a.new_full((a.shape[0], rem), value)], dim=1)
 
+
+# ---------------------------------------------------------------------------
+# the distance-kernel API
+# ---------------------------------------------------------------------------
+
+def _operand(a, device, words: bool = False) -> torch.Tensor:
+    """numpy or torch -> a tensor on ``device`` (None: a tensor's own
+    device, the CUDA card for numpy): fp32 (float16 and other floats
+    converted by value) or, with ``words``, int32 words (uint32 taken as a
+    bit view, other integers by value)."""
+    if isinstance(a, np.ndarray) and a.dtype == np.uint32:
+        a = a.view(np.int32)
+    if device is None and not torch.is_tensor(a):
+        device = "cuda"
+    t = torch.as_tensor(a)
+    if t.dtype == torch.uint32:
+        t = t.view(torch.int32)
+    dev = torch.device(device) if device is not None else t.device
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available: pass device='cpu' "
+                           "or CPU tensors to run the plain versions")
+    return t.to(device=dev, dtype=torch.int32 if words else torch.float32)
+
+
+def _ieee_fp32():
+    """The port's fp32 product guard (lazy import: ``core.metrics`` imports
+    this package)."""
+    from repro_torch.core.metrics import ieee_fp32
+    return ieee_fp32()
+
+
+def pairwise_sqdist(x, y, device=None) -> torch.Tensor:
+    """Squared L2 distances: x (q, d), y (p, d) -> (q, p) fp32, the
+    expansion (‖x‖² + ‖y‖²) − 2x·y clamped to >= 0, in IEEE fp32. The
+    kernel on the card, ``ref.pairwise_sqdist_blas3_ref`` on the CPU."""
+    x = _operand(x, device)
+    y = _operand(y, x.device)
+    with _ieee_fp32():
+        if x.is_cuda:
+            return pairwise_sqdist_cuda(x.contiguous(), y.contiguous())
+        return ref.pairwise_sqdist_blas3_ref(x, y)
+
+
+def pairwise_hamming(x, y, device=None) -> torch.Tensor:
+    """Hamming distances between rows of packed 32-bit words: x (q, w),
+    y (p, w) -> (q, p) int32, exact. The kernel on the card,
+    ``ref.pairwise_hamming_ref`` on the CPU."""
+    x = _operand(x, device, words=True)
+    y = _operand(y, x.device, words=True)
+    if x.is_cuda:
+        return pairwise_hamming_cuda(x.contiguous(), y.contiguous())
+    return ref.pairwise_hamming_ref(x, y)
+
+
+def eps_count(x, y, eps: float, device=None) -> torch.Tensor:
+    """Per-query L2 ε-counts against y: (q,) int32 counts of the fp32
+    expansion's d² <= ``eps2_f32(eps)``, fused (no (q, p) matrix in device
+    memory). The kernel on the card, ``eps_count_plain`` on the CPU."""
+    x = _operand(x, device)
+    y = _operand(y, x.device)
+    with _ieee_fp32():
+        if x.is_cuda:
+            return eps_count_cuda(x.contiguous(), y.contiguous(), eps)
+        return eps_count_plain(x, y, eps)
+
+
+def rowwise_sqdist(x, y, device=None) -> torch.Tensor:
+    """Row-aligned squared L2: x (n, d), y (n, d) -> (n,) fp32."""
+    x = _operand(x, device)
+    diff = x - _operand(y, x.device)
+    return (diff * diff).sum(-1)
+
+
+def rowwise_hamming(x, y, device=None) -> torch.Tensor:
+    """Row-aligned Hamming over packed words: x (n, w), y (n, w) -> (n,)
+    int32."""
+    x = _operand(x, device, words=True)
+    return popcount32(x ^ _operand(y, x.device, words=True)).sum(
+        -1, dtype=torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# the engines' tiles
+# ---------------------------------------------------------------------------
 
 def nng_tile_bits(x, y, y_valid, eps: float, metric="euclidean"):
     """Fused ε-NNG tile: (cnt (q,) int32, bits (q, ceil(p/32)) int32 words).

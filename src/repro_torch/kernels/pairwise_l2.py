@@ -1,0 +1,41 @@
+"""Dense pairwise squared L2 distances on the card.
+
+``pairwise_sqdist_cuda`` (``csrc/pairwise_sqdist.cu``) is the hand-written
+CUDA kernel that replaces the reference's ``pairwise_sqdist_pallas``: for
+x (q, d) and y (p, d) fp32 it writes the (q, p) fp32 matrix
+max((‖x‖² + ‖y‖²) − 2x·y, 0). Its plain version is
+``ref.pairwise_sqdist_blas3_ref``, the same expansion summed in torch's
+order.
+
+The kernel shares ``l2_tile.cuh`` with ``nng_tile``, so its d² are the
+values that tile thresholds. The TPU kernel's 512-feature steps, which
+added each step's partial norms after its product, are not carried over:
+for d <= 512 the two agree up to the order of the product's and the norms'
+sums, and past 512 the partial norms round differently too. Either way
+two evaluations of an element differ by at most about
+2·(d + 2)·u·(‖x‖² + ‖y‖²), u = 2⁻²⁴.
+"""
+from __future__ import annotations
+
+import torch
+
+from .nng_tile import check_operands, launch_row_chunks
+
+
+def pairwise_sqdist_cuda(x, y) -> torch.Tensor:
+    """The CUDA kernel: x (q, d), y (p, d) contiguous fp32 on one CUDA
+    device -> (q, p) fp32 squared distances, clamped to >= 0. Any q, p
+    and d: the kernel masks ragged edges."""
+    check_operands("pairwise_sqdist_cuda", ("x", x, torch.float32, 2),
+                   ("y", y, torch.float32, 2))
+    if y.shape[1] != x.shape[1]:
+        raise ValueError(f"pairwise_sqdist_cuda: shapes x {tuple(x.shape)}, "
+                         f"y {tuple(y.shape)}")
+    out = torch.empty((x.shape[0], y.shape[0]), dtype=torch.float32,
+                      device=x.device)
+    pairwise_sqdist_cuda.launches += launch_row_chunks("pairwise_sqdist", x,
+                                                       y, out)
+    return out
+
+
+pairwise_sqdist_cuda.launches = 0

@@ -56,7 +56,8 @@ from repro_torch.core.flat_tree import (build_block_forests,
 from repro_torch.core.graph import NNGraph, RunStats
 from repro_torch.core.landmark import (ghost_membership, lpt_assignment,
                                        select_centers)
-from repro_torch.core.metrics import Metric, get_metric, register_metric  # noqa: F401 (re-export)
+from repro_torch.core.metrics import (Metric, get_metric,  # noqa: F401 (re-export)
+                                      ieee_fp32, register_metric)
 
 __all__ = ["build_nng", "drive", "Engine", "PointPartitionEngine",
            "SpatialPartitionEngine", "grow_plan", "Metric", "get_metric",
@@ -449,6 +450,7 @@ class SpatialPartitionEngine(Engine):
 # the public entry point
 # ---------------------------------------------------------------------------
 
+@ieee_fp32()
 def build_nng(
     points,
     eps: float,
@@ -493,7 +495,10 @@ def build_nng(
     or "auto" (per plan, from the exact byte models; the resolved mode
     lands in ``meta["ghost_mode"]``). With ``traversal="tree"`` the cells'
     cover forests are built once, on the card or (``forest_backend=
-    "host"``) by the float64 numpy oracle, timed in ``RunStats.build_s``."""
+    "host"``) by the float64 numpy oracle, timed in ``RunStats.build_s``.
+
+    The call runs with IEEE fp32 products whatever the process's matmul
+    precision (``ieee_fp32``), and restores that setting on return."""
     if partition not in ("point", "spatial"):
         raise ValueError(
             f"unknown partition {partition!r} (want 'point' or 'spatial')")

@@ -12,7 +12,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "ghost_ab.py"]
+    ROOT / "chip_smoke.py", ROOT / "ghost_ab.py", ROOT / "tree_ab.py"]
 
 
 def imported_modules(path):
@@ -86,6 +86,18 @@ def test_ghost_ab_fails_without_the_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the script would run")
     r = subprocess.run([sys.executable, str(ROOT / "ghost_ab.py"),
+                        str(tmp_path)], cwd=ROOT, capture_output=True,
+                       text=True, timeout=300)
+    assert r.returncode != 0
+    assert "no CUDA device" in r.stderr
+
+
+def test_tree_ab_fails_without_the_card(tmp_path):
+    """Without a CUDA device the tree-call A/B script exits non-zero before
+    it starts a run."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the script would run")
+    r = subprocess.run([sys.executable, str(ROOT / "tree_ab.py"),
                         str(tmp_path)], cwd=ROOT, capture_output=True,
                        text=True, timeout=300)
     assert r.returncode != 0

@@ -8,24 +8,37 @@ reference package, so it runs on a GPU machine that has neither:
 
 ``gap_safe_eps``, ``random_words``, ``hamming_points``, ``frontier_case``,
 ``range_deltas``, ``grouped_case`` and ``ghost_case`` are shared with the
-CPU tests in ``test_torch_kernels.py``.
+CPU tests in ``test_torch_kernels.py``, ``sqdist_bound`` and ``count_eps``
+with ``test_torch_distance_kernels.py``.
 
 Tolerances: the Hamming kernels are exact integer arithmetic and must equal
 their plain versions bit for bit on every input. The float kernels must
 equal theirs on inputs whose every decision lies at least 1e-4·eps from its
 threshold in float64: two fp32 summation orders differ by a few d·u·eps
-(u = 2^-24; 7.6e-6·eps at d = 128), far inside that gap.
+(u = 2^-24; 7.6e-6·eps at d = 128), far inside that gap. The dense squared
+distances must lie within 2·(d + 2)·u·(‖x_i‖² + ‖y_j‖²) of their plain
+version's and of float64, elementwise.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.brute import brute_force_graph
+from repro_torch.core.distributed import make_nng_mesh
+from repro_torch.core.metrics import ieee_fp32
+from repro_torch.data import synthetic_pointset
 from repro_torch.kernels import bits_epilogue as tbe
 from repro_torch.kernels import nng_tile as tnt
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
 from repro_torch.kernels import tree_frontier as ttf
+from repro_torch.kernels.eps_count import eps_count_cuda, eps_count_plain
+from repro_torch.kernels.pairwise_hamming import pairwise_hamming_cuda
+from repro_torch.kernels.pairwise_l2 import pairwise_sqdist_cuda
+from repro_torch.nng import build_nng
 
 SENTINEL = 2**31 - 1
+U32 = 2.0 ** -24        # fp32 unit roundoff
 
 
 def pair_dists(x, y, metric="euclidean"):
@@ -42,13 +55,15 @@ def pair_dists(x, y, metric="euclidean"):
     return np.sqrt((diff ** 2).sum(-1))
 
 
-def gap_safe_eps(x, y, quantile, rel=1e-4, metric="euclidean", window=200):
+def gap_safe_eps(x, y, quantile=None, rel=1e-4, metric="euclidean",
+                 window=200, target=None):
     """An eps in the widest gap between float64 pair distances within
-    ``window`` pairs of the quantile, at least ``rel``·eps away from every
-    pair."""
+    ``window`` pairs of the quantile (or of the distance ``target``), at
+    least ``rel``·eps away from every pair."""
     d = pair_dists(x, y, metric).ravel()
     d.sort()
-    k = int(quantile * len(d))
+    k = (int(quantile * len(d)) if target is None
+         else int(np.searchsorted(d, target)))
     lo, hi = max(k - window, 0), min(k + window, len(d) - 1)
     j = lo + int(np.argmax(d[lo + 1:hi + 1] - d[lo:hi]))
     eps = 0.5 * float(d[j] + d[j + 1])
@@ -436,3 +451,275 @@ def test_ghost_tile_cuda_matches_plain(cuda_device, metric, q, p, d, m,
         assert not bits.any() and not cnt.any()
     else:
         assert int(rc.sum()) > 0
+
+
+# ---------------------------------------------------------------------------
+# the distance-kernel API
+# ---------------------------------------------------------------------------
+
+def sqdist_bound(x, y):
+    """(q, p) elementwise bound 2·(d + 2)·u·(‖x_i‖² + ‖y_j‖²) on two fp32
+    evaluations of the expansion, from the fp32 inputs in float64."""
+    x64 = x.astype(np.float32).astype(np.float64)
+    y64 = y.astype(np.float32).astype(np.float64)
+    s = (x64 * x64).sum(1)[:, None] + (y64 * y64).sum(1)[None, :]
+    return 2 * (x.shape[1] + 2) * U32 * s
+
+
+def count_eps(x, y, target=None, quantiles=(None,)):
+    """A gap-safe eps (at least 1e-5·eps from every pair) near ``target``
+    or the first of ``quantiles`` that has one, whose every pair's float64
+    d² lies farther from eps² than ``sqdist_bound``: no two fp32
+    expansions, nor an expansion and the direct form, can count a pair
+    differently."""
+    x64, y64 = x.astype(np.float64), y.astype(np.float64)
+    d2 = ((x64[:, None, :] - y64[None, :, :]) ** 2).sum(-1)
+    bound = sqdist_bound(x, y)
+    for quantile in quantiles:
+        try:
+            eps = gap_safe_eps(x, y, quantile, rel=1e-5, target=target)
+        except AssertionError:
+            continue
+        if (np.abs(d2 - eps * eps) > bound).all():
+            return eps
+    raise AssertionError("no eps clear of the expansion bound")
+
+
+RAGGED_QP = [(1, 1), (1, 300), (127, 129), (129, 127), (300, 1), (300, 300)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [1, 17, 700])
+@pytest.mark.parametrize("q,p", RAGGED_QP)
+def test_pairwise_sqdist_cuda_matches_plain(cuda_device, q, p, d):
+    """Within the expansion bound of the plain version and of float64."""
+    rng = np.random.default_rng(q + p + d)
+    x = rng.normal(size=(q, d)).astype(np.float32)
+    y = (rng.normal(size=(p, d)) + 0.5).astype(np.float32)
+    xt, yt = torch.from_numpy(x).to(cuda_device), torch.from_numpy(y).to(
+        cuda_device)
+    before = pairwise_sqdist_cuda.launches
+    got = pairwise_sqdist_cuda(xt, yt)
+    assert pairwise_sqdist_cuda.launches == before + 1
+    with ieee_fp32():
+        plain = tref.pairwise_sqdist_blas3_ref(xt, yt)
+    bound = sqdist_bound(x, y)
+    got64 = got.cpu().double().numpy()
+    assert (np.abs(got64 - plain.cpu().double().numpy()) <= bound).all()
+    x64, y64 = x.astype(np.float64), y.astype(np.float64)
+    exact = ((x64[:, None, :] - y64[None, :, :]) ** 2).sum(-1)
+    assert (np.abs(got64 - exact) <= bound).all()
+    assert (got64 >= 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w", [1, 25, 26])
+@pytest.mark.parametrize("q,p", RAGGED_QP)
+def test_pairwise_hamming_cuda_matches_plain(cuda_device, q, p, w):
+    """Bit for bit, on words of every density."""
+    x = as_words(random_words(q + w, q, w))
+    y = as_words(random_words(p + w + 1, p, w))
+    before = pairwise_hamming_cuda.launches
+    got = pairwise_hamming_cuda(x.to(cuda_device), y.to(cuda_device))
+    assert pairwise_hamming_cuda.launches == before + 1
+    assert torch.equal(got.cpu(), tref.pairwise_hamming_ref(x, y))
+
+
+@pytest.mark.gpu
+def test_pairwise_hamming_cuda_output_past_2_31(cuda_device):
+    """An output of more than 2^31 elements: the rows whose offsets pass
+    2^31 hold their own distances (64-bit offsets)."""
+    q, p = 8192, 262400
+    assert q * p > 2**31
+    x = as_words(random_words(1, q, 1)).to(cuda_device)
+    y = as_words(random_words(2, p, 1)).to(cuda_device)
+    got = pairwise_hamming_cuda(x, y)
+    for rows in (slice(0, 4), slice(2**31 // p - 2, 2**31 // p + 2),
+                 slice(q - 4, q)):
+        assert torch.equal(got[rows], tref.pairwise_hamming_ref(x[rows], y))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [1, 17, 700])
+@pytest.mark.parametrize("q,p", RAGGED_QP[1:])
+def test_eps_count_cuda_matches_plain(cuda_device, q, p, d):
+    """Equal to the plain expansion and the direct oracle at an eps no
+    fp32 evaluation can split, and to nng_tile's cnt bit for bit."""
+    rng = np.random.default_rng(q * p + d)
+    x = rng.normal(size=(q, d)).astype(np.float32)
+    y = rng.normal(size=(p, d)).astype(np.float32)
+    eps = count_eps(x, y, quantiles=(0.05, 0.01, 0.002))
+    xt, yt = torch.from_numpy(x), torch.from_numpy(y)
+    before = eps_count_cuda.launches
+    got = eps_count_cuda(xt.to(cuda_device), yt.to(cuda_device), eps)
+    assert eps_count_cuda.launches == before + 1
+    assert int(got.sum()) > 0
+    assert torch.equal(got.cpu(), eps_count_plain(xt, yt, eps))
+    assert torch.equal(got.cpu(), tref.eps_count_ref(xt, yt, eps))
+    cnt, _ = tnt.nng_tile_cuda(xt.to(cuda_device), yt.to(cuda_device),
+                               torch.ones(p, dtype=torch.int32,
+                                          device=cuda_device), eps)
+    assert torch.equal(got, cnt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q,p,d", [(1000, 777, 128), (300, 4100, 3)])
+def test_eps_count_cuda_equals_nng_tile_cnt_on_pairs(cuda_device, q, p, d):
+    """At an eps that is one pair's own fp32 distance (a knife-edge pair),
+    the counts still equal nng_tile's cnt bit for bit: the same products,
+    the same d², the same threshold."""
+    g = torch.Generator(device=cuda_device).manual_seed(q + d)
+    x = torch.randn(q, d, generator=g, device=cuda_device)
+    y = torch.randn(p, d, generator=g, device=cuda_device)
+    eps = float(torch.cdist(x[:1], y[:1]).item())
+    got = eps_count_cuda(x, y, eps)
+    cnt, _ = tnt.nng_tile_cuda(x, y, torch.ones(p, dtype=torch.int32,
+                                                device=cuda_device), eps)
+    assert int(got.sum()) > 0
+    assert torch.equal(got, cnt)
+
+
+@pytest.mark.gpu
+def test_distance_api_on_the_card(cuda_device):
+    """The public wrappers launch the kernels for CUDA tensors and for
+    numpy input by default; float16 is cast to fp32 first."""
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=(300, 20)).astype(np.float16)
+    y = rng.normal(size=(129, 20)).astype(np.float16)
+    counts = (pairwise_sqdist_cuda.launches, eps_count_cuda.launches,
+              pairwise_hamming_cuda.launches)
+    d2 = tops.pairwise_sqdist(x, y)
+    cnt = tops.eps_count(torch.from_numpy(x).to(cuda_device), y, 5.0)
+    ham = tops.pairwise_hamming(random_words(3, 300, 25),
+                                random_words(4, 129, 25))
+    assert (pairwise_sqdist_cuda.launches, eps_count_cuda.launches,
+            pairwise_hamming_cuda.launches) == tuple(c + 1 for c in counts)
+    assert d2.is_cuda and d2.dtype == torch.float32 and d2.shape == (300, 129)
+    assert cnt.is_cuda and cnt.shape == (300,)
+    assert ham.is_cuda and ham.dtype == torch.int32
+    x32, y32 = (torch.from_numpy(a.astype(np.float32)) for a in (x, y))
+    assert (np.abs(d2.cpu().double().numpy() - tops.pairwise_sqdist(
+        x32, y32).double().numpy()) <= sqdist_bound(x, y)).all()
+
+
+# ---------------------------------------------------------------------------
+# IEEE fp32 products whatever the process's matmul precision
+# ---------------------------------------------------------------------------
+
+def precision_state():
+    return (torch.get_float32_matmul_precision(),
+            torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+
+
+@pytest.fixture
+def default_precision():
+    """Each test starts from torch's defaults and leaves them behind."""
+    torch.set_float32_matmul_precision("highest")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    yield
+    torch.set_float32_matmul_precision("highest")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+
+
+@pytest.mark.parametrize("setting", ["default", "high", "medium", "tf32",
+                                     "cudnn_off"])
+def test_ieee_fp32_sets_and_restores(default_precision, setting):
+    """Inside the guard: "highest" and no TF32; after it, even when the
+    block raises, the process's settings read as they did before."""
+    if setting in ("high", "medium"):
+        torch.set_float32_matmul_precision(setting)
+    elif setting == "tf32":
+        torch.backends.cuda.matmul.allow_tf32 = True
+    elif setting == "cudnn_off":
+        torch.backends.cudnn.allow_tf32 = False
+    before = precision_state()
+    with ieee_fp32():
+        assert precision_state() == ("highest", False, False)
+    assert precision_state() == before
+    with pytest.raises(KeyError):
+        with ieee_fp32():
+            raise KeyError("inside")
+    assert precision_state() == before
+
+
+def precision_points(kind, n):
+    """Points off the origin, where a TF32 product's error (about 2^-11 of
+    ‖x‖·‖c‖) dwarfs the Lemma-1 slack: "offset", 8-d Gaussians at 3 ± 0.6,
+    or "synthetic", 64-d ``synthetic_pointset`` rows (‖x‖ about 45)."""
+    if kind == "offset":
+        rng = np.random.default_rng(3)
+        return (rng.normal(size=(n, 8)) * 0.6 + 3.0).astype(np.float32)
+    return synthetic_pointset(n, 64, seed=3).astype(np.float32)
+
+
+def knife_safe_eps(pts, target):
+    """The eps nearest ``target`` whose every pair's float64 d² lies
+    outside 20 fp32 units of ‖x‖² + ‖y‖² (the expansion's knife) plus
+    1e-4·eps²."""
+    x64 = pts.astype(np.float64)
+    sq = (x64 * x64).sum(1)
+    iu = np.triu_indices(len(pts), 1)
+    d2 = np.maximum(sq[:, None] + sq[None, :] - 2 * x64 @ x64.T, 0)[iu]
+    knife = 20 * U32 * (sq[:, None] + sq[None, :])[iu]
+    dist = np.sort(np.sqrt(d2))
+    k = int(np.searchsorted(dist, target))
+    lo, hi = max(k - 200, 0), min(k + 200, len(dist) - 1)
+    cands = 0.5 * (dist[lo:hi] + dist[lo + 1:hi + 1])
+    near = np.abs(d2 - target * target) < 2 * target * target
+    margin = np.array([(np.abs(d2[near] - e * e) - knife[near]
+                        - 1e-4 * e * e).min() for e in cands])
+    ok = cands[margin > 0]
+    assert len(ok), "no knife-safe eps"
+    eps = float(ok[np.argmin(np.abs(ok - target))])
+    assert (np.abs(d2 - eps * eps) - knife - 1e-4 * eps * eps).min() > 0, \
+        "no knife-safe eps"
+    return eps
+
+
+def test_build_nng_restores_high_precision_cpu(default_precision):
+    """The CPU twin: a process at "high" gets the exact graph from the
+    spatial engine and reads "high" again after the call."""
+    torch.set_float32_matmul_precision("high")
+    pts = precision_points("offset", 300)
+    eps = knife_safe_eps(pts, 1.2)
+    g = build_nng(pts, eps, partition="spatial",
+                  mesh=make_nng_mesh(4, device="cpu"))
+    assert torch.get_float32_matmul_precision() == "high"
+    assert g == brute_force_graph(pts, eps)
+    assert g.num_edges > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,n,target", [("offset", 1200, 0.9),
+                                           ("synthetic", 4096, 0.84)])
+def test_build_nng_ieee_under_high_precision(cuda_device, default_precision,
+                                             kind, n, target):
+    """A process at "high" (TF32 products) still gets the float64 edge set
+    from the spatial engine on the card, and reads "high" after."""
+    torch.set_float32_matmul_precision("high")
+    pts = precision_points(kind, n)
+    eps = knife_safe_eps(pts, target)
+    g = build_nng(pts, eps, partition="spatial", mesh=make_nng_mesh(4))
+    assert torch.get_float32_matmul_precision() == "high"
+    assert g == brute_force_graph(pts, eps)
+    assert g.num_edges > 0
+
+
+@pytest.mark.gpu
+def test_build_nng_plan_unchanged_under_high_precision(cuda_device,
+                                                       default_precision):
+    """At 2^16 x 128 (the smoke points' shape, cut) TF32 centre distances
+    change the device planner's capacities; under the guard, a process at
+    "high" gets the plan and the graph that a process at "highest" gets."""
+    pts = synthetic_pointset(1 << 16, 128, seed=0)
+    mesh = make_nng_mesh(8)
+    want = build_nng(pts, 2.98, partition="spatial", mesh=mesh, k_cap=1024)
+    torch.set_float32_matmul_precision("high")
+    got = build_nng(pts, 2.98, partition="spatial", mesh=mesh, k_cap=1024)
+    assert torch.get_float32_matmul_precision() == "high"
+    assert got.meta["plan"] == want.meta["plan"]
+    assert np.array_equal(got.edge_key(), want.edge_key())
+    assert got.num_edges > 0

@@ -307,6 +307,29 @@ def test_tree_traverse_matches_reference(monkeypatch, q_chunk, sparse_div):
     assert int(tp) > 0
 
 
+@pytest.mark.parametrize("n_nodes,n_leaf", [(120960, 131072), (16384, 16384),
+                                            (32, 64), (1 << 22, 1 << 22)])
+def test_traverse_pass_budget(n_nodes, n_leaf):
+    """A pass is the most rows whose modelled bytes fit the budget (the
+    128-row floor aside); per-query scopes cost more, so their passes are
+    never larger."""
+    from repro_torch.core.distributed import device
+    budget = device.TRAVERSE_BUDGET
+    rows = {}
+    for scoped in (False, True):
+        c = rows[scoped] = device.traverse_q_chunk(n_nodes, n_leaf,
+                                                   scoped=scoped)
+        step = 1024 if c >= 1024 else 128
+        assert c >= 128 and c % step == 0
+        fits = device.traverse_pass_bytes(c, n_nodes, n_leaf, scoped)
+        assert fits <= budget or c == 128
+        assert device.traverse_pass_bytes(c + step, n_nodes, n_leaf,
+                                          scoped) > budget or step == 128
+    assert rows[True] <= rows[False]
+    assert (device.traverse_pass_bytes(1, n_nodes, n_leaf, True)
+            > device.traverse_pass_bytes(1, n_nodes, n_leaf, False))
+
+
 def test_tree_traverse_self_pairs_and_ghost_bits():
     pts = synthetic_pointset(96, 3, seed=2)
     tabs = tft.stack_device_forests(tft.build_block_forests(pts, 1))
