@@ -11,8 +11,13 @@ each printed as it runs; any failed check raises and exits non-zero:
      (nvcc for sm_90a into build/repro_torch/, timed);
   2. each CUDA kernel against its plain PyTorch version on the card:
      ``nng_tile`` at 8192x8192x128 and two ragged shapes (bits equal except
-     at pairs whose float64 d² lies within 1e-4·eps² of eps²),
-     ``bits_to_cols`` bit-identical on random and real words at several k;
+     at pairs whose float64 d² lies within 1e-4·eps² of eps²); ``nng_tile``
+     and ``eps_count`` (the pipelined core, ``csrc/l2_pipe.cuh``) bit for
+     bit against the hits of ``pairwise_sqdist`` (the core they replaced,
+     ``csrc/l2_tile.cuh``) at an eps exactly on a pair's fp32 d², on ragged
+     shapes, grids of fewer and of more tiles than resident blocks, and
+     rows that are not 16-byte aligned; ``bits_to_cols`` bit-identical on
+     random and real words at several k;
   3. the main path: ``build_nng`` at the ``nng-sift-1m`` shape (n = 2^20,
      d = 128, euclidean; synthetic stand-in from seed 0) on 8 logical ranks,
      with both kernels' launch counts read from that run alone; then one
@@ -22,9 +27,10 @@ each printed as it runs; any failed check raises and exits non-zero:
      points, computed on the card (inside the fp32 band), and against the
      plain fp32 expansion on the card (off the knife edge, below);
   5. each kernel at the main path's inputs: its output against its plain
-     version's (``nng_tile`` off the knife edge, ``bits_to_cols``
-     bit-identical), and its time (CUDA events, median) beside its bound,
-     its plain version's time and a library yardstick;
+     version's (``nng_tile`` off the knife edge, and bit for bit against
+     the hits of ``pairwise_sqdist``; ``bits_to_cols`` bit-identical), and
+     its time (CUDA events, median) beside its bound, its plain version's
+     time and a library yardstick;
   6. the tree path on the same points: the forest built on the card, one
      traversal (block 0's points against block 1's tree) whose kernel
      inputs feed ``tree_frontier`` (off the knife edge of each decision)
@@ -91,15 +97,17 @@ each printed as it runs; any failed check raises and exits non-zero:
  11. the distance-kernel API (the reference's ``repro.kernels``
      ``pairwise_sqdist``, ``pairwise_hamming``, ``eps_count``; no engine
      calls it): the three kernels against their plain versions and
-     float64 on ragged shapes (d up to 700, w in 1, 3, 25, 26, q or p = 1)
-     [11a]; at the reference micro-bench's 2048² shapes, timed [11b]; at
-     full width through the public calls, with the launches read from
-     those calls alone: 8192 of [3]'s points against one rank's block,
-     8192 of [7]'s word rows against all of them (an output past 2^31
-     elements, bit for bit), and [5]'s 131072² block counted (equal to
-     ``nng_tile``'s cnt bit for bit, to the plain version off the knife)
-     [11c]; their times beside their bounds, plain versions and library
-     yardsticks [11d].
+     float64 on ragged shapes (d up to 700, w in 1, 3, 25, 26, q or p = 1),
+     and ``eps_count`` and ``nng_tile`` bit for bit against the hits of
+     ``pairwise_sqdist`` at an eps on a pair's fp32 d² [11a]; at the
+     reference micro-bench's 2048² shapes, timed [11b]; at full width
+     through the public calls, with the launches read from those calls
+     alone: 8192 of [3]'s points against one rank's block, 8192 of [7]'s
+     word rows against all of them (an output past 2^31 elements, bit for
+     bit), and [5]'s 131072² block counted (equal to ``nng_tile``'s cnt
+     and to the row sums of ``pairwise_sqdist``'s hits bit for bit, to the
+     plain version off the knife) [11c]; their times beside their bounds,
+     plain versions and library yardsticks [11d].
 
 Hamming distances are exact integers: no knife. Two fp32 L1 sums in
 different orders are each within d·u·D of the float64 sum D (u = 2^-24),
@@ -309,6 +317,42 @@ def main() -> int:
         check(outside == 0, f"{label}: {outside} pairs differ off the knife "
                             f"edge (wider of 1e-4·eps² and {KNIFE_ULPS} "
                             "units)")
+
+    def eps_on_pair(d2, quantile):
+        """An eps whose eps2_f32(eps) is exactly one pair's fp32 d² (that
+        pair on the knife edge): the first positive d² at or above
+        ``quantile`` of them that is the fp32 square of an fp32, or None."""
+        v = torch.unique(d2[d2 > 0])
+        lo = int(quantile * max(len(v) - 1, 0))
+        for val in v[lo:lo + 4096].cpu().numpy():
+            e = np.float32(np.sqrt(np.float64(val)))
+            for cand in (e, np.nextafter(e, np.float32(np.inf)),
+                         np.nextafter(e, np.float32(0))):
+                if eps2_f32(float(cand)) == float(val):
+                    return float(cand)
+        return None
+
+    def old_core_check(label, x, y, yv, eps):
+        """nng_tile and eps_count (the pipelined core, l2_pipe.cuh) against
+        the hits of pairwise_sqdist (the core they replaced, l2_tile.cuh):
+        cnt and every bit of nng_tile equal those of
+        ``pairwise_sqdist_cuda(x, y) <= eps2_f32(eps)`` with y_valid
+        applied, and eps_count equals that row sum, bit for bit. Returns
+        the pairs exactly on eps2_f32(eps)."""
+        q, p = x.shape[0], y.shape[0]
+        d2 = pairwise_sqdist_cuda(x, y)
+        e2 = eps2_f32(eps)
+        hit = d2 <= e2
+        want = hit & (yv != 0)[None, :]
+        cnt_k, bits_k = nng_tile_cuda(x, y, yv, eps)
+        cnt_e = eps_count_cuda(x, y, eps)
+        check(torch.equal(cnt_k, want.sum(1, dtype=torch.int32))
+              and torch.equal(unpack_words(bits_k)[:, :p], want)
+              and not unpack_words(bits_k)[:, p:].any(),
+              f"{label}: nng_tile differs from pairwise_sqdist's hits")
+        check(torch.equal(cnt_e, hit.sum(1, dtype=torch.int32)),
+              f"{label}: eps_count differs from pairwise_sqdist's hits")
+        return int((d2 == e2).sum())
 
     def profiled_run(label, fn, what="engine run"):
         """Run ``fn()`` once under torch.profiler, tracing the card only
@@ -564,6 +608,43 @@ def main() -> int:
         if real_bits is None:
             real_bits = bits_k
         del d2_64, knife, differ
+    # the pipelined core against the one it replaced, bit for bit, at an
+    # eps exactly on a pair's fp32 d²: ragged shapes (fewer tiles than
+    # resident blocks), grids of more tiles than resident blocks, and rows
+    # that are not 16-byte aligned (the 4-byte copy path)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    gen2 = torch.Generator(device=dev).manual_seed(SEED)
+    pipe_cases = ([(q, p, d, None) for q, p in ((1, 1), (1, 300), (127, 129),
+                                                (129, 127), (300, 1),
+                                                (300, 300))
+                   for d in (1, 17, 700)]
+                  + [(2100, 4100, 17, None), (4096, 4096, 128, None),
+                     (8192, 8192, 128, None), (300, 300, 17, "row"),
+                     (1000, 777, 17, "row"), (300, 257, 128, "elem")])
+    on_knife = 0
+    for q, p, d, shift in pipe_cases:
+        eps = None
+        while eps is None:          # a tiny draw may hold no such pair
+            rows_ = (q + 1, p + 1) if shift == "row" else (q, p)
+            a = torch.randn(rows_[0] * d + (shift == "elem"), generator=gen2,
+                            device=dev)
+            b = torch.randn(rows_[1] * d + (shift == "elem"), generator=gen2,
+                            device=dev)
+            a = a[d:] if shift == "row" else a[1:] if shift == "elem" else a
+            b = b[d:] if shift == "row" else b[1:] if shift == "elem" else b
+            a, b = a.view(q, d), b.view(p, d)
+            eps = eps_on_pair(pairwise_sqdist_cuda(a, b), 0.02)
+        check(shift is None or (a.data_ptr() % 16 and b.data_ptr() % 16),
+              f"[2] the {shift} case is 16-byte aligned")
+        yv = (torch.rand(p, generator=gen2, device=dev) > 0.2).to(torch.int32)
+        on_knife += old_core_check(f"[2] ({q},{p},{d}, {shift})", a, b, yv,
+                                   eps)
+    print(f"[2] nng_tile and eps_count (l2_pipe.cuh) bit-identical to the "
+          f"hits of pairwise_sqdist (l2_tile.cuh) on {len(pipe_cases)} "
+          f"shapes (q, p in 1, 127, 129, 300, d in 1, 17, 700; 1 to 4096 "
+          f"tiles against at most {2 * n_sm} resident blocks; rows off "
+          f"16-byte alignment), eps on a pair's fp32 d² in each: "
+          f"{on_knife} pairs exactly on eps²")
     words = torch.from_numpy(rng.integers(-2**31, 2**31, size=(5000, 37))
                              .astype(np.int32)).to(dev)
     words[1::3] &= torch.roll(words[1::3], 1, 1) & torch.roll(words[1::3], 2, 1)
@@ -682,6 +763,23 @@ def main() -> int:
     knife_check("[5] nng_tile vs plain", x, y, torch.cat(tile_i),
                 torch.cat(tile_j), eps2)
     del x64, y64
+    # the pipelined core against the one it replaced on the main path's
+    # tile, bit for bit: the hits of pairwise_sqdist (l2_tile.cuh), in row
+    # chunks; the row sums are [11c]'s for eps_count on the same inputs
+    old_cnt5 = torch.empty_like(cnt)
+    for r0 in range(0, n_loc, 8192):
+        sl = slice(r0, r0 + 8192)
+        hit = pairwise_sqdist_cuda(x[sl], y) <= eps2
+        old_cnt5[sl] = hit.sum(1, dtype=torch.int32)
+        check(torch.equal(bits[sl], pack_words(hit)),
+              f"[5] nng_tile's words differ from pairwise_sqdist's hits in "
+              f"rows {r0}..{r0 + 8191}")
+        del hit
+    check(torch.equal(cnt, old_cnt5), "[5] nng_tile's cnt differs from "
+                                      "pairwise_sqdist's hits")
+    print(f"[5] nng_tile (l2_pipe.cuh) bit-identical to the hits of "
+          f"pairwise_sqdist (l2_tile.cuh) on the main path's tile: all "
+          f"{n_loc}x{w} words and {n_loc} counts")
     for r0 in range(0, n_loc, 4096):
         check(torch.equal(cols[r0:r0 + 4096],
                           bits_to_cols_ref(bits[r0:r0 + 4096], k_path)),
@@ -1114,7 +1212,6 @@ def main() -> int:
                nng_tile_grouped_cuda, nng_tile_grouped_hamming_cuda,
                nng_tile_grouped_l1_cuda, nng_tile_ghost_cuda,
                nng_tile_ghost_hamming_cuda, nng_tile_ghost_l1_cuda)
-    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     clk_mhz = float(nvidia_smi("clocks.max.sm", "csv,noheader,nounits"))
     popc_rate = POPC_PER_CLK_SM * n_sm * clk_mhz * 1e6
     l1_rate = PEAK_FP32 / 2     # fp32 instructions a second (FMA = 2 flops)
@@ -2434,12 +2531,22 @@ def main() -> int:
                                                   device=dev), eps_r)
         check(torch.equal(cnt_k, cnt_t), f"[11a] eps_count ({q},{p},{d}) "
                                          "differs from nng_tile's cnt")
+        # the pipelined core against the one it replaced, at an eps on a
+        # pair's fp32 d² (a tiny draw may hold none: draw again)
+        a_k, b_k, eps_k = a, b, eps_on_pair(got, 0.05)
+        while eps_k is None:
+            a_k = torch.randn(q, d, generator=gen11, device=dev)
+            b_k = torch.randn(p, d, generator=gen11, device=dev) + 0.5
+            eps_k = eps_on_pair(pairwise_sqdist_cuda(a_k, b_k), 0.05)
+        on_k = old_core_check(f"[11a] ({q},{p},{d})", a_k, b_k, torch.ones(
+            p, dtype=torch.int32, device=dev), eps_k)
         count_knife_check(f"[11a] eps_count ({q},{p},{d}) vs plain", cnt_k,
                           eps_count_plain(a, b, eps_r), a, b,
                           eps2_f32(eps_r))
         print(f"[11a] pairwise_sqdist ({q},{p},{d}): max |diff| {e_p:.4g} "
               f"vs plain, {e_64:.4g} vs float64, within the bound; eps_count "
-              f"at eps {eps_r:.6g} equal to nng_tile's cnt")
+              f"at eps {eps_r:.6g} equal to nng_tile's cnt; at eps {eps_k:.9g} "
+              f"both equal pairwise_sqdist's hits (pairs on eps²: {on_k})")
     for q, p, w in ((1, 1, 1), (1, 300, 3), (300, 1, 25), (127, 129, 26),
                     (129, 127, 1), (300, 300, 25), (1000, 777, 26)):
         a = torch.randint(-2**31, 2**31, (q, w), generator=gen11,
@@ -2558,13 +2665,16 @@ def main() -> int:
     del bits_tile
     check(torch.equal(cnt_full, cnt_tile), "[11c] eps_count differs from "
                                            "nng_tile's cnt")
+    check(torch.equal(cnt_full, old_cnt5), "[11c] eps_count differs from "
+                                           "pairwise_sqdist's hits ([5])")
     cnt_plain, eps_plain_ms = events_ms(
         torch, lambda: eps_count_plain(ex, ey, EPS))
     eps_err = count_knife_check("[11c] eps_count vs plain", cnt_full,
                                 cnt_plain, ex, ey, eps2)
-    print(f"[11c] eps_count equal to nng_tile's cnt on all {n_loc} rows "
+    print(f"[11c] eps_count equal to nng_tile's cnt and to the row sums of "
+          f"pairwise_sqdist's hits on all {n_loc} rows "
           f"({int(cnt_full.sum())} pairs)")
-    del cnt_tile, cnt_plain, cnt_full
+    del cnt_tile, cnt_plain, cnt_full, old_cnt5
 
     # -- 11d. times at full width --------------------------------------------
     q_, p_, d_ = sx.shape[0], ey.shape[0], DIM

@@ -35,7 +35,7 @@ _LL = ctypes.c_longlong
 # cudaGetLastError() code of its launch
 _ENTRY = {
     "nng_tile": ("nng_tile_launch",
-                 (_P, _P, _P, _P, _P, _I, _I, _I, _F, _P)),
+                 (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P)),
     "nng_tile_hamming": ("nng_tile_hamming_launch",
                          (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P)),
     "nng_tile_l1": ("nng_tile_l1_launch",
@@ -70,7 +70,8 @@ _ENTRY = {
                         (_P, _P, _P, _I, _I, _I, _P)),
     "pairwise_hamming": ("pairwise_hamming_launch",
                          (_P, _P, _P, _I, _I, _I, _P)),
-    "eps_count": ("eps_count_launch", (_P, _P, _P, _I, _I, _I, _F, _P)),
+    "eps_count": ("eps_count_launch",
+                  (_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P)),
 }
 
 _loaded: dict = {}                     # library -> loaded entry point

@@ -42,6 +42,8 @@ cell range and store zero words there.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -293,12 +295,31 @@ def launch_row_chunks(lib: str, x, y, out, *tail) -> int:
     return n
 
 
-def _launch_tile(lib: str, x, y, ints, dtype, thr, gbits=None):
+def row_norm_scratch(q: int, p: int, device):
+    """The persistent kernels' scratch: fp32 (q,) and (p,) for the squared
+    norms of x's and y's rows, which the launch computes once before the
+    tiles read them."""
+    return (torch.empty(q, dtype=torch.float32, device=device),
+            torch.empty(p, dtype=torch.float32, device=device))
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The streaming multiprocessors of CUDA device ``index``: the
+    persistent kernels (``csrc/l2_pipe.cuh``) size their grid from it."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _launch_tile(lib: str, x, y, ints, dtype, thr, gbits=None,
+                 persistent=False):
     """Check the operands of tile kernel ``lib`` and launch it with
     threshold ``thr`` -> (cnt, bits, launched). ``ints`` are its int32
     operands as (name, tensor, "q" or "p": the rows of x or of y), in the
     order its C entry point takes them after x and y. A ghost kernel also
-    takes ``gbits`` (q, mw) int32 right after y, and mw after d."""
+    takes ``gbits`` (q, mw) int32 right after y, and mw after d; a
+    ``persistent`` one (``csrc/l2_pipe.cuh``) fp32 scratch for the rows'
+    norms, (q,) and (p,), after bits, and the device's SM count after the
+    threshold."""
     fn = f"{lib}_cuda"
     extra = () if gbits is None else (("x_gbits", gbits, torch.int32, 2),)
     check_operands(fn, ("x", x, dtype, 2), ("y", y, dtype, 2), *extra,
@@ -322,12 +343,15 @@ def _launch_tile(lib: str, x, y, ints, dtype, thr, gbits=None):
     launch = _build.entry(lib)
     gb = () if gbits is None else (gbits.data_ptr(),)
     mw = () if gbits is None else (gbits.shape[1],)
+    norms = (row_norm_scratch(q, p, x.device) if persistent else ())
+    sms = (sm_count(x.device.index),) if persistent else ()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = launch(x.data_ptr(), y.data_ptr(), *gb,
                       *(t.data_ptr() for _, t, _ in ints),
-                      cnt.data_ptr(), bits.data_ptr(), q, p, d, *mw, thr,
-                      stream)
+                      cnt.data_ptr(), bits.data_ptr(),
+                      *(t.data_ptr() for t in norms), q, p, d, *mw, thr,
+                      *sms, stream)
     _build.check(lib, code)
     return cnt, bits, True
 
@@ -335,11 +359,14 @@ def _launch_tile(lib: str, x, y, ints, dtype, thr, gbits=None):
 def nng_tile_cuda(x, y, y_valid, eps: float):
     """The L2 CUDA kernel: x (q, d), y (p, d) fp32, y_valid (p,) int32, all
     contiguous on one CUDA device -> (cnt (q,) int32, bits (q, ceil(p/32))
-    int32). Any q, p and d: the kernel masks ragged edges, and bits past
-    column p - 1 are zero."""
+    int32). Any q, p and d, and any 4-byte aligned x and y (a row slice
+    too): the kernel masks ragged edges, and bits past column p - 1 are
+    zero. One launch of a persistent grid (``csrc/l2_pipe.cuh``), whose
+    d² are those of the kernels on ``csrc/l2_tile.cuh`` bit for bit."""
     cnt, bits, launched = _launch_tile("nng_tile", x, y,
                                        (("y_valid", y_valid, "p"),),
-                                       torch.float32, eps2_f32(eps))
+                                       torch.float32, eps2_f32(eps),
+                                       persistent=True)
     nng_tile_cuda.launches += launched
     return cnt, bits
 

@@ -12,7 +12,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "ghost_ab.py", ROOT / "tree_ab.py"]
+    ROOT / "chip_smoke.py", ROOT / "ghost_ab.py", ROOT / "tree_ab.py",
+    ROOT / "l2_ablate.py"]
 
 
 def imported_modules(path):
@@ -102,3 +103,24 @@ def test_tree_ab_fails_without_the_card(tmp_path):
                        text=True, timeout=300)
     assert r.returncode != 0
     assert "no CUDA device" in r.stderr
+
+
+def test_l2_ablate_fails_without_the_card():
+    """Without a CUDA device the L2 core's ablation script exits non-zero
+    before it builds or times anything."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the script would run")
+    r = subprocess.run([sys.executable, str(ROOT / "l2_ablate.py")],
+                       cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert r.returncode != 0
+    assert "no CUDA device" in r.stderr
+
+
+def test_tree_ab_refuses_unknown_calls(tmp_path):
+    """tree_ab.py names its calls; an unknown one is refused before any run
+    (with a card or without)."""
+    r = subprocess.run([sys.executable, str(ROOT / "tree_ab.py"),
+                        str(tmp_path), "--calls", "point tiles,no such call"],
+                       cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 2
+    assert "no such call" in r.stderr

@@ -579,6 +579,74 @@ def test_eps_count_cuda_equals_nng_tile_cnt_on_pairs(cuda_device, q, p, d):
     assert torch.equal(got, cnt)
 
 
+def eps_on_pair(d2, quantile):
+    """An eps whose ``eps2_f32(eps)`` is exactly one pair's fp32 d² (that
+    pair on the knife edge): the first positive d² at or above
+    ``quantile`` of them that is the fp32 square of an fp32, or None."""
+    v = np.unique(d2.cpu().numpy().ravel())
+    v = v[v > 0]
+    for val in v[int(quantile * max(len(v) - 1, 0)):]:
+        e = np.float32(np.sqrt(np.float64(val)))
+        for cand in (e, np.nextafter(e, np.float32(np.inf)),
+                     np.nextafter(e, np.float32(0))):
+            if tnt.eps2_f32(float(cand)) == float(val):
+                return float(cand)
+    return None
+
+
+# (q, p, d, shift): the ragged shapes; grids with more tiles than resident
+# blocks (561 and 1024 tiles against at most 2 a SM); row slices whose rows
+# are not 16-byte aligned ("row": rows 1.. of a (q + 1, d) matrix) and a
+# base one element off ("elem", with d % 4 == 0)
+L2_PIPE_CASES = ([(q, p, d, None) for q, p in RAGGED_QP for d in (1, 17, 700)]
+                 + [(2100, 4100, 17, None), (4096, 4096, 128, None),
+                    (300, 300, 17, "row"), (1000, 777, 17, "row"),
+                    (300, 257, 128, "elem")])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q,p,d,shift", L2_PIPE_CASES)
+def test_l2_pipe_kernels_equal_old_core(cuda_device, q, p, d, shift):
+    """nng_tile and eps_count (``csrc/l2_pipe.cuh``) equal, bit for bit,
+    the hits of ``pairwise_sqdist_cuda(x, y) <= eps2_f32(eps)`` (still on
+    ``csrc/l2_tile.cuh``) at an eps exactly on one pair's fp32 d², with
+    y_valid applied: the two cores' per-pair arithmetic is the same."""
+    g = torch.Generator(device=cuda_device).manual_seed(7 * q + p + d)
+
+    def operand(rows):
+        if shift == "row":
+            return torch.randn(rows + 1, d, generator=g,
+                               device=cuda_device)[1:]
+        if shift == "elem":
+            return torch.randn(rows * d + 1, generator=g,
+                               device=cuda_device)[1:].view(rows, d)
+        return torch.randn(rows, d, generator=g, device=cuda_device)
+
+    eps = None
+    while eps is None:          # a tiny draw may hold no such pair
+        x, y = operand(q), operand(p)
+        d2 = pairwise_sqdist_cuda(x, y)
+        eps = eps_on_pair(d2, 0.02)
+    assert x.is_contiguous() and y.is_contiguous()
+    if shift is not None:
+        assert x.data_ptr() % 16 and y.data_ptr() % 16
+    yv = (torch.rand(p, generator=g, device=cuda_device) > 0.2).to(
+        torch.int32)
+    e2 = tnt.eps2_f32(eps)
+    assert bool((d2 == e2).any())
+    hit = d2 <= e2
+    want = hit & (yv != 0)[None, :]
+    before = (tnt.nng_tile_cuda.launches, eps_count_cuda.launches)
+    cnt, bits = tnt.nng_tile_cuda(x, y, yv, eps)
+    got = eps_count_cuda(x, y, eps)
+    assert (tnt.nng_tile_cuda.launches, eps_count_cuda.launches) == tuple(
+        c + 1 for c in before)
+    assert torch.equal(cnt, want.sum(1, dtype=torch.int32))
+    assert torch.equal(tnt.unpack_words(bits)[:, :p], want)
+    assert not tnt.unpack_words(bits)[:, p:].any()
+    assert torch.equal(got, hit.sum(1, dtype=torch.int32))
+
+
 @pytest.mark.gpu
 def test_distance_api_on_the_card(cuda_device):
     """The public wrappers launch the kernels for CUDA tensors and for
