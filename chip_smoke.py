@@ -11,13 +11,14 @@ each printed as it runs; any failed check raises and exits non-zero:
      (nvcc for sm_90a into build/repro_torch/, timed);
   2. each CUDA kernel against its plain PyTorch version on the card:
      ``nng_tile`` at 8192x8192x128 and two ragged shapes (bits equal except
-     at pairs whose float64 d² lies within 1e-4·eps² of eps²); ``nng_tile``
-     and ``eps_count`` (the pipelined core, ``csrc/l2_pipe.cuh``) bit for
-     bit against the hits of ``pairwise_sqdist`` (the core they replaced,
-     ``csrc/l2_tile.cuh``) at an eps exactly on a pair's fp32 d², on ragged
-     shapes, grids of fewer and of more tiles than resident blocks, and
-     rows that are not 16-byte aligned; ``bits_to_cols`` bit-identical on
-     random and real words at several k;
+     at pairs whose float64 d² lies within 1e-4·eps² of eps²); ``nng_tile``,
+     ``eps_count`` and ``pairwise_sqdist <= eps²`` (the pipelined core,
+     ``csrc/l2_pipe.cuh``) bit for bit against the hits of
+     ``nng_tile_grouped`` with one group and disjoint ids (still on the
+     core they replaced, ``csrc/l2_tile.cuh``) at an eps exactly on a
+     pair's fp32 d², on ragged shapes, grids of fewer and of more tiles
+     than resident blocks, and rows that are not 16-byte aligned;
+     ``bits_to_cols`` bit-identical on random and real words at several k;
   3. the main path: ``build_nng`` at the ``nng-sift-1m`` shape (n = 2^20,
      d = 128, euclidean; synthetic stand-in from seed 0) on 8 logical ranks,
      with both kernels' launch counts read from that run alone; then one
@@ -28,7 +29,8 @@ each printed as it runs; any failed check raises and exits non-zero:
      plain fp32 expansion on the card (off the knife edge, below);
   5. each kernel at the main path's inputs: its output against its plain
      version's (``nng_tile`` off the knife edge, and bit for bit against
-     the hits of ``pairwise_sqdist``; ``bits_to_cols`` bit-identical), and
+     the hits of ``pairwise_sqdist`` and of ``nng_tile_grouped``;
+     ``bits_to_cols`` bit-identical), and
      its time (CUDA events, median) beside its bound, its plain version's
      time and a library yardstick;
   6. the tree path on the same points: the forest built on the card, one
@@ -77,11 +79,20 @@ each printed as it runs; any failed check raises and exits non-zero:
  10. the ghost ring (``ghost_mode="ring"``: each rank's compacted block
      rotates with its Lemma-1 test as packed cell words) and the spatial
      tree flavour: the three ghost kernels against their plain versions on
-     ragged inputs with m = 32 and 70 cells and on disjoint cells (zero
-     words) [10a]; the ring call at n = 2^20 with its launches, the ghost
-     kernel against its plain version at rank 0's round-1 launch of that
-     call (captured from it), a profiled engine run, its graph against
-     [3]'s off the knife and the sampled rows against float64 [10b];
+     ragged inputs with m = 32, 40 and 70 cells, on disjoint cells and on
+     ghost bits only outside y's cells (zero words), on keys that
+     interleave in the caller's order and on fewer live tiles than
+     resident blocks; the L2 kernel (ghost row order, live-tile list) bit
+     for bit, in the caller's row order, against its plain version at a
+     gap-safe eps and against ``nng_tile_grouped``'s hits under the ghost
+     test [10a]; the ring call at n = 2^20 with its launches and counters
+     (equal to those printed before the ghost row order), the live pairs
+     of the L2 kernel's tiles beside the old 128 x 128 blocks', the ghost
+     kernel against its plain version (off the knife) and against
+     ``nng_tile_grouped``'s hits (bit for bit) at rank 0's round-1 launch
+     of that call (captured from it), a profiled engine run, its graph
+     against [3]'s off the knife and the sampled rows against float64
+     [10b];
      Hamming at the full [7] stand-in through the ring (or a printed cut
      when its id tables exceed TABLE_BUDGET), its graph equal to [7]'s bit
      for bit, its kernel at its own call's launch [10c]; L1 through the
@@ -93,20 +104,22 @@ each printed as it runs; any failed check raises and exits non-zero:
      each call [10e]; the three ghost kernels' times at their captured
      launches beside their bounds over the pairs the function needs (the
      live blocks' pairs printed beside), their plain versions' and the
-     library yardstick's [10f];
+     library yardstick's, and the L2 call's parts (row order and tile
+     list, gather, zeroed outputs, the launch) timed apart [10f];
  11. the distance-kernel API (the reference's ``repro.kernels``
      ``pairwise_sqdist``, ``pairwise_hamming``, ``eps_count``; no engine
      calls it): the three kernels against their plain versions and
      float64 on ragged shapes (d up to 700, w in 1, 3, 25, 26, q or p = 1),
-     and ``eps_count`` and ``nng_tile`` bit for bit against the hits of
-     ``pairwise_sqdist`` at an eps on a pair's fp32 d² [11a]; at the
+     and ``eps_count``, ``nng_tile`` and ``pairwise_sqdist`` bit for bit
+     against the hits of ``nng_tile_grouped`` at an eps on a pair's fp32
+     d² [11a]; at the
      reference micro-bench's 2048² shapes, timed [11b]; at full width
      through the public calls, with the launches read from those calls
      alone: 8192 of [3]'s points against one rank's block, 8192 of [7]'s
      word rows against all of them (an output past 2^31 elements, bit for
      bit), and [5]'s 131072² block counted (equal to ``nng_tile``'s cnt
-     and to the row sums of ``pairwise_sqdist``'s hits bit for bit, to the
-     plain version off the knife) [11c]; their times beside their bounds,
+     and to the row sums of ``nng_tile_grouped``'s hits bit for bit, to
+     the plain version off the knife) [11c]; their times beside their bounds,
      plain versions and library yardsticks [11d].
 
 Hamming distances are exact integers: no knife. Two fp32 L1 sums in
@@ -160,6 +173,11 @@ SP_K_CAP = 1024        # [9]: above [3]'s max degree 966, so no grow (a
                        # grow doubles every capacity of the plan too)
 HAM_SP_N = 131072      # [9e]: the Hamming depth cut (first rows of [7])
 TABLE_BUDGET = 32 << 30  # [9e], [10c]: all ranks' id tables on the card
+# [10b]: tiles_scheduled, tiles_skipped, dists_evaluated of the ring call as
+# the tree before the ghost kernel's row order (commit 5e86e38) printed
+# them; the counters come from the reference's block schedule, which no
+# kernel's order moves
+RING_COUNTERS = ("6083616", "2968997", "4.08239e+11")
 
 # H100 SXM data sheet: fp32 outside the tensor cores, HBM3 bandwidth
 PEAK_FP32 = 67e12
@@ -248,7 +266,9 @@ def main() -> int:
                                                    bits_to_cols_ref,
                                                    leaf_range_pack_cuda,
                                                    leaf_range_pack_ref)
-    from repro_torch.kernels.nng_tile import (eps2_f32, eps_int,
+    from repro_torch.kernels.nng_tile import (PIPE_TILE, eps2_f32, eps_int,
+                                              ghost_hit, ghost_launch,
+                                              ghost_tile_plan,
                                               hamming_dist, l1_dist,
                                               nng_tile_cuda,
                                               nng_tile_ghost_cuda,
@@ -332,26 +352,42 @@ def main() -> int:
                     return float(cand)
         return None
 
-    def old_core_check(label, x, y, yv, eps):
-        """nng_tile and eps_count (the pipelined core, l2_pipe.cuh) against
-        the hits of pairwise_sqdist (the core they replaced, l2_tile.cuh):
-        cnt and every bit of nng_tile equal those of
-        ``pairwise_sqdist_cuda(x, y) <= eps2_f32(eps)`` with y_valid
-        applied, and eps_count equals that row sum, bit for bit. Returns
-        the pairs exactly on eps2_f32(eps)."""
+    def anchor_hits(x, y, eps, yv=None):
+        """(cnt, bits) of nng_tile_grouped (l2_tile.cuh, the core the
+        pipelined one replaced) with every row in group 0 and disjoint x
+        and y ids: the d² <= eps2_f32(eps) hits of the old core, y rows
+        whose y_valid flag is 0 in group -1 (no hits)."""
         q, p = x.shape[0], y.shape[0]
+        i32 = dict(dtype=torch.int32, device=dev)
+        yg_ = (torch.zeros(p, **i32) if yv is None
+               else torch.where(yv != 0, 0, -1).to(torch.int32))
+        return nng_tile_grouped_cuda(
+            x, y, torch.zeros(q, **i32), yg_, torch.arange(q, **i32),
+            torch.arange(q, q + p, **i32), eps)
+
+    def old_core_check(label, x, y, yv, eps):
+        """nng_tile, eps_count and pairwise_sqdist (the pipelined core,
+        l2_pipe.cuh) against the old core's hits (``anchor_hits``), bit
+        for bit: nng_tile's cnt and words equal the anchor's with y_valid
+        applied; eps_count, and the row sums and hits of
+        ``pairwise_sqdist_cuda(x, y) <= eps2_f32(eps)``, equal its
+        all-valid ones. Returns the pairs exactly on eps2_f32(eps)."""
+        p = y.shape[0]
+        cnt_v, bits_v = anchor_hits(x, y, eps, yv)
+        cnt_a, bits_a = anchor_hits(x, y, eps)
+        cnt_k, bits_k = nng_tile_cuda(x, y, yv, eps)
+        cnt_e = eps_count_cuda(x, y, eps)
         d2 = pairwise_sqdist_cuda(x, y)
         e2 = eps2_f32(eps)
         hit = d2 <= e2
-        want = hit & (yv != 0)[None, :]
-        cnt_k, bits_k = nng_tile_cuda(x, y, yv, eps)
-        cnt_e = eps_count_cuda(x, y, eps)
-        check(torch.equal(cnt_k, want.sum(1, dtype=torch.int32))
-              and torch.equal(unpack_words(bits_k)[:, :p], want)
-              and not unpack_words(bits_k)[:, p:].any(),
-              f"{label}: nng_tile differs from pairwise_sqdist's hits")
-        check(torch.equal(cnt_e, hit.sum(1, dtype=torch.int32)),
-              f"{label}: eps_count differs from pairwise_sqdist's hits")
+        check(torch.equal(cnt_k, cnt_v) and torch.equal(bits_k, bits_v),
+              f"{label}: nng_tile differs from nng_tile_grouped's hits")
+        check(torch.equal(cnt_e, cnt_a),
+              f"{label}: eps_count differs from nng_tile_grouped's hits")
+        check(torch.equal(hit, unpack_words(bits_a)[:, :p])
+              and torch.equal(hit.sum(1, dtype=torch.int32), cnt_a),
+              f"{label}: pairwise_sqdist's hits differ from "
+              "nng_tile_grouped's")
         return int((d2 == e2).sum())
 
     def profiled_run(label, fn, what="engine run"):
@@ -639,8 +675,9 @@ def main() -> int:
         yv = (torch.rand(p, generator=gen2, device=dev) > 0.2).to(torch.int32)
         on_knife += old_core_check(f"[2] ({q},{p},{d}, {shift})", a, b, yv,
                                    eps)
-    print(f"[2] nng_tile and eps_count (l2_pipe.cuh) bit-identical to the "
-          f"hits of pairwise_sqdist (l2_tile.cuh) on {len(pipe_cases)} "
+    print(f"[2] nng_tile, eps_count and pairwise_sqdist <= eps² "
+          f"(l2_pipe.cuh) bit-identical to the hits of nng_tile_grouped "
+          f"(l2_tile.cuh, one group) on {len(pipe_cases)} "
           f"shapes (q, p in 1, 127, 129, 300, d in 1, 17, 700; 1 to 4096 "
           f"tiles against at most {2 * n_sm} resident blocks; rows off "
           f"16-byte alignment), eps on a pair's fp32 d² in each: "
@@ -764,21 +801,25 @@ def main() -> int:
                 torch.cat(tile_j), eps2)
     del x64, y64
     # the pipelined core against the one it replaced on the main path's
-    # tile, bit for bit: the hits of pairwise_sqdist (l2_tile.cuh), in row
-    # chunks; the row sums are [11c]'s for eps_count on the same inputs
-    old_cnt5 = torch.empty_like(cnt)
+    # tile, bit for bit: the hits of nng_tile_grouped (l2_tile.cuh, one
+    # group), and those of pairwise_sqdist (the pipelined core's dense
+    # store) in row chunks; the row sums are [11c]'s for eps_count on the
+    # same inputs
+    old_cnt5, old_bits5 = anchor_hits(x, y, EPS)
+    check(torch.equal(cnt, old_cnt5) and torch.equal(bits, old_bits5),
+          "[5] nng_tile differs from nng_tile_grouped's hits")
+    del old_bits5
     for r0 in range(0, n_loc, 8192):
         sl = slice(r0, r0 + 8192)
         hit = pairwise_sqdist_cuda(x[sl], y) <= eps2
-        old_cnt5[sl] = hit.sum(1, dtype=torch.int32)
-        check(torch.equal(bits[sl], pack_words(hit)),
-              f"[5] nng_tile's words differ from pairwise_sqdist's hits in "
+        check(torch.equal(bits[sl], pack_words(hit))
+              and torch.equal(old_cnt5[sl], hit.sum(1, dtype=torch.int32)),
+              f"[5] pairwise_sqdist's hits differ from nng_tile's words in "
               f"rows {r0}..{r0 + 8191}")
         del hit
-    check(torch.equal(cnt, old_cnt5), "[5] nng_tile's cnt differs from "
-                                      "pairwise_sqdist's hits")
     print(f"[5] nng_tile (l2_pipe.cuh) bit-identical to the hits of "
-          f"pairwise_sqdist (l2_tile.cuh) on the main path's tile: all "
+          f"nng_tile_grouped (l2_tile.cuh, one group) and of "
+          f"pairwise_sqdist (l2_pipe.cuh) on the main path's tile: all "
           f"{n_loc}x{w} words and {n_loc} counts")
     for r0 in range(0, n_loc, 4096):
         check(torch.equal(cols[r0:r0 + 4096],
@@ -1819,13 +1860,13 @@ def main() -> int:
             _pad_rows(xg, 128, -1)[0], _pad_rows(yg, 128, -1)[0], 128, 128),
             q_, p_)
 
-    def live_pairs_of(live, q_, p_):
-        """Pairs in the live blocks of a (q_, p_) tile's 128 x 128 map, and
-        those blocks' count."""
-        rq = torch.full((live.shape[0],), 128, device=dev)
-        rp = torch.full((live.shape[1],), 128, device=dev)
-        rq[-1] = q_ - 128 * (live.shape[0] - 1)
-        rp[-1] = p_ - 128 * (live.shape[1] - 1)
+    def live_pairs_of(live, q_, p_, tq=128, tp=128):
+        """Pairs in the live blocks of a (q_, p_) tile's (tq x tp) block
+        map, and those blocks' count."""
+        rq = torch.full((live.shape[0],), tq, device=dev)
+        rp = torch.full((live.shape[1],), tp, device=dev)
+        rq[-1] = q_ - tq * (live.shape[0] - 1)
+        rp[-1] = p_ - tp * (live.shape[1] - 1)
         return (int((live * rq[:, None] * rp[None, :]).sum()),
                 int(live.sum()))
 
@@ -1855,26 +1896,28 @@ def main() -> int:
                            rate, library, plain_ms, prep)
 
     def fused_times(label, ms, x, y, feat, need, what, pairs, blocks,
-                    nbytes, pair_ops, rate, library, plain_ms, prep):
+                    nbytes, pair_ops, rate, library, plain_ms, prep,
+                    tile=(128, 128)):
         """Print a grouped or ghost kernel's time ``ms`` beside its bound
         (``pair_ops`` operations for each of the ``need`` pairs the function
         needs at ``rate``, or ``nbytes`` at PEAK_BYTES), the same over the
-        ``pairs`` of the kernel's live blocks, its plain version's time and
-        the library call's on x and y in rows of 8192. Returns (ms, bound
-        ms, bound_by, library ms)."""
+        ``pairs`` of the kernel's live blocks (of ``tile`` rows x columns),
+        its plain version's time and the library call's on x and y in rows
+        of 8192. Returns (ms, bound ms, bound_by, library ms)."""
         q_, p_ = x.shape[0], y.shape[0]
         ops = pair_ops * need
         b_ops, b_bytes = ops / rate * 1e3, nbytes / PEAK_BYTES * 1e3
         b_live = pair_ops * pairs / rate * 1e3
         by = "operations" if b_ops >= b_bytes else "bytes"
         lib_ms = library_rows(library, prep(x), prep(y))
-        total = -(-q_ // 128) * -(-p_ // 128)
+        total = -(-q_ // tile[0]) * -(-p_ // tile[1])
         print(f"{label} ({q_}x{p_}x{feat}): {ms:.3f} ms median; bound "
               f"{max(b_ops, b_bytes):.3f} ms ({by}: {ops:.4g} operations of "
               f"the {need} {what} pairs the function needs at {rate:.4g}/s "
               f"= {b_ops:.3f} ms, {nbytes} bytes at {PEAK_BYTES / 1e12:g} "
               f"TB/s = {b_bytes:.3f} ms); {ops / ms / 1e9:.4g} T needed "
-              f"operations/s; {blocks} of {total} kernel blocks live, "
+              f"operations/s; {blocks} of {total} kernel blocks "
+              f"({tile[0]}x{tile[1]}) live, "
               f"{pairs} pairs in them ({pairs / max(need, 1):.3f}x the "
               f"needed pairs; {b_live:.3f} ms at {rate:.4g}/s); plain "
               f"version {plain_ms:.3f} ms (one run, row chunks); library "
@@ -2165,13 +2208,18 @@ def main() -> int:
               f"cells set ({gb.shape[1]} words a row)")
         return x, y, gb, yg, eps
 
-    def ghost_live(gb, yg):
-        """(pairs, blocks) in the ghost kernel's live 128 x 128 blocks (its
-        own block geometry and skip rule), and the pairs the function
-        needs: a row against a column of a cell in the row's ghost set."""
-        live = ghost_block_active(_pad_rows(gb, 128)[0],
-                                  _pad_rows(yg, 128, -1)[0], 128, 128)
-        pairs, blocks = live_pairs_of(live, gb.shape[0], yg.shape[0])
+    def ghost_live(gb, yg, ordered=False):
+        """(pairs, blocks) in a ghost kernel's live blocks, and the pairs
+        the function needs: a row against a column of a cell in the row's
+        ghost set. The block skip of the Hamming and L1 kernels (128 x 128
+        blocks in the caller's row order), or with ``ordered`` the L2
+        kernel's (PIPE_TILE tiles of the rows in ``ghost_row_order``, their
+        keys restricted to y's cells: ``ghost_tile_plan``'s list)."""
+        tq, tp = PIPE_TILE if ordered else (128, 128)
+        words = ghost_tile_plan(gb, yg)[1] if ordered else gb
+        live = ghost_block_active(_pad_rows(words, tq)[0],
+                                  _pad_rows(yg, tp, -1)[0], tq, tp)
+        pairs, blocks = live_pairs_of(live, gb.shape[0], yg.shape[0], tq, tp)
         xc = unpack_words(gb).sum(0)
         yc = torch.bincount(yg[yg >= 0].long(), minlength=xc.shape[0])
         return pairs, blocks, int((xc.long() * yc.long()).sum())
@@ -2186,12 +2234,14 @@ def main() -> int:
         kern = GHOST[metric][0]
         q_, p_ = x.shape[0], y.shape[0]
         ms = cuda_ms(torch, lambda: kern(x, y, gb, yg, eps), 5)
-        pairs, blocks, need = ghost_live(gb, yg)
+        l2 = metric == "euclidean"
+        pairs, blocks, need = ghost_live(gb, yg, ordered=l2)
         nbytes = 4 * ((q_ + p_) * feat + q_ * gb.shape[1] + p_ + q_
                       + q_ * -(-p_ // 32))
         return fused_times(label, ms, x, y, feat, need, "ghost-cell", pairs,
                            blocks, nbytes, pair_ops, rate, library,
-                           plain_ms, prep)
+                           plain_ms, prep,
+                           tile=PIPE_TILE if l2 else (128, 128))
 
     def spatial_tree_kernels(label, metric, kept):
         """The spatial tree path's traversal that ``rank0_launch`` kept,
@@ -2238,33 +2288,90 @@ def main() -> int:
     print(f"[10] the ghost ring (ghost_mode='ring') and the spatial tree "
           f"flavour; script wall {time.perf_counter() - t_start:.1f} s")
     # -- 10a. the ghost kernels against their plain versions ----------------
+    def ghost_anchor_check(label, x, y, gb, yg, eps, cnt, bits, rows=2048):
+        """The L2 ghost kernel's (cnt, bits), in x's row order, bit for bit
+        against the old core's d² hits (``anchor_hits``, row chunks) under
+        the plain version's ghost test (``ghost_hit``)."""
+        p_ = y.shape[0]
+        for r0 in range(0, x.shape[0], rows):
+            sl = slice(r0, r0 + rows)
+            _, hb = anchor_hits(x[sl], y, eps)
+            hit = ghost_hit(unpack_words(hb)[:, :p_], gb[sl], yg)
+            del hb
+            check(torch.equal(cnt[sl], hit.sum(1, dtype=torch.int32))
+                  and torch.equal(bits[sl], pack_words(
+                      torch.nn.functional.pad(hit, (0, -p_ % 32)))),
+                  f"{label}: differs from nng_tile_grouped's hits under the "
+                  f"ghost test in rows {r0}..{r0 + rows - 1}")
+            del hit
+
+    def gap_eps(x, y, gb, yg):
+        """An L2 eps at least 1e-4·eps from the float64 distance of every
+        pair the ghost function needs (no other pair can hit), so that no
+        fp32 evaluation order splits a pair: the widest gap within 0.2% of
+        those pairs around the first quantile in 0.05, 0.02, ... 0.001
+        that has one; any eps where no pair is needed."""
+        dd = torch.cdist(x.double(), y.double())
+        need = ghost_hit(torch.ones_like(dd, dtype=torch.bool), gb, yg)
+        dd = (dd[need] if bool(need.any()) else dd.flatten()).sort().values
+        if not bool(need.any()):
+            return float(dd[len(dd) // 20])
+        for quantile in (0.05, 0.02, 0.01, 0.005, 0.002, 0.001):
+            k = int(quantile * (len(dd) - 1))
+            w = max(len(dd) // 500, 8)
+            lo, hi = max(k - w, 0), min(k + w, len(dd) - 1)
+            j = lo + int((dd[lo + 1:hi + 1] - dd[lo:hi]).argmax())
+            eps = 0.5 * float(dd[j] + dd[j + 1])
+            if float((dd - eps).abs().min()) > 1e-4 * eps:
+                return eps
+        raise SmokeFailure("no gap-safe eps among the needed pairs")
+
     ghost_err = {m_: 0 for m_ in GHOST}
+    resident = 2 * n_sm
     for metric in GHOST:
         for q, p, d, m_, pattern in ((37, 64, 3, 32, "random"),
                                      (1000, 777, 25, 70, "random"),
                                      (600, 1200, 9, 70, "sorted"),
-                                     (300, 515, 40, 32, "disjoint")):
+                                     (300, 515, 40, 32, "disjoint"),
+                                     (700, 1500, 32, 32, "interleave"),
+                                     (500, 900, 16, 32, "zero"),
+                                     (1000, 2000, 24, 40, "sorted"),
+                                     (3000, 6000, 16, 32, "sparse")):
             if metric == "hamming":
                 x, y = (torch.from_numpy(rng.integers(
                     -2**31, 2**31, size=(r_, d)).astype(np.int32)).to(dev)
                     for r_ in (q, p))
-                eps = float(torch.quantile(hamming_dist(x, y).flatten()
-                                           .float(), 0.05)) + 0.5
+                eps = float(torch.quantile(hamming_dist(x, y).flatten()[
+                    :1 << 24].float(), 0.05)) + 0.5
             else:
                 x, y = (torch.from_numpy(rng.normal(size=(r_, d)).astype(
                     np.float32)).to(dev) for r_ in (q, p))
-                dd = torch.cdist(x, y, p=1 if metric == "manhattan" else 2)
-                eps = float(torch.quantile(dd.flatten(), 0.05))
+                eps = float(torch.quantile(torch.cdist(
+                    x, y, p=1 if metric == "manhattan" else 2).flatten()[
+                        :1 << 24], 0.05))
+            sets = np.zeros((q, m_), bool)
             if pattern == "random":
                 yg = rng.integers(-1, m_, size=p)
                 sets = rng.random((q, m_)) < 0.3
-            elif pattern == "sorted":
+            elif pattern in ("sorted", "interleave", "sparse"):
+                # the engine's cell-sorted W, trailing padding
                 yg = np.sort(rng.integers(0, m_, size=p))
                 yg[p - p // 17:] = -1
-                sets = np.zeros((q, m_), bool)
                 for i_ in range(q):
-                    sets[i_, np.clip(i_ * m_ // q + rng.integers(-2, 3, 3),
-                                     0, m_ - 1)] = True
+                    if pattern == "sorted":
+                        near = i_ * m_ // q + rng.integers(-2, 3, 3)
+                    elif pattern == "interleave":     # keys alternate
+                        near = np.array([7 * i_, 7 * i_ + 1]) % m_
+                    else:         # a few rows with one cell: few live tiles
+                        near = rng.integers(0, m_, 1) if i_ % 150 == 0 \
+                            else np.zeros(0, np.int64)
+                    sets[i_, np.clip(near, 0, m_ - 1)] = True
+            elif pattern == "zero":
+                # ghost bits only on cells y lacks, inside y's cell range:
+                # every key is zero, though the words are not
+                yg = 2 * rng.integers(0, m_ // 2, size=p)
+                sets = rng.random((q, m_)) < 0.3
+                sets[:, ::2] = False
             else:
                 yg = rng.integers(m_ // 2, m_, size=p)
                 sets = rng.random((q, m_)) < 0.3
@@ -2272,14 +2379,37 @@ def main() -> int:
             gb = pack_words(torch.nn.functional.pad(
                 torch.from_numpy(sets), (0, -m_ % 32)).to(dev))
             yg = torch.from_numpy(yg.astype(np.int32)).to(dev)
-            cnt, bits, _, e_ = ghost_vs_plain(
-                f"[10a] {GHOST[metric][0].__name__[:-5]} {pattern} "
-                f"({q},{p},{d}) m={m_}", metric, x, y, gb, yg, eps)
+            if metric == "euclidean":
+                eps = gap_eps(x, y, gb, yg)
+            label = (f"[10a] {GHOST[metric][0].__name__[:-5]} {pattern} "
+                     f"({q},{p},{d}) m={m_}")
+            cnt, bits, _, e_ = ghost_vs_plain(label, metric, x, y, gb, yg,
+                                              eps)
             ghost_err[metric] = max(ghost_err[metric], e_)
-            if pattern == "disjoint":
+            if pattern in ("disjoint", "zero"):
                 check(not bits.any() and not cnt.any(),
-                      f"[10a] {metric}: disjoint ghost cells set a word")
-    print("[10a] every disjoint case stored zero words")
+                      f"[10a] {metric}: {pattern} ghost cells set a word")
+            if metric == "euclidean":
+                # bit for bit: the plain version (a gap-safe eps), and the
+                # old core's hits under the ghost test
+                yp, ygp = _pad_rows(y, 32)[0], _pad_rows(yg, 32, -1)[0]
+                c0, b0 = GHOST[metric][1](x, yp, gb, ygp, eps)
+                check(torch.equal(cnt, c0) and torch.equal(
+                    bits, b0[:, :bits.shape[1]]),
+                      f"{label}: differs from its plain version")
+                ghost_anchor_check(label, x, y, gb, yg, eps, cnt, bits)
+                live_t = int(ghost_tile_plan(gb, yg)[3][0])
+                n_t = -(-q // PIPE_TILE[0]) * -(-p // PIPE_TILE[1])
+                print(f"    {label}: bit-identical to its plain version and "
+                      f"to nng_tile_grouped's hits under the ghost test; "
+                      f"{live_t} of {n_t} tiles live (the ghost order), "
+                      f"{resident} resident blocks")
+                if pattern == "sparse":
+                    check(0 < live_t < resident, f"{label}: {live_t} live "
+                          f"tiles, not fewer than {resident} blocks")
+                if pattern in ("disjoint", "zero"):
+                    check(live_t == 0, f"{label}: {live_t} live tiles")
+    print("[10a] every disjoint and zero-key case stored zero words")
     torch.cuda.empty_cache()
     print(f"[10a] script wall {time.perf_counter() - t_start:.1f} s")
 
@@ -2290,16 +2420,36 @@ def main() -> int:
     ring_tables("[10b]", gr.meta["plan"], SP_K_CAP)
     l2_launch = ring_launch("[10b] nng_tile_ghost", kept)
     del kept
+    counters = (f"{gr.stats.tiles_scheduled:.0f}",
+                f"{gr.stats.tiles_skipped:.0f}",
+                f"{gr.stats.dists_evaluated:.6g}")
+    print(f"[10b] tiles_scheduled, tiles_skipped, dists_evaluated "
+          f"{counters}; as printed by the single-tile ghost kernel's tree "
+          f"on this call: {RING_COUNTERS}")
+    check(counters == RING_COUNTERS, "[10b] the ring's counters moved")
+    old_p, old_b, need_p = ghost_live(*l2_launch[2:4])
+    new_p, new_b, _ = ghost_live(*l2_launch[2:4], ordered=True)
+    print(f"[10b] rank 0's round-1 launch: {need_p} pairs needed; the live "
+          f"{PIPE_TILE[0]}x{PIPE_TILE[1]} tiles of the ghost row order "
+          f"({new_b} of them) hold {new_p} pairs, {new_p / need_p:.4f}x; "
+          f"the live 128x128 blocks of the caller's order ({old_b}) "
+          f"{old_p}, {old_p / need_p:.4f}x")
     print(f"[10b] nng_tile_ghost launches on this call: "
           f"{r_launches['nng_tile_ghost']}; dists_evaluated "
           f"{gr.stats.dists_evaluated:.6g} against the collective exchange's "
           f"{coll_stats.dists_evaluated:.6g} ([9b]); comm_bytes ghost_ring "
           f"{gr.stats.comm_bytes['ghost_ring']:.6g} against ghost "
           f"{coll_stats.comm_bytes['ghost']:.6g}")
-    _, _, gl2_plain_ms, e_ = ghost_vs_plain(
+    gc_, gbits_, gl2_plain_ms, e_ = ghost_vs_plain(
         "[10b] nng_tile_ghost at rank 0's round-1 launch", "euclidean",
         *l2_launch)
     ghost_err["euclidean"] = max(ghost_err["euclidean"], e_)
+    ghost_anchor_check("[10b] nng_tile_ghost at rank 0's round-1 launch",
+                       *l2_launch, gc_, gbits_)
+    print("[10b] nng_tile_ghost at rank 0's round-1 launch bit-identical, "
+          "in every count and word, to nng_tile_grouped's hits (one group) "
+          "under the plain version's ghost test")
+    del gc_, gbits_
     eng_r = SpatialPartitionEngine(pts, EPS, mesh, "euclidean",
                                    k_cap=SP_K_CAP, ghost_mode="ring")
     out, _ = profiled_run("[10b]", lambda: eng_r.run(gr.meta["plan"]))
@@ -2435,6 +2585,34 @@ def main() -> int:
         "[10f] nng_tile_ghost at rank 0's round-1 launch", "euclidean",
         l2_launch, DIM, 2 * DIM, PEAK_FP32, lambda a, b: torch.mm(a, b.T),
         gl2_plain_ms)
+    # the L2 call's parts: the row order and live-tile list, the gathered
+    # x, the zeroed outputs, and the kernel's launch alone (its norm
+    # pre-pass and the live tiles)
+    x_, y_, gb_, yg_, eps_ = l2_launch
+    q_, p_ = x_.shape[0], y_.shape[0]
+    plan_ms = cuda_ms(torch, lambda: ghost_tile_plan(gb_, yg_), 5)
+    rows_, keys_, tiles_, count_ = ghost_tile_plan(gb_, yg_)
+    gather_ms = cuda_ms(torch, lambda: x_[rows_], 5)
+    zero_ms = cuda_ms(torch, lambda: (
+        torch.zeros(q_, dtype=torch.int32, device=dev),
+        torch.zeros((q_, -(-p_ // 32)), dtype=torch.int32, device=dev)), 5)
+    xs_, r32_ = x_[rows_], rows_.to(torch.int32)
+    c_ = torch.zeros(q_, dtype=torch.int32, device=dev)
+    b_ = torch.zeros((q_, -(-p_ // 32)), dtype=torch.int32, device=dev)
+    kern_ms = cuda_ms(torch, lambda: ghost_launch(
+        xs_, y_, keys_, yg_, r32_, tiles_, count_, eps_, c_, b_), 5)
+    live_p, live_b, need_p = ghost_live(gb_, yg_, ordered=True)
+    print(f"[10f] nng_tile_ghost's parts at that launch: row order and "
+          f"live-tile list {plan_ms:.3f} ms, x gathered {gather_ms:.3f} ms, "
+          f"cnt and bits zeroed {zero_ms:.3f} ms, the kernel's launch (norm "
+          f"pre-pass and {int(count_[0])} live tiles of {tiles_.numel()}) "
+          f"{kern_ms:.3f} ms against {gt_l2[0]:.3f} ms for the call; "
+          f"bound over the needed pairs {gt_l2[1]:.3f} ms, over the live "
+          f"tiles' {live_p} pairs ({live_p / need_p:.4f}x) "
+          f"{2 * DIM * live_p / PEAK_FP32 * 1e3:.3f} ms ({gt_l2[2]}); "
+          f"library {gt_l2[3]:.3f} ms; {r_launches['nng_tile_ghost']} "
+          f"launches on the ring call ([10b]), 1 a call")
+    del x_, y_, gb_, yg_, rows_, keys_, tiles_, count_, xs_, r32_, c_, b_
     gt_h = ghost_times(
         "[10f] nng_tile_ghost_hamming at rank 0's round-1 launch", "hamming",
         h_launch, HW, HW, popc_rate, lambda a, b: torch.cdist(a, b, p=0),
@@ -2546,7 +2724,8 @@ def main() -> int:
         print(f"[11a] pairwise_sqdist ({q},{p},{d}): max |diff| {e_p:.4g} "
               f"vs plain, {e_64:.4g} vs float64, within the bound; eps_count "
               f"at eps {eps_r:.6g} equal to nng_tile's cnt; at eps {eps_k:.9g} "
-              f"both equal pairwise_sqdist's hits (pairs on eps²: {on_k})")
+              f"nng_tile, eps_count and pairwise_sqdist equal "
+              f"nng_tile_grouped's hits (pairs on eps²: {on_k})")
     for q, p, w in ((1, 1, 1), (1, 300, 3), (300, 1, 25), (127, 129, 26),
                     (129, 127, 1), (300, 300, 25), (1000, 777, 26)):
         a = torch.randint(-2**31, 2**31, (q, w), generator=gen11,
@@ -2666,13 +2845,14 @@ def main() -> int:
     check(torch.equal(cnt_full, cnt_tile), "[11c] eps_count differs from "
                                            "nng_tile's cnt")
     check(torch.equal(cnt_full, old_cnt5), "[11c] eps_count differs from "
-                                           "pairwise_sqdist's hits ([5])")
+                                           "nng_tile_grouped's hits ([5])")
     cnt_plain, eps_plain_ms = events_ms(
         torch, lambda: eps_count_plain(ex, ey, EPS))
     eps_err = count_knife_check("[11c] eps_count vs plain", cnt_full,
                                 cnt_plain, ex, ey, eps2)
     print(f"[11c] eps_count equal to nng_tile's cnt and to the row sums of "
-          f"pairwise_sqdist's hits on all {n_loc} rows "
+          f"nng_tile_grouped's and pairwise_sqdist's hits on all {n_loc} "
+          f"rows "
           f"({int(cnt_full.sum())} pairs)")
     del cnt_tile, cnt_plain, cnt_full, old_cnt5
 

@@ -3,11 +3,16 @@
 from another source tree, each on one launch of the ghost ring.
 
     python3 ghost_ab.py OTHER [--metric all] [--rounds 4] [--reps 9]
+    python3 ghost_ab.py --ratios [--device cpu]
 
 OTHER is the root of another checkout, or of an unpacked ``git archive``
 of one. Its ``src/repro_torch/kernels/csrc/nng_tile_ghost*.cu`` (with its
 own headers) are compiled with this checkout's nvcc flags into
-``build/ab/``; their C entry points must take this checkout's arguments.
+``build/ab/``; their C entry points take this checkout's arguments, or,
+for the L2 kernel, those of the single-tile kernel before the row order
+and the live-tile list (x, y, ghost words, y cells, cnt, bits, q, p, d,
+mw, eps², stream: every tile of the caller's order), which this script
+then calls with the launch's own operands.
 
 A metric's launch is rank 0's round-1 block-against-W launch of
 ``build_nng(partition="spatial", ghost_mode="ring")`` on 8 logical ranks
@@ -22,8 +27,20 @@ from the call as the second launch against the first launch's W:
 
 Both builds run on the same inputs, in the order this, other, other, this
 each round, and their outputs must be equal. Prints each time (CUDA
-events, median of ``--reps`` after a warm-up), the card's name and power
-limit, and a last line of JSON. Needs one CUDA card.
+events, median of ``--reps`` after a warm-up; this checkout's L2 time is
+its wrapper's, the row order, live-tile list and zeroed outputs
+included), the card's name and power limit, and a last line of JSON.
+Needs one CUDA card.
+
+``--ratios`` builds no kernel and evaluates no distance: it plans the
+euclidean ring of [10b] (the device planner, the exchange and each
+rank's ring block on ``--device``, the card by default) and, for every
+launch of one engine run (36 on 8 ranks; the call runs the engine twice),
+prints the pairs the function needs (a row against a column of one of
+its ghost cells), the pairs of the live 128 x 128 blocks in the caller's
+row order (the single-tile kernel's skip) and of the live 64 x 256 tiles
+in ``ghost_row_order`` (this checkout's kernel), for rank 0's round-1
+launch and summed over the run.
 """
 from __future__ import annotations
 
@@ -39,6 +56,10 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 NRANKS, SEED = 8, 0
+# the single-tile L2 ghost kernel's C arguments (x, y, ghost words, y cells,
+# cnt, bits, q, p, d, mw, eps², stream)
+SINGLE = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 4 + (ctypes.c_float,
+                                                         ctypes.c_void_p)
 # metric -> (kernel library, eps, k_cap), as chip_smoke.py's [10b]-[10d]
 CASES = {"euclidean": ("nng_tile_ghost", 2.98, 1024),
          "hamming": ("nng_tile_ghost_hamming", 40.0, 3072),
@@ -61,13 +82,106 @@ def median_ms(torch, fn, reps):
     return statistics.median(times)
 
 
+def live_pairs(torch, live, q, p, tq, tp):
+    """Pairs of a (q, p) output in the live blocks of its (tq, tp) block
+    map ``live`` (ragged edge blocks count their own rows and columns)."""
+    rq = torch.full((live.shape[0],), tq, device=live.device)
+    rp = torch.full((live.shape[1],), tp, device=live.device)
+    rq[-1] = q - tq * (live.shape[0] - 1)
+    rp[-1] = p - tp * (live.shape[1] - 1)
+    return int((live * rq[:, None] * rp[None, :]).sum())
+
+
+def ratios(device: str) -> int:
+    """The --ratios mode (see the module's docstring)."""
+    import torch
+    sys.path.insert(0, str(HERE / "src"))
+    from repro_torch.core.distributed import device as tdev
+    from repro_torch.core.distributed import make_nng_mesh
+    from repro_torch.core.metrics import get_metric
+    from repro_torch.data import synthetic_pointset
+    from repro_torch.kernels import nng_tile as nt
+    from repro_torch.kernels.ops import _pad_rows, ghost_block_active
+    from repro_torch.nng import SpatialPartitionEngine
+
+    _, eps, k_cap = CASES["euclidean"]
+    met = get_metric("euclidean")
+    mesh = make_nng_mesh(NRANKS, device=device)
+    pts = synthetic_pointset(1 << 20, 128, seed=SEED)
+    t0 = time.perf_counter()
+    eng = SpatialPartitionEngine(pts, eps, mesh, "euclidean", k_cap=k_cap,
+                                 ghost_mode="ring")
+    plan = eng.initial_plan()
+    x = eng.points
+    bufs, dropped = tdev._landmark_exchange(
+        list(x.chunk(NRANKS)), list(torch.arange(
+            x.shape[0], dtype=torch.int32, device=x.device).chunk(NRANKS)),
+        eng.centers, torch.as_tensor(eng.f, dtype=torch.int64,
+                                     device=x.device),
+        nranks=NRANKS, two_eps_c=2.0 * eps, metric=met, plan=plan,
+        ghost_mode="ring")
+    if bool(dropped.any()):
+        print("ghost_ab: the plan dropped rows", file=sys.stderr)
+        return 1
+    blks = [tdev.ring_block(W, Wids, Wgrp, eng.centers, eps=eps, metric=met,
+                            cap_rank=plan.cap_rank)
+            for W, Wids, Wgrp in bufs]
+    print(f"ghost_ab: [10b]'s ring on {device}: {plan} planned and "
+          f"exchanged in {time.perf_counter() - t0:.3f} s")
+    tq, tp = nt.PIPE_TILE
+    rounds = NRANKS // 2
+    total = {"need": 0, "old": 0, "new": 0}
+    launches = 0
+    for r in range(rounds + 1):
+        for me in range(NRANKS):
+            if (r == rounds and rounds > 0 and NRANKS % 2 == 0
+                    and not me < (me + rounds) % NRANKS):
+                continue
+            gb = blks[(me + r) % NRANKS][2]
+            yg = bufs[me][2]
+            q, p = gb.shape[0], yg.shape[0]
+            xc = nt.unpack_words(gb).sum(0).long()
+            yc = torch.bincount(yg[yg >= 0].long(), minlength=xc.shape[0])
+            need = int((xc * yc).sum())
+            old = live_pairs(torch, ghost_block_active(
+                _pad_rows(gb, 128)[0], _pad_rows(yg, 128, -1)[0], 128, 128),
+                q, p, 128, 128)
+            _, keys, _, _ = nt.ghost_tile_plan(gb, yg)
+            new = live_pairs(torch, ghost_block_active(
+                _pad_rows(keys, tq)[0], _pad_rows(yg, tp, -1)[0], tq, tp),
+                q, p, tq, tp)
+            for k, v in (("need", need), ("old", old), ("new", new)):
+                total[k] += v
+            launches += 1
+            if (me, r) == (0, 1):
+                print(f"ghost_ab: rank 0's round-1 launch ({q} x {p}): "
+                      f"{need} needed pairs; live 128 x 128 blocks in the "
+                      f"caller's order {old} pairs ({old / need:.4f}x); "
+                      f"live {tq} x {tp} tiles in the ghost order {new} "
+                      f"pairs ({new / need:.4f}x)")
+    print(f"ghost_ab: all {launches} launches of one engine run: "
+          f"{total['need']} needed pairs; live 128 x 128 blocks in the "
+          f"caller's order {total['old']} pairs "
+          f"({total['old'] / total['need']:.4f}x); live {tq} x {tp} tiles "
+          f"in the ghost order {total['new']} pairs "
+          f"({total['new'] / total['need']:.4f}x)")
+    print(json.dumps({"launches": launches, **total}))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("other", type=Path)
+    ap.add_argument("other", type=Path, nargs="?")
     ap.add_argument("--metric", choices=[*CASES, "all"], default="all")
     ap.add_argument("--rounds", type=int, default=4)
     ap.add_argument("--reps", type=int, default=9)
+    ap.add_argument("--ratios", action="store_true")
+    ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
+    if args.ratios:
+        return ratios(args.device)
+    if args.other is None:
+        ap.error("OTHER is required without --ratios")
     import torch
     if not torch.cuda.is_available():
         print("ghost_ab: no CUDA device", file=sys.stderr)
@@ -101,22 +215,43 @@ def main() -> int:
             print(f"ghost_ab: nvcc failed for {metric}:\n{log}",
                   file=sys.stderr)
             return 1
-        symbol, argtypes = _build._ENTRY[CASES[metric][0]]
+        lib = CASES[metric][0]
+        symbol, argtypes = _build._ENTRY[lib]
+        if metric == "euclidean" and "int sms" not in (
+                csrc / f"{lib}.cu").read_text():
+            argtypes = SINGLE
         fn = getattr(ctypes.CDLL(str(so)), symbol)
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
         other_fn[metric] = fn
         so.unlink()
 
     def other(metric, x, y, gb, yg, eps):
+        """The other build on the launch's operands: the single-tile
+        argument list as it is (it stores every word), this checkout's
+        through its own wrapper's plan (nng_tile_ghost_cuda's body)."""
+        fn = other_fn[metric]
         q, d = x.shape
         p = y.shape[0]
+        stream = torch.cuda.current_stream().cuda_stream
         cnt = torch.zeros(q, dtype=torch.int32, device=x.device)
-        bits = torch.empty((q, -(-p // 32)), dtype=torch.int32,
-                           device=x.device)
-        code = other_fn[metric](
-            x.data_ptr(), y.data_ptr(), gb.data_ptr(), yg.data_ptr(),
-            cnt.data_ptr(), bits.data_ptr(), q, p, d, gb.shape[1],
-            thr[metric](eps), torch.cuda.current_stream().cuda_stream)
+        if tuple(fn.argtypes) == SINGLE or metric != "euclidean":
+            bits = torch.empty((q, -(-p // 32)), dtype=torch.int32,
+                               device=x.device)
+            code = fn(x.data_ptr(), y.data_ptr(), gb.data_ptr(),
+                      yg.data_ptr(), cnt.data_ptr(), bits.data_ptr(), q, p,
+                      d, gb.shape[1], thr[metric](eps), stream)
+        else:
+            # nng_tile_ghost_cuda's body, with the other build's entry
+            bits = torch.zeros((q, -(-p // 32)), dtype=torch.int32,
+                               device=x.device)
+            rows, keys, tiles, count = nt.ghost_tile_plan(gb, yg)
+            xs, rows32 = x[rows], rows.to(torch.int32)
+            xsq, ysq = nt.row_norm_scratch(q, p, x.device)
+            code = fn(xs.data_ptr(), y.data_ptr(), keys.data_ptr(),
+                      yg.data_ptr(), rows32.data_ptr(), tiles.data_ptr(),
+                      count.data_ptr(), cnt.data_ptr(), bits.data_ptr(),
+                      xsq.data_ptr(), ysq.data_ptr(), q, p, d, keys.shape[1],
+                      thr[metric](eps), nt.sm_count(x.device.index), stream)
         _build.check(f"other {CASES[metric][0]}", code)
         return cnt, bits
 

@@ -34,6 +34,15 @@ one address (a broadcast), or each lane from its own (16 bytes apart),
 or 4-byte broadcasts, and prints the loads an SM completes a clock (at
 the SM clock sampled during the run).
 
+With OTHER it also builds both trees' ``pairwise_sqdist.cu`` and holds
+this checkout's output to the other's element for element, bit for bit
+(as int32 patterns), on the distance-kernel API's ragged shapes (chip_smoke
+[11a]: q, p in 1, 127, 129, 300, 1000 and d in 1, 17, 700) and at its full
+width ([11d]: the first 8192 points of ``synthetic_pointset(2^20, 128,
+seed=0)`` against rows 131072..262143); the other's entry point may take
+the single-launch arguments (x, y, out, q, p, d, stream). At full width
+both are timed in turns beside ``torch.mm``.
+
 For every library built it prints ptxas's registers and spills and, from
 ``cuobjdump -sass``, its main loop (the backward branch holding the most
 FFMA) as counts of instructions, FFMA and shared loads, and the distance in
@@ -119,7 +128,12 @@ LDS_MODES = ("LDS.128 broadcast", "LDS.128 a lane", "LDS.32 broadcast")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SINGLE = {"nng_tile": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
-          "eps_count": (_P, _P, _P, _I, _I, _I, _F, _P)}
+          "eps_count": (_P, _P, _P, _I, _I, _I, _F, _P),
+          "pairwise_sqdist": (_P, _P, _P, _I, _I, _I, _P)}
+# chip_smoke.py [11a]'s ragged shapes and [11d]'s full width
+SQ_SHAPES = ((1, 1, 1), (1, 300, 17), (300, 1, 700), (127, 129, 700),
+             (129, 127, 1), (300, 300, 17), (1000, 777, 700))
+SQ_ROWS, SQ_BLOCK = 8192, 131072
 
 
 def median_ms(torch, fn, reps):
@@ -193,6 +207,65 @@ def loop_stats(text: str) -> dict:
             "lds_to_use_min": min(dists) if dists else None}
 
 
+def pairwise_vs_other(torch, fns, record, dev, sms, reps):
+    """This checkout's pairwise_sqdist against the other tree's, bit for
+    bit, at SQ_SHAPES and at full width; both timed at full width."""
+    from repro_torch.data import synthetic_pointset
+
+    def run(name, x, y):
+        fn = fns[(name, "pairwise_sqdist")]
+        (q, d), p = x.shape, y.shape[0]
+        out = torch.empty((q, p), device=dev)
+        stream = torch.cuda.current_stream().cuda_stream
+        if tuple(fn.argtypes) == SINGLE["pairwise_sqdist"]:
+            code = fn(x.data_ptr(), y.data_ptr(), out.data_ptr(), q, p, d,
+                      stream)
+        else:
+            xsq, ysq = torch.empty(q, device=dev), torch.empty(p, device=dev)
+            code = fn(x.data_ptr(), y.data_ptr(), out.data_ptr(),
+                      xsq.data_ptr(), ysq.data_ptr(), q, p, d, sms, stream)
+        if code != 0:
+            raise RuntimeError(f"{name} pairwise_sqdist: CUDA error {code}")
+        return out
+
+    def same(label, x, y):
+        a, b = run("base", x, y), run("other", x, y)
+        if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+            raise RuntimeError(f"pairwise_sqdist {label}: this tree's "
+                               "output differs from the other's")
+        return a.numel()
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    n_el = 0
+    for q, p, d in SQ_SHAPES:
+        x = torch.randn(q, d, generator=gen, device=dev)
+        y = torch.randn(p, d, generator=gen, device=dev) + 0.5
+        n_el += same(f"({q},{p},{d})", x, y)
+    pts = torch.from_numpy(synthetic_pointset(1 << 20, DIM, seed=SEED))
+    x = pts[:SQ_ROWS].to(dev)
+    y = pts[SQ_BLOCK:2 * SQ_BLOCK].to(dev)
+    del pts
+    n_full = same("full width", x, y)
+    print(f"pairwise_sqdist: this tree bit-identical to the other's on "
+          f"{len(SQ_SHAPES)} ragged shapes ({n_el} elements) and at full "
+          f"width ({SQ_ROWS}x{SQ_BLOCK}x{DIM}, {n_full} elements)")
+    times = {"this": [], "other": [], "torch.mm": []}
+    for _ in range(2):
+        for name in ("base", "other", "other", "base"):
+            times["this" if name == "base" else "other"].append(median_ms(
+                torch, lambda: run(name, x, y), reps))
+        times["torch.mm"].append(median_ms(torch, lambda: torch.mm(x, y.T),
+                                           reps))
+    record["pairwise_sqdist"] = {"equal_elements": n_el + n_full}
+    for key, ts in times.items():
+        med = statistics.median(ts)
+        record["pairwise_sqdist"][key] = {"median_ms": med, "ms": ts}
+        print(f"pairwise_sqdist {key} ({SQ_ROWS}x{SQ_BLOCK}x{DIM}): "
+              f"{' '.join(f'{t:.3f}' for t in ts)} ms; median {med:.3f} ms")
+    del x, y
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("other", type=Path, nargs="?")
@@ -243,7 +316,8 @@ def main() -> int:
         stderr=subprocess.STDOUT, text=True)
     procs = {}
     for name, d in trees.items():
-        for lib in LIBS:
+        extra = ("pairwise_sqdist",) if name in ("base", "other") else ()
+        for lib in LIBS + extra:
             so = out / f"{name}-{lib}.so"
             procs[(name, lib)] = (subprocess.Popen(
                 [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
@@ -301,6 +375,8 @@ def main() -> int:
             raise RuntimeError(f"{name} {lib}: CUDA error {code}")
         return cnt
 
+    if "other" in trees:
+        pairwise_vs_other(torch, fns, record, dev, sms, args.reps)
     ref = launch("base", "eps_count")
     for lib in LIBS:
         # (no_* variants and other_no_epi compute wrong counts: timed only)

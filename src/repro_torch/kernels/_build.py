@@ -50,7 +50,8 @@ _ENTRY = {
                             (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
                              _P)),
     "nng_tile_ghost": ("nng_tile_ghost_launch",
-                       (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P)),
+                       (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                        _I, _I, _F, _I, _P)),
     "nng_tile_ghost_hamming": ("nng_tile_ghost_hamming_launch",
                                (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                 _P)),
@@ -67,7 +68,7 @@ _ENTRY = {
     "leaf_range_pack": ("leaf_range_pack_launch",
                         (_P, _LL, _P, _P, _P, _P, _I, _I, _P)),
     "pairwise_sqdist": ("pairwise_sqdist_launch",
-                        (_P, _P, _P, _I, _I, _I, _P)),
+                        (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P)),
     "pairwise_hamming": ("pairwise_hamming_launch",
                          (_P, _P, _P, _I, _I, _I, _P)),
     "eps_count": ("eps_count_launch",

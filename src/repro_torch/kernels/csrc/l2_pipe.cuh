@@ -1,9 +1,9 @@
-// The pipelined fp32 L2 product core of nng_tile.cu and eps_count.cu.
+// The pipelined fp32 L2 product core of nng_tile.cu, eps_count.cu,
+// pairwise_sqdist.cu and nng_tile_ghost.cu.
 //
 // Same function and same arithmetic as l2_tile.cuh's products and d2, so a
 // pair's d2 here is bit-identical to the one that the kernels still on
-// l2_tile.cuh compute (nng_tile_grouped, nng_tile_ghost, tree_frontier,
-// pairwise_sqdist):
+// l2_tile.cuh compute (nng_tile_grouped, tree_frontier):
 //   - each pair's product is one fmaf chain over k = 0, 1, ..., d - 1 in
 //     ascending order from 0.f (no split-K, no second accumulator);
 //   - each row norm is one fmaf(v, v, .) chain in the same order;
@@ -21,7 +21,10 @@
 //     SM run out of step, so one's epilogue overlaps the other's FMAs;
 //   - a persistent grid: as many blocks as fit on the card at once (the
 //     occupancy times the SM count), each walking tiles t = blockIdx.x,
-//     + gridDim.x, ... of the output row after row;
+//     + gridDim.x, ... of the output row after row, or of a list of tile
+//     indices in the same numbering whose length the block reads from
+//     device memory (a launch whose live tiles are found on the card, with
+//     no host sync: nng_tile_ghost.cu; blocks past the count exit);
 //   - the block's (tile, 32-feature chunk) pairs form one stream, loaded
 //     STAGES - 1 chunks ahead into a ring of stages in dynamic shared
 //     memory, so the next tile's first chunk loads while this tile ends
@@ -37,7 +40,10 @@
 //     row that is not valid gets a NaN norm, so its d2 never passes.
 // The epilogue's layout is tile_io.cuh's: warp w owns rows [16w, 16w + 16)
 // of the tile and lane l columns l + 32 j, so a __ballot_sync over the warp
-// packs 32 consecutive columns of one row into a word.
+// packs 32 consecutive columns of one row into a word. The epilogue stores
+// where it likes: a kernel whose x is a gathered copy x[rows] (contiguous
+// and 16-byte aligned, so the TMA path applies) stores tile row i's
+// results at row rows[i] of its output.
 #pragma once
 
 #include <cuda.h>
@@ -253,13 +259,24 @@ struct Maps {
 // tensor maps if TMA, else 4-byte copies from x, y, xn and yn. Must be
 // launched with PTHREADS threads and SMEM_BYTES of dynamic shared memory;
 // every thread of the block calls it.
-template <bool TMA, class Epi>
+//
+// The tiles: without LIST, every tile of the (q, p) output, numbered row
+// after row (t = (m0 / PM) * nt + n0 / PN); with LIST, entries
+// 0 .. *count - 1 of the int32 tile list `list` in that numbering (the
+// walk then skips the tiles the list leaves out; both pointers are read on
+// the device). The implicit walk compiles to the same code as before the
+// list existed: LIST is a template parameter.
+template <bool TMA, bool LIST = false, class Epi>
 __device__ __forceinline__ void run(const Maps& maps,
                                     const float* __restrict__ x,
                                     const float* __restrict__ y,
                                     const float* __restrict__ xn,
                                     const float* __restrict__ yn, int q,
-                                    int p, int d, Epi&& epi) {
+                                    int p, int d, Epi&& epi,
+                                    const int32_t* __restrict__ list =
+                                        nullptr,
+                                    const int32_t* __restrict__ count =
+                                        nullptr) {
   extern __shared__ unsigned char smem_raw[];
   // offset from the array itself, so that the compiler keeps these
   // pointers in shared memory (LDS, not generic loads)
@@ -272,8 +289,13 @@ __device__ __forceinline__ void run(const Maps& maps,
   const int mt = (q + PM - 1) / PM;
   const int nt = (p + PN - 1) / PN;
   const int nk = (d + BK - 1) / BK;
-  const long long tiles = static_cast<long long>(mt) * nt;
+  const long long tiles =
+      LIST ? static_cast<long long>(*count) : static_cast<long long>(mt) * nt;
   const long long step = gridDim.x;
+  // walk entry t -> its tile's first row and column
+  auto origin = [&](long long t, int& m0, int& n0) {
+    tile_origin(LIST ? static_cast<long long>(list[t]) : t, nt, m0, n0);
+  };
 
   if (TMA) {
     if (tid == 0) {
@@ -287,7 +309,7 @@ __device__ __forceinline__ void run(const Maps& maps,
   // tile's first chunk also brings its norms, into norms[tile parity]
   long long pt = blockIdx.x;
   int pk = 0, pm0 = 0, pn0 = 0, ptile = 0;
-  if (pt < tiles) tile_origin(pt, nt, pm0, pn0);
+  if (pt < tiles) origin(pt, pm0, pn0);
   auto issue = [&](int slot) {
     if (pt < tiles) {
       const unsigned dst = smem_addr(&ring[slot]);
@@ -317,7 +339,7 @@ __device__ __forceinline__ void run(const Maps& maps,
         pk = 0;
         ++ptile;
         pt += step;
-        if (pt < tiles) tile_origin(pt, nt, pm0, pn0);
+        if (pt < tiles) origin(pt, pm0, pn0);
       }
     }
     if (!TMA) cp_async_commit();   // an empty group past the end
@@ -328,7 +350,7 @@ __device__ __forceinline__ void run(const Maps& maps,
   // the math side: the (tile, chunk) being summed
   long long ct = blockIdx.x;
   int ck = 0, cm0 = 0, cn0 = 0;
-  if (ct < tiles) tile_origin(ct, nt, cm0, cn0);
+  if (ct < tiles) origin(ct, cm0, cn0);
   float acc[TM][PTN];
 #pragma unroll
   for (int i = 0; i < TM; ++i)
@@ -362,7 +384,7 @@ __device__ __forceinline__ void run(const Maps& maps,
         for (int j = 0; j < PTN; ++j) acc[i][j] = 0.f;
       ck = 0;
       ct += step;
-      if (ct < tiles) tile_origin(ct, nt, cm0, cn0);
+      if (ct < tiles) origin(ct, cm0, cn0);
     }
   }
   if (!TMA) cp_async_wait<0>();

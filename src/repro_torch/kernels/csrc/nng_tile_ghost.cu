@@ -1,8 +1,9 @@
 // Ghost fp32 L2 ε-tile: the landmark engine's ghost-ring tile.
 //
-// Replaces: nng_tile_ghost_pallas (src/repro/kernels/nng_tile.py), the TPU
-// kernel that the landmark engine's ghost ring (ghost_mode="ring",
-// Algorithms 5+6) runs for each visiting block against the local cells.
+// Replaces: nng_tile_ghost_pallas (src/repro/kernels/nng_tile.py, its
+// pallas_call at :647), the TPU kernel that the landmark engine's ghost
+// ring (ghost_mode="ring", Algorithms 5+6) runs for each visiting block
+// against the local cells.
 //
 // Computes, for x (q, d), y (p, d) fp32, x ghost words gb (q, mw) (bit c of
 // word c / 32: row i is a Lemma-1 ghost of cell c) and y cells yg (p,)
@@ -12,88 +13,145 @@
 //   bits[i][j / 32] bit (j % 32) = hit,   cnt[i] += popcount of row i's words.
 // A row's own cell bit is never set, so no id test is needed.
 //
-// What bounds it on an H100: operations. A live 128 x 128 block does
-// 2·128·128·d fp32 flops and moves (128 + 128)·d·4 bytes in; the masks out
-// are q·p/8 bytes for the whole tile. The arithmetic is IEEE fp32 on the
-// CUDA cores, so the ceiling is their fp32 FMA rate over the pairs the
-// function needs: a row against a column of one of its ghost cells. A live
-// block computes all its pairs, which may be many more than that; a skipped
-// block costs its prologue and its zero words.
+// What bounds it on an H100: operations, over the pairs the function needs
+// (a row against a column of one of its ghost cells: on the ring's launches
+// about a tenth of all pairs); what a launch costs is the pairs of the
+// tiles it computes. The arithmetic is IEEE fp32 on the CUDA cores, so the
+// ceiling is their fp32 FMA rate.
 //
-// What the simple design does about it: nng_tile.cu's block (l2_tile.cuh's
-// products, tile_io.cuh's __ballot_sync epilogue) behind tile_io.cuh's
-// ghost prologue. The TPU folds the bit lookup into a one-hot MXU product;
-// here each live pair tests one bit of its row's words, read from device
-// memory. Callers sort y by cell, so a block whose rows have no ghost bit
-// in its y cell range writes zero words and skips the distance loop. The
-// engine's tiles_scheduled / tiles_skipped counters come from
-// ops.ghost_block_active at the reference's own tile geometry.
-#include "l2_tile.cuh"
+// What the design does about it. The wrapper (kernels/nng_tile.py,
+// nng_tile_ghost_cuda), on the card with no host sync: each row's key is
+// its ghost words restricted to the cells of y (this launch's local
+// cells); the rows are ordered by key (equal keys together, zero keys
+// last) and x gathered in that order; the 64 x 256 tiles where some
+// row's key has a bit in the tile's [min, max] y-cell range are listed,
+// the live ones first, their count a device scalar; cnt and bits are
+// zeroed. Callers sort y by cell, so a live tile's rows mostly want its
+// columns. Here: l2_pipe.cuh's core (persistent grid, TMA-fed ring, 16 x 8
+// register tiles, row norms summed once) walks the live tiles only, and
+// the epilogue tests each pair's cell bit against its row's key (one
+// register when mw == 1) before tile_io.cuh's __ballot_sync packing, and
+// stores each word and count at the row's place in the caller's order
+// (rows[i]). Dead tiles store nothing: their words stay zero. The per-pair
+// arithmetic is l2_tile.cuh's, bit for bit. The engine's tiles_scheduled /
+// tiles_skipped counters come from ops.ghost_block_active at the
+// reference's own tile geometry and row order, not from this launch.
+#include "l2_pipe.cuh"
 
 namespace {
 
-using namespace l2tile;
+using namespace l2pipe;
 
-__global__ void __launch_bounds__(THREADS, 2)
-nng_tile_ghost_kernel(const float* __restrict__ x,
+template <bool TMA, bool ONE_WORD>
+__global__ void __launch_bounds__(PTHREADS, 2)
+nng_tile_ghost_kernel(const __grid_constant__ Maps maps,
+                      const float* __restrict__ x,
                       const float* __restrict__ y,
-                      const uint32_t* __restrict__ gb,
+                      const uint32_t* __restrict__ keys,
                       const int32_t* __restrict__ yg,
-                      int32_t* __restrict__ cnt,
-                      uint32_t* __restrict__ bits, int q, int p, int d,
+                      const int32_t* __restrict__ rows,
+                      const int32_t* __restrict__ tiles,
+                      const int32_t* __restrict__ ntiles,
+                      int32_t* __restrict__ cnt, uint32_t* __restrict__ bits,
+                      const float* __restrict__ xsq,
+                      const float* __restrict__ ysq, int q, int p, int d,
                       int mw, int nw, float eps2) {
-  __shared__ Smem s;
-  __shared__ Ghost g;
-
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-  const int w0 = n0 >> 5;
-
-  if (!stage_ghost(gb, yg, q, p, mw, m0, n0, g)) {
-    zero_words(q, nw, m0, w0, bits);
-    return;
-  }
-
-  float acc[TM][TN];
-  products(x, y, q, p, d, m0, n0, s, acc);
-
-  float yn[TN];
+  run<TMA, true>(
+      maps, x, y, xsq, ysq, q, p, d,
+      [&](int m0, int n0, const float (&acc)[TM][PTN], const float* xnorm,
+          const float* ynorm) {
+        // column j's cell as a bit of its key word (0: padding or past p,
+        // never a hit) and, for mw > 1, that word's index
+        float yn[PTN];
+        uint32_t cb[PTN];
+        int cw[PTN];
 #pragma unroll
-  for (int j = 0; j < TN; ++j) yn[j] = s.ynorm[lane + 32 * j];
+        for (int j = 0; j < PTN; ++j) {
+          const int col = n0 + lane + 32 * j;
+          const int32_t c = col < p ? yg[col] : -1;
+          yn[j] = ynorm[lane + 32 * j];
+          cb[j] = c >= 0 ? 1u << (c & 31) : 0u;
+          cw[j] = c >= 0 ? c >> 5 : 0;
+        }
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = warp * TM + i;
-    const bool in = m0 + r < q;
-    const uint32_t* xw = gb + (size_t)(m0 + r) * mw;
-    const float xn = s.xnorm[r];
-    bool hit[TN];
+        for (int i = 0; i < TM; ++i) {
+          const int r = m0 + warp * TM + i;
+          const bool in = r < q;
+          const float xn = xnorm[warp * TM + i];
+          const uint32_t* kr = keys + (size_t)r * mw;
+          const uint32_t key = ONE_WORD && in ? kr[0] : 0u;
+          // the row's PTN words, n0 / 32 onwards: lane j keeps word j
+          uint32_t mine = 0u;
+          int rc = 0;
 #pragma unroll
-    for (int j = 0; j < TN; ++j)
-      hit[j] = in && ghost_bit(g, xw, lane + 32 * j) &&
-               l2tile::d2(xn, yn[j], acc[i][j]) <= eps2;
-    store_hits(hit, m0 + r, q, w0, nw, bits, cnt);
-  }
+          for (int j = 0; j < PTN; ++j) {
+            const uint32_t k = ONE_WORD ? key : (in ? kr[cw[j]] : 0u);
+            const unsigned word = __ballot_sync(
+                FULL, (k & cb[j]) != 0u &&
+                          l2tile::d2(xn, yn[j], acc[i][j]) <= eps2);
+            if (lane == j) mine = word;
+            rc += __popc(word);
+          }
+          if (in) {
+            const int orow = rows[r];
+            const int w = (n0 >> 5) + lane;
+            if (lane < PTN && w < nw) bits[(size_t)orow * nw + w] = mine;
+            if (lane == 0 && rc != 0) atomicAdd(&cnt[orow], rc);
+          }
+        }
+      },
+      tiles, ntiles);
+}
+
+template <bool TMA>
+int launch(bool one_word, const void* x, const void* y, const void* keys,
+           const void* yg, const void* rows, const void* tiles,
+           const void* ntiles, void* cnt, void* bits, void* xsq, void* ysq,
+           int q, int p, int d, int mw, float eps2, int sms,
+           cudaStream_t st) {
+  const auto kernel = one_word ? nng_tile_ghost_kernel<TMA, true>
+                               : nng_tile_ghost_kernel<TMA, false>;
+  Maps maps{};
+  int blocks = 0;
+  const int e = prepare(kernel, TMA, x, y, nullptr, xsq, ysq, q, p, d, sms,
+                        st, maps, blocks);
+  if (e != 0) return e;
+  kernel<<<blocks, PTHREADS, SMEM_BYTES, st>>>(
+      maps, static_cast<const float*>(x), static_cast<const float*>(y),
+      static_cast<const uint32_t*>(keys), static_cast<const int32_t*>(yg),
+      static_cast<const int32_t*>(rows), static_cast<const int32_t*>(tiles),
+      static_cast<const int32_t*>(ntiles), static_cast<int32_t*>(cnt),
+      static_cast<uint32_t*>(bits), static_cast<const float*>(xsq),
+      static_cast<const float*>(ysq), q, p, d, mw, (p + 31) / 32, eps2);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// cnt (q,) must be zero on entry; bits is (q, nw) with nw = ceil(p / 32),
-// every word of which is stored. Launches on `stream` and returns
-// cudaGetLastError() (0 on success).
+// x (q, d) is the visiting rows in key order (x[rows]); keys (q, mw) their
+// keys in the same order; rows (q,) int32 each one's row in the caller's
+// order, where cnt (q,) and bits (q, nw), nw = ceil(p / 32), are indexed
+// and must be zero on entry. tiles is the list of 64 x 256 tile indices
+// (row after row over the (q, p) output), the live ones first, and
+// ntiles a one-element int32 device count of them. xsq (q,) and ysq (p,)
+// are 16-byte aligned fp32 scratch for the rows' norms (written here
+// first); sms is the device's SM count. Launches on `stream` and returns
+// a CUDA error code: the tensor maps', shared-memory opt-in's or occupancy
+// query's, else cudaGetLastError() of the launches (0 on success).
 extern "C" int nng_tile_ghost_launch(const void* x, const void* y,
-                                     const void* gb, const void* yg,
-                                     void* cnt, void* bits, int q, int p,
-                                     int d, int mw, float eps2,
-                                     void* stream) {
-  const int nw = (p + 31) / 32;
-  const dim3 grid((p + BN - 1) / BN, (q + BM - 1) / BM);
-  nng_tile_ghost_kernel<<<grid, THREADS, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(y),
-      static_cast<const uint32_t*>(gb), static_cast<const int32_t*>(yg),
-      static_cast<int32_t*>(cnt), static_cast<uint32_t*>(bits), q, p, d, mw,
-      nw, eps2);
-  return static_cast<int>(cudaGetLastError());
+                                     const void* keys, const void* yg,
+                                     const void* rows, const void* tiles,
+                                     const void* ntiles, void* cnt,
+                                     void* bits, void* xsq, void* ysq, int q,
+                                     int p, int d, int mw, float eps2,
+                                     int sms, void* stream) {
+  const auto st = static_cast<cudaStream_t>(stream);
+  return tma_ok(x, y, d)
+             ? launch<true>(mw == 1, x, y, keys, yg, rows, tiles, ntiles,
+                            cnt, bits, xsq, ysq, q, p, d, mw, eps2, sms, st)
+             : launch<false>(mw == 1, x, y, keys, yg, rows, tiles, ntiles,
+                             cnt, bits, xsq, ysq, q, p, d, mw, eps2, sms,
+                             st);
 }

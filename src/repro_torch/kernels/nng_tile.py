@@ -38,7 +38,9 @@ Lemma-1 ghost cells as packed words (``x_gbits``, (q, ceil(m/32)), the
 threshold and bit ``y_group[j]`` of row i's words is set (``ghost_hit``).
 A row's own cell bit is never set, so no id test is needed. The kernels
 skip the distances of a block where no row has a bit in the block's y
-cell range and store zero words there.
+cell range and store zero words there; the L2 one first orders the rows
+by their ghost cells among y's (``ghost_row_order``) and walks a list of
+the live tiles only (``ghost_tile_plan``), storing in the caller's order.
 """
 from __future__ import annotations
 
@@ -362,7 +364,8 @@ def nng_tile_cuda(x, y, y_valid, eps: float):
     int32). Any q, p and d, and any 4-byte aligned x and y (a row slice
     too): the kernel masks ragged edges, and bits past column p - 1 are
     zero. One launch of a persistent grid (``csrc/l2_pipe.cuh``), whose
-    d² are those of the kernels on ``csrc/l2_tile.cuh`` bit for bit."""
+    d² are those of the kernels on ``csrc/l2_tile.cuh`` (the grouped
+    ones) bit for bit."""
     cnt, bits, launched = _launch_tile("nng_tile", x, y,
                                        (("y_valid", y_valid, "p"),),
                                        torch.float32, eps2_f32(eps),
@@ -430,18 +433,128 @@ def nng_tile_grouped_l1_cuda(x, y, xg, yg, xid, yid, eps: float):
     return cnt, bits
 
 
+# the tile of the pipelined L2 core (csrc/l2_pipe.cuh): query rows x
+# candidate columns
+PIPE_TILE = (64, 256)
+
+
+def ghost_local_keys(x_gbits, y_group):
+    """Each row's ghost words restricted to the cells that occur in
+    ``y_group`` (>= 0): (q, mw) int32, the words a ghost tile against those
+    rows can use. A launch's local cells are its rank's, so the keys are
+    computed per launch."""
+    mw = x_gbits.shape[1]
+    # a count of each cell's columns (index_add_: no host sync, unlike a
+    # boolean mask's nonzero)
+    seen = torch.zeros(mw * 32, dtype=torch.int32, device=x_gbits.device)
+    seen.index_add_(0, y_group.clamp_min(0).long(),
+                    (y_group >= 0).to(torch.int32))
+    return x_gbits & pack_words((seen > 0)[None])
+
+
+def _key_order(key):
+    """The stable order of (q, mw) int32 keys: the zero keys last, the
+    others ascending as unsigned numbers with word 0 the most significant
+    (stable argsorts over the words, the last word first, so any mw
+    works; word 0's pass carries the zero flag above its 32 bits). Rows
+    with equal keys end up contiguous."""
+    order = torch.arange(key.shape[0], device=key.device)
+    zero = (key == 0).all(1).to(torch.int64) << 32
+    for w in reversed(range(key.shape[1])):
+        word = key[order, w].to(torch.int64) & 0xFFFFFFFF
+        if w == 0:
+            word |= zero[order]
+        order = order[torch.argsort(word, stable=True)]
+    return order
+
+
+def ghost_row_order(x_gbits, y_group):
+    """The ghost L2 kernel's row order for one launch: a permutation
+    (q,) int64 of x's rows that sorts them by ``ghost_local_keys`` (equal
+    keys contiguous, rows with no local ghost cell last). Against y sorted
+    by cell, a 64-row tile of that order then has ghost bits in few y
+    tiles' cell ranges, so most tiles are dead."""
+    return _key_order(ghost_local_keys(x_gbits, y_group))
+
+
+def ghost_tile_plan(x_gbits, y_group):
+    """What the ghost L2 kernel's launch needs besides x and y, all on
+    x_gbits' device and without a host sync: (rows (q,) int64, the
+    ``ghost_row_order``; keys (q, mw) int32, the local keys in that order;
+    tiles (T,) int32, the ``PIPE_TILE`` tiles of the (q, p) output
+    numbered row after row, the live ones first (``ops.ghost_block_active``
+    at that geometry on the ordered keys: some row has a key bit inside
+    the tile's valid y-cell range); count (1,) int32, the live ones)."""
+    from .ops import _pad_rows, ghost_block_active   # ops imports this
+    tq, tp = PIPE_TILE
+    key = ghost_local_keys(x_gbits, y_group)
+    rows = _key_order(key)
+    keys = key[rows].contiguous()
+    live = ghost_block_active(_pad_rows(keys, tq)[0],
+                              _pad_rows(y_group, tp, -1)[0], tq,
+                              tp).reshape(-1)
+    # a stable partition by scatter: live tile t goes to the live tiles
+    # before it, dead tile t after all live ones and the dead before it
+    n = live.shape[0]
+    ramp = torch.arange(1, n + 1, dtype=torch.int32, device=live.device)
+    n_live = torch.cumsum(live, 0, dtype=torch.int32)
+    count = n_live[-1:]
+    pos = torch.where(live, n_live, count + ramp - n_live) - 1
+    tiles = torch.empty_like(ramp).scatter_(0, pos.long(), ramp - 1)
+    return rows, keys, tiles, count
+
+
 def nng_tile_ghost_cuda(x, y, x_gbits, y_group, eps: float):
     """The ghost L2 CUDA kernel: x (q, d), y (p, d) fp32, x_gbits (q, mw)
     int32 words (any mw), y_group (p,) int32, all contiguous on one CUDA
     device -> (cnt (q,) int32, bits (q, ceil(p/32)) int32), the function of
-    ``nng_tile_ghost_ref``. Any q, p and d: the kernel masks ragged edges,
-    and bits past column p - 1 are zero."""
-    cnt, bits, launched = _launch_tile("nng_tile_ghost", x, y,
-                                       (("y_group", y_group, "p"),),
-                                       torch.float32, eps2_f32(eps),
-                                       gbits=x_gbits)
-    nng_tile_ghost_cuda.launches += launched
+    ``nng_tile_ghost_ref``, in x's row order. Any q, p and d: the kernel
+    masks ragged edges, and bits past column p - 1 are zero.
+
+    One launch of a persistent grid (``csrc/l2_pipe.cuh``) over the live
+    tiles of ``ghost_tile_plan`` on x gathered in ``ghost_row_order``; the
+    words of dead tiles stay zero. Its d² are those of ``nng_tile_cuda``
+    bit for bit."""
+    fn = "nng_tile_ghost_cuda"
+    check_operands(fn, ("x", x, torch.float32, 2),
+                   ("y", y, torch.float32, 2),
+                   ("x_gbits", x_gbits, torch.int32, 2),
+                   ("y_group", y_group, torch.int32, 1))
+    (q, d), p = x.shape, y.shape[0]
+    if y.shape[1] != d or x_gbits.shape[0] != q or y_group.shape[0] != p:
+        raise ValueError(f"{fn}: shapes x {tuple(x.shape)}, y "
+                         f"{tuple(y.shape)}, x_gbits "
+                         f"{tuple(x_gbits.shape)}, y_group "
+                         f"{tuple(y_group.shape)}")
+    cnt = torch.zeros(q, dtype=torch.int32, device=x.device)
+    bits = torch.zeros((q, -(-p // 32)), dtype=torch.int32, device=x.device)
+    if q == 0 or p == 0:
+        return cnt, bits
+    rows, keys, tiles, count = ghost_tile_plan(x_gbits, y_group)
+    ghost_launch(x[rows], y, keys, y_group, rows.to(torch.int32), tiles,
+                 count, eps, cnt, bits)
     return cnt, bits
+
+
+def ghost_launch(xs, y, keys, y_group, rows, tiles, count, eps: float, cnt,
+                 bits) -> None:
+    """The ghost L2 kernel's launch alone, on ``ghost_tile_plan``'s
+    operands: xs = x[rows] contiguous, keys, rows as int32, the tile list
+    and its count; adds the live tiles' hits to cnt and stores their words
+    in bits, both in x's row order (zero where no live tile stores)."""
+    q, d = xs.shape
+    p = y.shape[0]
+    xsq, ysq = row_norm_scratch(q, p, xs.device)
+    launch = _build.entry("nng_tile_ghost")
+    with torch.cuda.device(xs.device):
+        code = launch(xs.data_ptr(), y.data_ptr(), keys.data_ptr(),
+                      y_group.data_ptr(), rows.data_ptr(), tiles.data_ptr(),
+                      count.data_ptr(), cnt.data_ptr(), bits.data_ptr(),
+                      xsq.data_ptr(), ysq.data_ptr(), q, p, d, keys.shape[1],
+                      eps2_f32(eps), sm_count(xs.device.index),
+                      torch.cuda.current_stream().cuda_stream)
+    _build.check("nng_tile_ghost", code)
+    nng_tile_ghost_cuda.launches += 1
 
 
 def nng_tile_ghost_hamming_cuda(x, y, x_gbits, y_group, eps: float):

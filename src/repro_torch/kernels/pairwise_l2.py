@@ -7,34 +7,45 @@ max((‖x‖² + ‖y‖²) − 2x·y, 0). Its plain version is
 ``ref.pairwise_sqdist_blas3_ref``, the same expansion summed in torch's
 order.
 
-The kernel shares ``l2_tile.cuh`` with ``nng_tile``, so its d² are the
-values that tile thresholds. The TPU kernel's 512-feature steps, which
-added each step's partial norms after its product, are not carried over:
-for d <= 512 the two agree up to the order of the product's and the norms'
-sums, and past 512 the partial norms round differently too. Either way
-two evaluations of an element differ by at most about
-2·(d + 2)·u·(‖x‖² + ‖y‖²), u = 2⁻²⁴.
+The kernel runs on the pipelined core of ``nng_tile`` (``l2_pipe.cuh``),
+so its d² are the values that tile thresholds. The TPU kernel's
+512-feature steps, which added each step's partial norms after its
+product, are not carried over: for d <= 512 the two agree up to the order
+of the product's and the norms' sums, and past 512 the partial norms
+round differently too. Either way two evaluations of an element differ by
+at most about 2·(d + 2)·u·(‖x‖² + ‖y‖²), u = 2⁻²⁴.
 """
 from __future__ import annotations
 
 import torch
 
-from .nng_tile import check_operands, launch_row_chunks
+from . import _build
+from .nng_tile import check_operands, row_norm_scratch, sm_count
 
 
 def pairwise_sqdist_cuda(x, y) -> torch.Tensor:
     """The CUDA kernel: x (q, d), y (p, d) contiguous fp32 on one CUDA
     device -> (q, p) fp32 squared distances, clamped to >= 0. Any q, p
-    and d: the kernel masks ragged edges."""
+    and d, and any 4-byte aligned x and y: the kernel masks ragged edges.
+    One launch of a persistent grid (``csrc/l2_pipe.cuh``) for any q."""
     check_operands("pairwise_sqdist_cuda", ("x", x, torch.float32, 2),
                    ("y", y, torch.float32, 2))
-    if y.shape[1] != x.shape[1]:
+    (q, d), p = x.shape, y.shape[0]
+    if y.shape[1] != d:
         raise ValueError(f"pairwise_sqdist_cuda: shapes x {tuple(x.shape)}, "
                          f"y {tuple(y.shape)}")
-    out = torch.empty((x.shape[0], y.shape[0]), dtype=torch.float32,
-                      device=x.device)
-    pairwise_sqdist_cuda.launches += launch_row_chunks("pairwise_sqdist", x,
-                                                       y, out)
+    out = torch.empty((q, p), dtype=torch.float32, device=x.device)
+    if q == 0 or p == 0:
+        return out
+    launch = _build.entry("pairwise_sqdist")
+    xsq, ysq = row_norm_scratch(q, p, x.device)
+    with torch.cuda.device(x.device):
+        code = launch(x.data_ptr(), y.data_ptr(), out.data_ptr(),
+                      xsq.data_ptr(), ysq.data_ptr(), q, p, d,
+                      sm_count(x.device.index),
+                      torch.cuda.current_stream().cuda_stream)
+    _build.check("pairwise_sqdist", code)
+    pairwise_sqdist_cuda.launches += 1
     return out
 
 

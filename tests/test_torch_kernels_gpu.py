@@ -398,7 +398,12 @@ def ghost_case(metric, q, p, d, m, seed, pattern="random"):
     of density 0.3; "sorted" y cells ascending with trailing padding, as
     the engine's cell-sorted W, and x sets of 1-3 cells near row i's
     share of the cells (i·m/q), so that row blocks see few cells; "disjoint" y cells in [m/2, m) and x sets inside [0, m/2), so no block
-    is live.
+    is live; "interleave" sorted y and row i's cells {7i, 7i + 1} mod m,
+    so that equal sets interleave in x's order; "zero" y cells even and
+    x sets odd, so no row has a bit among y's cells though its words are
+    set inside y's cell range; "sparse" sorted y and three cells on every
+    20th row only, so that the L2 kernel's ghost order leaves fewer live
+    tiles than resident blocks.
     Points and eps as ``grouped_case``."""
     x, y, _, eps = tile_case(metric, q, p, d, seed)
     if metric != "hamming" and q * p < 20_000:
@@ -407,13 +412,24 @@ def ghost_case(metric, q, p, d, m, seed, pattern="random"):
     if pattern == "random":
         yg = rng.integers(-1, m, size=p)
         sets = rng.random((q, m)) < 0.3
-    elif pattern == "sorted":
+    elif pattern in ("sorted", "interleave", "sparse"):
         yg = np.sort(rng.integers(0, m, size=p))
         yg[p - p // 17:] = -1
         sets = np.zeros((q, m), bool)
         for i in range(q):
-            near = i * m // q + rng.integers(-2, 3, size=rng.integers(1, 4))
+            if pattern == "sorted":
+                near = i * m // q + rng.integers(-2, 3,
+                                                 size=rng.integers(1, 4))
+            elif pattern == "interleave":
+                near = np.array([7 * i, 7 * i + 1]) % m
+            else:
+                near = (rng.integers(0, m, 3) if i % 20 == 0
+                        else np.zeros(0, np.int64))
             sets[i, np.clip(near, 0, m - 1)] = True
+    elif pattern == "zero":
+        yg = 2 * rng.integers(0, m // 2, size=p)
+        sets = rng.random((q, m)) < 0.3
+        sets[:, ::2] = False
     else:
         yg = rng.integers(m // 2, m, size=p)
         sets = rng.random((q, m)) < 0.3
@@ -432,12 +448,16 @@ GHOST_KERNELS = {"euclidean": tnt.nng_tile_ghost_cuda,
 @pytest.mark.parametrize("q,p,d,m,pattern", [
     (37, 64, 3, 32, "random"), (1000, 777, 25, 70, "random"),
     (512, 1024, 128, 32, "sorted"), (600, 1200, 9, 70, "sorted"),
-    (300, 515, 40, 70, "disjoint"), (260, 300, 7, 2000, "random")])
+    (300, 515, 40, 70, "disjoint"), (260, 300, 7, 2000, "random"),
+    (700, 1500, 32, 32, "interleave"), (500, 900, 16, 32, "zero"),
+    (400, 1500, 64, 40, "sorted"), (300, 600, 24, 32, "sparse")])
 def test_ghost_tile_cuda_matches_plain(cuda_device, metric, q, p, d, m,
                                        pattern):
     """Hamming bit for bit; L2 and L1 off the knife (gap-safe eps). m = 32
-    is one ghost word a row, 70 three and 2000 sixty-three. The
-    all-disjoint pattern stores zero words everywhere."""
+    is one ghost word a row, 40 two, 70 three and 2000 sixty-three. The
+    all-disjoint and zero-key patterns store zero words everywhere; the
+    L2 kernel's rows are reordered inside the launch, its outputs are in
+    the caller's order."""
     x, y, gb, yg, eps = ghost_case(metric, q, p, d, m, q + d, pattern)
     args = [as_words(a) for a in (x, y, gb, yg)]
     kern = GHOST_KERNELS[metric]
@@ -447,7 +467,7 @@ def test_ghost_tile_cuda_matches_plain(cuda_device, metric, q, p, d, m,
     rc, rb, _, _ = tops.nng_tile_bits_ghost(*args, eps, metric=metric)
     assert torch.equal(cnt.cpu(), rc)
     assert torch.equal(bits.cpu(), rb)
-    if pattern == "disjoint":
+    if pattern in ("disjoint", "zero"):
         assert not bits.any() and not cnt.any()
     else:
         assert int(rc.sum()) > 0
@@ -607,10 +627,12 @@ L2_PIPE_CASES = ([(q, p, d, None) for q, p in RAGGED_QP for d in (1, 17, 700)]
 @pytest.mark.gpu
 @pytest.mark.parametrize("q,p,d,shift", L2_PIPE_CASES)
 def test_l2_pipe_kernels_equal_old_core(cuda_device, q, p, d, shift):
-    """nng_tile and eps_count (``csrc/l2_pipe.cuh``) equal, bit for bit,
-    the hits of ``pairwise_sqdist_cuda(x, y) <= eps2_f32(eps)`` (still on
-    ``csrc/l2_tile.cuh``) at an eps exactly on one pair's fp32 d², with
-    y_valid applied: the two cores' per-pair arithmetic is the same."""
+    """nng_tile, eps_count and ``pairwise_sqdist_cuda(x, y) <=
+    eps2_f32(eps)`` (``csrc/l2_pipe.cuh``) equal, bit for bit, the hits of
+    ``nng_tile_grouped_cuda`` with every row in group 0 and disjoint ids
+    (still on ``csrc/l2_tile.cuh``) at an eps exactly on one pair's fp32
+    d², nng_tile's with y_valid applied (rows with y_valid 0 in group
+    -1): the two cores' per-pair arithmetic is the same."""
     g = torch.Generator(device=cuda_device).manual_seed(7 * q + p + d)
 
     def operand(rows):
@@ -634,17 +656,22 @@ def test_l2_pipe_kernels_equal_old_core(cuda_device, q, p, d, shift):
         torch.int32)
     e2 = tnt.eps2_f32(eps)
     assert bool((d2 == e2).any())
-    hit = d2 <= e2
-    want = hit & (yv != 0)[None, :]
+    i32 = dict(dtype=torch.int32, device=cuda_device)
+    xg, xid = torch.zeros(q, **i32), torch.arange(q, **i32)
+    yid = torch.arange(q, q + p, **i32)
+    cnt_a, bits_a = tnt.nng_tile_grouped_cuda(
+        x, y, xg, torch.zeros(p, **i32), xid, yid, eps)
+    cnt_v, bits_v = tnt.nng_tile_grouped_cuda(
+        x, y, xg, torch.where(yv != 0, 0, -1).to(torch.int32), xid, yid, eps)
     before = (tnt.nng_tile_cuda.launches, eps_count_cuda.launches)
     cnt, bits = tnt.nng_tile_cuda(x, y, yv, eps)
     got = eps_count_cuda(x, y, eps)
     assert (tnt.nng_tile_cuda.launches, eps_count_cuda.launches) == tuple(
         c + 1 for c in before)
-    assert torch.equal(cnt, want.sum(1, dtype=torch.int32))
-    assert torch.equal(tnt.unpack_words(bits)[:, :p], want)
+    assert torch.equal(cnt, cnt_v) and torch.equal(bits, bits_v)
     assert not tnt.unpack_words(bits)[:, p:].any()
-    assert torch.equal(got, hit.sum(1, dtype=torch.int32))
+    assert torch.equal(got, cnt_a)
+    assert torch.equal(d2 <= e2, tnt.unpack_words(bits_a)[:, :p])
 
 
 @pytest.mark.gpu

@@ -91,7 +91,7 @@ def fake_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "current_stream", lambda: Stream())
     monkeypatch.setattr(_build, "entry", entry)
     monkeypatch.setattr(_build, "load", lambda: None)
-    for mod in (tnt, tec):
+    for mod in (tnt, tec, tpl):
         monkeypatch.setattr(mod, "sm_count", lambda _i: SMS)
     return calls
 
@@ -148,7 +148,7 @@ WRAPPERS = {
                                                           _i32(P, W)),
     "eps_count": lambda: tec.eps_count_cuda(_f32(Q, D), _f32(P, D), 1.5),
 }
-PERSISTENT = {"nng_tile", "eps_count"}
+PERSISTENT = {"nng_tile", "eps_count", "pairwise_sqdist", "nng_tile_ghost"}
 
 
 def test_every_entry_has_a_wrapper_case():
@@ -169,15 +169,27 @@ def test_wrapper_passes_its_entry_argtypes(fake_card, lib):
 
 @pytest.mark.parametrize("q,d", [(1, 17), (300, 17), (129, 128)])
 def test_persistent_wrappers_launch_once_for_any_rows(fake_card, q, d):
-    """nng_tile and eps_count launch one persistent grid for the whole of
-    x (no row chunks) with x's own pointer, rows, width and the threshold
-    eps2_f32(eps)."""
+    """nng_tile, eps_count and pairwise_sqdist launch one persistent grid
+    for the whole of x (no row chunks) with x's own pointer, rows, width
+    and the threshold eps2_f32(eps); the ghost kernel one grid over x
+    gathered in its row order, with the order, the keys and the live-tile
+    list of ``ghost_tile_plan``."""
     x, y = _f32(q + 1, d)[1:], _f32(P, d)
     tec.eps_count_cuda(x, y, 2.5)
     tnt.nng_tile_cuda(x, y, _i32(P), 2.5)
-    assert [c[0] for c in fake_card] == ["eps_count", "nng_tile"]
-    (_, ea), (_, ta) = fake_card
+    tpl.pairwise_sqdist_cuda(x, y)
+    gb = torch.from_numpy(np.random.default_rng(q).integers(
+        0, 2**31, size=(q, 2)).astype(np.int32))
+    yg = torch.arange(P, dtype=torch.int32) % 40 - 1
+    tnt.nng_tile_ghost_cuda(x, y, gb, yg, 2.5)
+    assert [c[0] for c in fake_card] == ["eps_count", "nng_tile",
+                                         "pairwise_sqdist", "nng_tile_ghost"]
+    (_, ea), (_, ta), (_, pa), (_, ga) = fake_card
     assert ea[:2] == (x.data_ptr(), y.data_ptr())
     assert ea[5:10] == (q, P, d, tnt.eps2_f32(2.5), SMS)
     assert ta[:2] == (x.data_ptr(), y.data_ptr())
     assert ta[7:12] == (q, P, d, tnt.eps2_f32(2.5), SMS)
+    assert pa[:2] == (x.data_ptr(), y.data_ptr())
+    assert pa[5:9] == (q, P, d, SMS)
+    assert ga[1] == y.data_ptr() and ga[3] == yg.data_ptr()
+    assert ga[11:17] == (q, P, d, 2, tnt.eps2_f32(2.5), SMS)
