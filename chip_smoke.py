@@ -34,15 +34,20 @@ each printed as it runs; any failed check raises and exits non-zero:
      its time (CUDA events, median) beside its bound, its plain version's
      time and a library yardstick;
   6. the tree path on the same points: the forest built on the card, one
-     traversal (block 0's points against block 1's tree) whose kernel
-     inputs feed ``tree_frontier`` (off the knife edge of each decision)
+     traversal (block 0's points, in their forest's DFS order as the ring
+     hands them, against block 1's tree; its live 64 x 256 tiles and
+     128 x 128 blocks counted against the same traversal in index order)
+     whose kernel inputs feed ``tree_frontier`` (off the knife edge of
+     each decision; its leaf decisions bit for bit ``nng_tile``'s hits)
      and ``leaf_range_pack`` (bit-identical) against their plain versions,
-     also on ragged and all-inactive inputs [6a]; ``build_nng(...,
+     also on one live tile, ragged shapes (TMA and cp.async copies) and
+     all-inactive inputs [6a]; ``build_nng(...,
      traversal="tree")`` with its launch counts [6b]; one profiled tree
      engine run [6c]; the tree graph against the tiles graph of [3] (off
      the knife edge) and the sampled rows against float64 [6d]; both
      kernels' times at the path's shapes beside their bounds, each
-     bound from the launch's own inputs [6e]; a Gaussian block whose
+     bound from the launch's own inputs, the frontier's host and device
+     time apart [6e]; a Gaussian block whose
      traversal takes the dense branch, its passes timed dense and from
      pair lists, with shared and per-query scopes, all equal, each
      call's peak memory within the bytes its passes were planned under
@@ -61,7 +66,9 @@ each printed as it runs; any failed check raises and exits non-zero:
      its reason), eps in the widest gap near 26.5 of the sampled rows'
      float64 distances: ``nng_tile_l1``
      and ``tree_frontier_l1`` against their plain versions off the L1
-     knife [8a]; ``build_nng`` with both traversals [8b]; the tree graph
+     knife (the frontier's traversal in DFS order, as [6a], its leaf
+     decisions bit for bit ``nng_tile_l1``'s, one live tile, ragged shapes
+     with TMA and cp.async copies) [8a]; ``build_nng`` with both traversals [8b]; the tree graph
      against the tiles graph off the knife and 1024 sampled rows against
      float64 inside ``HostManhattan.band_slack`` [8c]; times [8d].
   9. the spatial engine (``partition="spatial"``, Algorithms 5+6, the
@@ -226,6 +233,25 @@ def cuda_ms(torch, fn, reps):
     return statistics.median(times)
 
 
+def host_device_ms(torch, fn, reps=20):
+    """``fn()``'s cost split, after one warm-up: the host's milliseconds a
+    call to enqueue it (perf_counter around the calls, no sync), and the
+    milliseconds a call of ``reps`` calls back to back between two CUDA
+    events (the device's time when the host keeps ahead of it)."""
+    fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - t0) / reps * 1e3
+    e1.record()
+    torch.cuda.synchronize()
+    return host, e0.elapsed_time(e1) / reps
+
+
 def events_ms(torch, fn):
     """(fn()'s result, milliseconds of that one run by CUDA events)."""
     e0 = torch.cuda.Event(enable_timing=True)
@@ -251,8 +277,8 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import NNG_CONFIGS
-    from repro_torch.core.distributed import (DeviceForest, make_nng_mesh,
-                                              tree_traverse)
+    from repro_torch.core.distributed import (DeviceForest, dfs_row_order,
+                                              make_nng_mesh, tree_traverse)
     from repro_torch.core.distributed import device as tdev
     from repro_torch.core.flat_tree import build_block_forests
     from repro_torch.core.graph import NNGraph
@@ -290,12 +316,13 @@ def main() -> int:
                                               pack_words, popcount32,
                                               unpack_words)
     from repro_torch.kernels.eps_count import eps_count_cuda, eps_count_plain
-    from repro_torch.kernels.ops import (_pad_rows, ghost_block_active,
+    from repro_torch.kernels.ops import (_pad_cols, _pad_rows,
+                                         ghost_block_active,
                                          grouped_block_active)
     from repro_torch.kernels.pairwise_hamming import pairwise_hamming_cuda
     from repro_torch.kernels.pairwise_l2 import pairwise_sqdist_cuda
     from repro_torch.kernels.tree_frontier import (
-        TN, TQ, tree_frontier_cuda, tree_frontier_hamming_cuda,
+        TN, TQ, frontier_tile_plan, tree_frontier_cuda, tree_frontier_hamming_cuda,
         tree_frontier_hamming_ref, tree_frontier_l1_cuda,
         tree_frontier_l1_ref, tree_frontier_ref)
     from repro_torch.nng import (PointPartitionEngine,
@@ -493,13 +520,27 @@ def main() -> int:
                                     (0, -nw % (TN // 32), 0, -m % TQ))
         return a.view(-(-m // TQ), TQ, -1, TN // 32).amax((1, 3)).sum()
 
+    def live_tiles(act):
+        """The pipelined frontiers' live 64 x 256 tiles of the packed mask
+        ``act`` (``frontier_tile_plan``'s count, a 1-element tensor)."""
+        return frontier_tile_plan(act, PIPE_TILE[0], PIPE_TILE[1] // 32)[1]
+
+    def engine_rows(X, forest0, n_loc):
+        """Rank 0's block as the tree ring hands it to its traversals, in
+        its own forest's DFS order -> (rows, their global ids)."""
+        order = dfs_row_order(forest0, 0)
+        return X[:n_loc][order].contiguous(), order.to(torch.int32)
+
     def traced_traverse(qp, qids, forest_r, eps, k, q_chunk=None,
-                        metric="euclidean", qcells=None, ghost=None):
+                        metric="euclidean", qcells=None, ghost=None,
+                        keep=True):
         """``tree_traverse`` of ``qp`` against one rank's forest, each
         frontier launch timed in place (CUDA events) and its inputs' sizes,
-        active pairs and active blocks kept; also the first pass's kernel
-        inputs and outputs per level and its ``leaf_range_pack`` inputs.
-        Returns (result, wall s, launches, first pass, packs)."""
+        active pairs, live 128 x 128 blocks and live 64 x 256 tiles kept;
+        also (with ``keep``) the first pass's kernel inputs and outputs per
+        level and its ``leaf_range_pack`` inputs. Returns (result, wall s,
+        launches (rows, nodes, pairs, blocks, tiles, e0, e1), first pass,
+        packs)."""
         launch_in, first, packs = [], [], []
         levels = forest_r.radius.shape[0]
         orig_step, orig_pack = tdev.tree_frontier_step, tdev._leaf_range_pack
@@ -513,13 +554,13 @@ def main() -> int:
             act = args[4]
             launch_in.append((act.shape[0], args[1].shape[0],
                               tdev._popcount(act), active_blocks(act),
-                              e0, e1))
-            if len(first) < levels:
+                              live_tiles(act), e0, e1))
+            if keep and len(first) < levels:
                 first.append(tuple(args[:5]) + tuple(out))
             return out
 
         def pack_spy(delta, leaf_ids, qids_):
-            if not packs:
+            if keep and not packs:
                 packs.append((delta, leaf_ids, qids_))
             return orig_pack(delta, leaf_ids, qids_)
 
@@ -579,6 +620,67 @@ def main() -> int:
                         else "pairs")
             out.append((int(tdev._popcount(act)), mask, emission))
         return out
+
+    def order_counts(label, lin, X, n_loc, forest_r, eps, metric, lv):
+        """The same traversal with the rows in index order (the order
+        before the ring took its forests' DFS order), counted only: prints
+        the live 128 x 128 blocks and 64 x 256 tiles of every launch summed,
+        and of launch ``lv`` (the first pass's level lv), under both
+        orders. Returns {order: (blocks, tiles, launch lv's blocks and
+        tiles)}."""
+        ids = torch.arange(n_loc, dtype=torch.int32, device=dev)
+        blk = traced_traverse(X[:n_loc], ids, forest_r, eps, METRIC_K_CAP,
+                              metric=metric, keep=False)[2]
+        out = {}
+        for name, ls in (("dfs", lin), ("index", blk)):
+            out[name] = (sum(int(b) for _, _, _, b, *_ in ls),
+                         sum(int(t) for _, _, _, _, t, *_ in ls),
+                         int(ls[lv][3]), int(ls[lv][4]))
+        blocks = sum(-(-r_ // TQ) * -(-n_ // TN) for r_, n_, *_ in lin)
+        tiles = sum(-(-r_ // PIPE_TILE[0]) * -(-n_ // PIPE_TILE[1])
+                    for r_, n_, *_ in lin)
+        r_, n_ = lin[lv][:2]
+        a, b = out["dfs"], out["index"]
+        print(f"{label} live blocks and tiles, rows in DFS order (the "
+              f"engine's) vs index order: per traversal ({len(lin)} "
+              f"launches) 128x128 blocks {a[0]} vs {b[0]} of {blocks}, "
+              f"64x256 tiles {a[1]} vs {b[1]} of {tiles}; at level {lv} of "
+              f"the first pass ({r_}x{n_}) blocks {a[2]} vs {b[2]} of "
+              f"{-(-r_ // TQ) * -(-n_ // TN)}, tiles {a[3]} vs {b[3]} of "
+              f"{-(-r_ // PIPE_TILE[0]) * -(-n_ // PIPE_TILE[1])}")
+        return out
+
+    def leaf_vs_tile(label, front, tile, q, c, rad, leaf, act, eps):
+        """A pipelined frontier's emit words on its active leaf pairs
+        against the ε-tile kernel's hit words on the same q and c (every
+        column valid), bit for bit: the frontier's leaf test is the tile's
+        own (nng_tile's d², nng_tile_l1's d)."""
+        emit, _ = front(q, c, rad, leaf, act, eps)
+        _, hits = tile(q, c, torch.ones(c.shape[0], dtype=torch.int32,
+                                        device=dev), eps)
+        mask = act & pack_words(_pad_cols((leaf != 0)[None], 32, False))
+        differ = int(popcount32((emit & mask) ^ (hits & mask)).sum())
+        pairs = int(popcount32(mask).sum())
+        check(differ == 0, f"{label}: {differ} active leaf pairs differ "
+                           "from the tile kernel's hits")
+        print(f"{label}: emit on the {pairs} active leaf pairs equals the "
+              f"tile kernel's hits bit for bit "
+              f"({int(popcount32(emit & mask).sum())} emitted)")
+
+    def one_live_tile(act):
+        """``act`` with every 64 x 256 tile but its first live one cleared:
+        a launch whose plan lists exactly one live tile."""
+        tq_, tw_ = PIPE_TILE[0], PIPE_TILE[1] // 32
+        tiles_, count_ = frontier_tile_plan(act, tq_, tw_)
+        check(int(count_[0]) > 0, "one_live_tile: no live tile")
+        t = int(tiles_[0])
+        nt_ = -(-act.shape[1] // tw_)
+        r0, w0 = t // nt_ * tq_, t % nt_ * tw_
+        one = torch.zeros_like(act)
+        one[r0:r0 + tq_, w0:w0 + tw_] = act[r0:r0 + tq_, w0:w0 + tw_]
+        check(int(frontier_tile_plan(one, tq_, tw_)[1][0]) == 1,
+              "one_live_tile: the plan of one tile's words is not one tile")
+        return one
 
     def level_bound(rows, nodes, pairs, feat, pair_ops, rate):
         """A frontier launch's least time in ms, and its two terms:
@@ -882,31 +984,40 @@ def main() -> int:
           f"N {W} slots a level, NL {NL} leaf slots; valid slots per level "
           f"(rank 1) {(forest['cell'][1] >= 0).sum(1).tolist()}")
 
-    # one traversal of the path (block 0's points against block 1's tree),
-    # its frontier launches timed in place, and the first query pass's
-    # kernel inputs kept for the checks below
+    # one traversal of the path (block 0's points, in its forest's DFS
+    # order as the ring hands them, against block 1's tree), its frontier
+    # launches timed in place, and the first query pass's kernel inputs
+    # kept for the checks below
     F1 = F.rank(1)
-    ids0 = torch.arange(n_loc, dtype=torch.int32, device=dev)
+    q0, ids0 = engine_rows(P, F.rank(0), n_loc)
     (_, trav_s, launch_in, first, packs) = traced_traverse(
-        P[:n_loc], ids0, F1, EPS, k_path)
+        q0, ids0, F1, EPS, k_path)
     level_ms = [e0.elapsed_time(e1) for *_, e0, e1 in launch_in]
     trav_frontier_ms = sum(level_ms)
     q_chunk = first[0][0].shape[0]
     n_launch = len(launch_in)
-    trav_pairs = sum(int(pr) for _, _, pr, _, _, _ in launch_in)
-    trav_blocks = sum(int(b) for _, _, _, b, _, _ in launch_in)
-    print(f"[6a] one traversal ({n_loc} queries in passes of {q_chunk}, "
-          f"{n_launch} frontier launches): {trav_s:.3f} s wall, frontier "
-          f"{trav_frontier_ms:.2f} ms, {trav_pairs} active pairs, "
-          f"{trav_blocks} of {n_launch * -(-q_chunk // TQ) * -(-W // TN)} "
-          f"blocks have one; first pass per level (ms) "
+    trav_pairs = sum(int(pr) for _, _, pr, *_ in launch_in)
+    trav_blocks = sum(int(b) for _, _, _, b, *_ in launch_in)
+    trav_tiles = sum(int(t) for _, _, _, _, t, *_ in launch_in)
+    print(f"[6a] one traversal ({n_loc} queries in their forest's DFS order, "
+          f"in passes of {q_chunk}, {n_launch} frontier launches): "
+          f"{trav_s:.3f} s wall, frontier {trav_frontier_ms:.2f} ms, "
+          f"{trav_pairs} active pairs, {trav_tiles} of "
+          f"{n_launch * -(-q_chunk // PIPE_TILE[0]) * -(-W // PIPE_TILE[1])}"
+          f" 64x256 tiles ({trav_blocks} of "
+          f"{n_launch * -(-q_chunk // TQ) * -(-W // TN)} 128x128 blocks) "
+          f"have one; first pass per level (ms) "
           f"{[round(v, 2) for v in level_ms[:L]]}")
     print(f"[6a] first pass per level (active pairs, mask, emission): "
           f"{branches(first, F1)}")
+    # the first pass's level with the most active pairs ([6e] times it)
+    lv_rep = max(range(L), key=lambda lv: int(tdev._popcount(first[lv][4])))
+    live6 = order_counts("[6a]", launch_in, P, n_loc, F1, EPS, "euclidean",
+                         lv_rep)
     # the same traversal untraced, as shipped and with every level dense
-    ship, ship_s, ship_peak = timed_traverse(P[:n_loc], ids0, F1, EPS, k_path,
+    ship, ship_s, ship_peak = timed_traverse(q0, ids0, F1, EPS, k_path,
                                              None, tdev.SPARSE_DIV)
-    dense, dense_s, dense_peak = timed_traverse(P[:n_loc], ids0, F1, EPS,
+    dense, dense_s, dense_peak = timed_traverse(q0, ids0, F1, EPS,
                                                 k_path, None, 1 << 62)
     check(all(torch.equal(a, b) for a, b in zip(ship, dense)),
           "[6a] the traversal differs when every level goes dense")
@@ -968,6 +1079,12 @@ def main() -> int:
             f"[6a] tree_frontier level {lv} ({q.shape[0]}x{c.shape[0]}, "
             f"{int(unpack_words(act).sum())} active pairs)",
             q, c, rad, leaf, act))
+    q, c, rad, leaf, act = first[lv_leaf][:5]
+    leaf_vs_tile(f"[6a] tree_frontier level {lv_leaf} vs nng_tile",
+                 tree_frontier_cuda, nng_tile_cuda, q, c, rad, leaf, act, EPS)
+    front_err = max(front_err, frontier_vs_plain(
+        f"[6a] tree_frontier level {lv_leaf}, one live 64x256 tile",
+        q, c, rad, leaf, one_live_tile(act)))
     gq = torch.from_numpy(rng.normal(size=(1000, 100)).astype(np.float32))
     gc = torch.from_numpy(rng.normal(size=(777, 100)).astype(np.float32))
     grad = torch.from_numpy(np.abs(rng.normal(size=777)).astype(np.float32)
@@ -979,6 +1096,11 @@ def main() -> int:
     front_err = max(front_err, frontier_vs_plain(
         "[6a] tree_frontier ragged (1000x777x100)", gq.to(dev), gc.to(dev),
         grad.to(dev), gleaf.to(dev), pack_words(gact).to(dev)))
+    # d % 4 != 0: the 4-byte cp.async copies instead of TMA
+    front_err = max(front_err, frontier_vs_plain(
+        "[6a] tree_frontier ragged (1000x777x99, cp.async copies)",
+        gq[:, :99].contiguous().to(dev), gc[:, :99].contiguous().to(dev),
+        grad.to(dev), gleaf.to(dev), pack_words(gact).to(dev)))
     zq = torch.randn(300, 16, device=dev)
     ze, zx = tree_frontier_cuda(zq, zq.repeat(2, 1)[:544],
                                 torch.ones(544, device=dev),
@@ -988,7 +1110,8 @@ def main() -> int:
                                             device=dev), EPS)
     check(not ze.any() and not zx.any(),
           "tree_frontier: an all-inactive mask emitted or expanded")
-    print("[6a] tree_frontier with an all-inactive mask: zero words")
+    print("[6a] tree_frontier with an all-inactive mask (a zero live-tile "
+          "count): zero words")
     delta = torch.from_numpy(rng.integers(-1, 2, size=(5000, 4097))
                              .astype(np.int32)).to(dev)
     lids = torch.from_numpy(rng.permutation(40960)[:4096].astype(np.int32))
@@ -1017,7 +1140,7 @@ def main() -> int:
     first_pass = [tuple(t.cpu() for t in first[lv][:5]) for lv in range(L)]
     pack_in = tuple(t.cpu() for t in packs[0])
     del (delta, ze, zx, zq, first, packs, forest, F, F1, c1, b1, q, c, rad,
-         leaf, act, dl, li, qi)
+         leaf, act, dl, li, qi, q0, ids0)
 
     # -- 6b. the call ---------------------------------------------------------
     for fn in (nng_tile_cuda, bits_to_cols_cuda, tree_frontier_cuda,
@@ -1081,13 +1204,13 @@ def main() -> int:
     print(f"[6d] script wall {time.perf_counter() - t_start:.1f} s")
 
     # -- 6e. times at the tree path's shapes ---------------------------------
-    # the first pass's level with the most active pairs
-    lv_rep = max(range(L), key=lambda lv: int(unpack_words(
-        first_pass[lv][4]).sum()))
+    # the first pass's level with the most active pairs, rows in the
+    # engine's order
     q, c, rad, leaf, act = (t.to(dev) for t in first_pass[lv_rep])
     cq, cn = q.shape[0], c.shape[0]
     rep_pairs = int(tdev._popcount(act))
     rep_blocks = int(active_blocks(act))
+    rep_tiles = int(live_tiles(act)[0])
     front_ms = cuda_ms(torch, lambda: tree_frontier_cuda(
         q, c, rad, leaf, act, EPS), 10)
     front_bound_ms, front_ops, front_nbytes = front_bound(cq, cn, rep_pairs)
@@ -1098,9 +1221,13 @@ def main() -> int:
     skip_ms = cuda_ms(torch, lambda: tree_frontier_cuda(
         q, c, rad, leaf, zact, EPS), 10)
     skip_bytes = 4 * 3 * cq * -(-cn // 32)
+    front_split = host_device_ms(torch, lambda: tree_frontier_cuda(
+        q, c, rad, leaf, act, EPS))
+    skip_split = host_device_ms(torch, lambda: tree_frontier_cuda(
+        q, c, rad, leaf, zact, EPS))
     del zact
     # per traversal: each launch's bound from its own inputs, summed
-    trav = [front_bound(r_, n_, int(pr)) for r_, n_, pr, _, _, _ in launch_in]
+    trav = [front_bound(r_, n_, int(pr)) for r_, n_, pr, *_ in launch_in]
     trav_bound_ms = sum(b for b, _, _ in trav)
     trav_ops = sum(o for _, o, _ in trav)
     trav_nbytes = sum(nb for _, _, nb in trav)
@@ -1121,14 +1248,21 @@ def main() -> int:
         for r0 in range(0, dl.shape[0], 1024):
             leaf_range_pack_ref(dl[r0:r0 + 1024, :NL], li, qi[r0:r0 + 1024])
     pack_plain_ms = cuda_ms(torch, pack_plain, 3)
-    print(f"[6e] tree_frontier at level {lv_rep} ({cq}x{cn}x{DIM}, "
-          f"{rep_pairs} active pairs in {rep_blocks} of "
-          f"{-(-cq // TQ) * -(-cn // TN)} blocks): {front_ms:.3f} ms "
+    print(f"[6e] tree_frontier at level {lv_rep} ({cq}x{cn}x{DIM}, rows in "
+          f"their forest's DFS order: {rep_pairs} active pairs in "
+          f"{rep_tiles} of {-(-cq // PIPE_TILE[0]) * -(-cn // PIPE_TILE[1])}"
+          f" live 64x256 tiles, {live6['index'][3]} in index order; "
+          f"{rep_blocks} vs {live6['index'][2]} of "
+          f"{-(-cq // TQ) * -(-cn // TN)} 128x128 blocks): {front_ms:.3f} ms "
           f"median; bound {front_bound_ms:.3f} ms ({front_by}: "
           f"{front_ops:.4g} fp32 flops of the active pairs at "
           f"{PEAK_FP32 / 1e12:g} TFLOP/s, {front_nbytes} bytes at "
-          f"{PEAK_BYTES / 1e12:g} TB/s); with no active pair "
-          f"{skip_ms:.3f} ms (bytes bound "
+          f"{PEAK_BYTES / 1e12:g} TB/s); host enqueue "
+          f"{front_split[0]:.3f} ms a call, 20 calls back to back "
+          f"{front_split[1]:.3f} ms a call; with no active pair (a zero "
+          f"live-tile count: the plan pass and the norms) "
+          f"{skip_ms:.3f} ms, host {skip_split[0]:.3f}, back to back "
+          f"{skip_split[1]:.3f} (bytes bound "
           f"{skip_bytes / PEAK_BYTES * 1e3:.3f} ms); plain version "
           f"{front_plain_ms:.3f} ms ({-(-cq // 1024)} row chunks); torch.mm "
           f"product only {front_lib_ms:.3f} ms; launches on the path "
@@ -1136,8 +1270,10 @@ def main() -> int:
     print(f"[6e] tree_frontier per traversal: {trav_frontier_ms:.2f} ms over "
           f"{n_launch} launches, bound {trav_bound_ms:.3f} ms (the sum of "
           f"each launch's: {trav_ops:.4g} fp32 flops of {trav_pairs} active "
-          f"pairs, {trav_nbytes} bytes); {trav_blocks} blocks with an "
-          f"active pair")
+          f"pairs, {trav_nbytes} bytes); {trav_tiles} live 64x256 tiles "
+          f"({live6['index'][1]} with the rows in index order), "
+          f"{trav_blocks} 128x128 blocks with an active pair "
+          f"({live6['index'][0]})")
     print(f"[6e] leaf_range_pack ({dl.shape[0]}x{NL}): {pack_ms:.3f} ms "
           f"median; bound {pack_bound_ms:.3f} ms (bytes: {pack_bytes} at "
           f"{PEAK_BYTES / 1e12:g} TB/s); plain version {pack_plain_ms:.3f} "
@@ -1400,38 +1536,47 @@ def main() -> int:
 
     def traversal_inputs(label, X, n_loc, eps, metric):
         """The forest of X on the card, then one traced traversal (block 0's
-        points against block 1's tree) -> (launch records, first pass's
-        kernel inputs per level, forest L)."""
+        points, in their forest's DFS order as the ring hands them, against
+        block 1's tree), and its live tiles against the rows in index order
+        (``order_counts``) -> (launch records, first pass's kernel inputs
+        per level, forest L, the order counts)."""
         t0 = time.perf_counter()
         fo = build_block_forests(X, NRANKS, metric, backend="device")
         torch.cuda.synchronize()
         build_s_ = time.perf_counter() - t0
         Lm, Wm = fo["radius"].shape[1:]
-        F1_ = DeviceForest.from_tables(fo).rank(1)
-        ids = torch.arange(n_loc, dtype=torch.int32, device=dev)
-        _, wall_, lin, fst, _ = traced_traverse(X[:n_loc], ids, F1_, eps,
+        Fm = DeviceForest.from_tables(fo)
+        F1_ = Fm.rank(1)
+        qs, ids = engine_rows(X, Fm.rank(0), n_loc)
+        _, wall_, lin, fst, _ = traced_traverse(qs, ids, F1_, eps,
                                                 METRIC_K_CAP, metric=metric)
         print(f"{label} forest built on the card in {build_s_:.3f} s: L {Lm},"
               f" N {Wm}, NL {fo['leaf_ids'].shape[1]}; one traversal "
-              f"({n_loc} queries in passes of {fst[0][0].shape[0]}, "
-              f"{len(lin)} frontier launches) {wall_:.3f} s wall, frontier "
+              f"({n_loc} queries in their forest's DFS order, in passes of "
+              f"{fst[0][0].shape[0]}, {len(lin)} frontier launches) "
+              f"{wall_:.3f} s wall, frontier "
               f"{sum(e0.elapsed_time(e1) for *_, e0, e1 in lin):.2f} ms; "
               f"first pass per level (active pairs, mask, emission) "
               f"{branches(fst, F1_)}")
-        del fo
-        return lin, fst, Lm
+        busiest = max(range(Lm), key=lambda l: int(tdev._popcount(fst[l][4])))
+        live = order_counts(label, lin, X, n_loc, F1_, eps, metric, busiest)
+        del fo, Fm, qs
+        return lin, fst, Lm, live
 
     def frontier_times(label, kern, plain, lin, fst, eps, feat, pair_ops,
-                       rate, library, prep=lambda t: t):
+                       rate, library, live, prep=lambda t: t):
         """The frontier kernel at the first pass's busiest level, its bound
         from that launch's inputs, the plain version (row chunks) and the
         library call ``library(prep(q), prep(c))`` (``prep`` untimed); and
-        per traversal, the sum of each launch's bound. Returns (ms, plain
-        ms, bound ms, bound_by, library ms)."""
+        per traversal, the sum of each launch's bound; with the live tiles
+        and blocks under both row orders (``live``, ``order_counts``).
+        Returns (ms, plain ms, bound ms, bound_by, library ms)."""
         lv = max(range(len(fst)), key=lambda l: int(tdev._popcount(fst[l][4])))
         q, c, rad, leaf, act = fst[lv][:5]
         pairs = int(tdev._popcount(act))
         ms = cuda_ms(torch, lambda: kern(q, c, rad, leaf, act, eps), 10)
+        split = host_device_ms(torch, lambda: kern(q, c, rad, leaf, act,
+                                                   eps))
         bound, ops, nbytes = level_bound(q.shape[0], c.shape[0], pairs, feat,
                                          pair_ops, rate)
         by = "operations" if ops / rate >= nbytes / PEAK_BYTES else "bytes"
@@ -1442,12 +1587,19 @@ def main() -> int:
         plain_ms = events_ms(torch, run_plain)[1]
         lib_ms = library_rows(library, prep(q), prep(c))
         trav = [level_bound(r_, n_, int(pr), feat, pair_ops, rate)
-                for r_, n_, pr, _, _, _ in lin]
+                for r_, n_, pr, *_ in lin]
         trav_ms = sum(e0.elapsed_time(e1) for *_, e0, e1 in lin)
-        print(f"{label} level {lv} ({q.shape[0]}x{c.shape[0]}x{feat}, "
-              f"{pairs} active pairs in {int(active_blocks(act))} of "
-              f"{-(-q.shape[0] // TQ) * -(-c.shape[0] // TN)} blocks): "
-              f"{ms:.3f} ms median; bound {bound:.3f} ms ({by}: {ops:.4g} "
+        print(f"{label} level {lv} ({q.shape[0]}x{c.shape[0]}x{feat}, rows "
+              f"in their forest's DFS order: {pairs} active pairs in "
+              f"{int(live_tiles(act)[0])} of "
+              f"{-(-q.shape[0] // PIPE_TILE[0]) * -(-c.shape[0] // PIPE_TILE[1])}"
+              f" live 64x256 tiles, {live['index'][3]} in index order; "
+              f"{int(active_blocks(act))} vs {live['index'][2]} of "
+              f"{-(-q.shape[0] // TQ) * -(-c.shape[0] // TN)} 128x128 "
+              f"blocks): "
+              f"{ms:.3f} ms median (host enqueue {split[0]:.3f} ms a call, "
+              f"20 calls back to back {split[1]:.3f} ms a call); bound "
+              f"{bound:.3f} ms ({by}: {ops:.4g} "
               f"operations at {rate:.4g}/s, {nbytes} bytes at "
               f"{PEAK_BYTES / 1e12:g} TB/s); plain version {plain_ms:.3f} ms "
               f"({-(-q.shape[0] // 1024)} row chunks, one run); library "
@@ -1455,7 +1607,9 @@ def main() -> int:
         print(f"{label} per traversal: {trav_ms:.2f} ms over {len(lin)} "
               f"launches, bound {sum(b for b, _, _ in trav):.3f} ms (the sum "
               f"of each launch's: {sum(o for _, o, _ in trav):.4g} operations"
-              f", {sum(nb for _, _, nb in trav)} bytes)")
+              f", {sum(nb for _, _, nb in trav)} bytes); live 64x256 tiles "
+              f"{live['dfs'][1]} ({live['index'][1]} in index order), "
+              f"128x128 blocks {live['dfs'][0]} ({live['index'][0]})")
         return ms, plain_ms, bound, by, lib_ms
 
     print(f"[7] popcount rate {popc_rate:.4g}/s = {POPC_PER_CLK_SM} a clock "
@@ -1495,8 +1649,8 @@ def main() -> int:
         tile_vs_plain(f"[7a] nng_tile_hamming ragged ({q},{p},{w}) eps={eps}",
                       nng_tile_hamming_cuda, nng_tile_hamming_ref, x, y, yv,
                       eps)
-    h_launch, h_first, hL = traversal_inputs("[7a]", H, hn_loc, HAM_EPS,
-                                             "hamming")
+    h_launch, h_first, hL, h_live = traversal_inputs("[7a]", H, hn_loc,
+                                                     HAM_EPS, "hamming")
     leaf_lv = max(range(hL), key=lambda l: int(h_first[l][3].sum()))
     for lv in sorted({hL // 2, leaf_lv}):
         q, c, rad, leaf, act = h_first[lv][:5]
@@ -1583,7 +1737,7 @@ def main() -> int:
     hf_ms, hf_plain_ms, hf_bound, hf_by, hf_lib_ms = frontier_times(
         "[7d] tree_frontier_hamming", tree_frontier_hamming_cuda,
         tree_frontier_hamming_ref, h_launch, h_first, HAM_EPS, HW, HW,
-        popc_rate, lambda a, b: torch.cdist(a, b, p=0),
+        popc_rate, lambda a, b: torch.cdist(a, b, p=0), h_live,
         prep=lambda t: unpack_words(t).float())
     h_max_deg = int(gh.degrees().max())
     del H, hx, hy, hones, h_first, h_launch, ght      # gh: [10c]
@@ -1634,8 +1788,8 @@ def main() -> int:
             f"[8a] nng_tile_l1 ragged ({q},{p},{d}) eps={eps:.6g}",
             nng_tile_l1_cuda, nng_tile_l1_ref, x, y, yv, eps)
         l1_err = max(l1_err, e_)
-    l_launch, l_first, lL = traversal_inputs("[8a]", P, n8, EPS8,
-                                             "manhattan")
+    l_launch, l_first, lL, l_live = traversal_inputs("[8a]", P, n8, EPS8,
+                                                     "manhattan")
     leaf_lv = max(range(lL), key=lambda l: int(l_first[l][3].sum()))
     for lv in sorted({lL // 2, leaf_lv}):
         q, c, rad, leaf, act = l_first[lv][:5]
@@ -1643,21 +1797,33 @@ def main() -> int:
             f"[8a] tree_frontier_l1 level {lv} ({q.shape[0]}x{c.shape[0]}, "
             f"{int(tdev._popcount(act))} active pairs)", tree_frontier_l1_cuda,
             tree_frontier_l1_ref, q, c, rad, leaf, act, EPS8))
+    q, c, rad, leaf, act = l_first[leaf_lv][:5]
+    leaf_vs_tile(f"[8a] tree_frontier_l1 level {leaf_lv} vs nng_tile_l1",
+                 tree_frontier_l1_cuda, nng_tile_l1_cuda, q, c, rad, leaf,
+                 act, EPS8)
+    l1_err = max(l1_err, frontier_vs_plain_m(
+        f"[8a] tree_frontier_l1 level {leaf_lv}, one live 64x256 tile",
+        tree_frontier_l1_cuda, tree_frontier_l1_ref, q, c, rad, leaf,
+        one_live_tile(act), EPS8))
     gq = torch.from_numpy(rng.normal(size=(1000, 100)).astype(np.float32))
     gc = torch.from_numpy(rng.normal(size=(777, 100)).astype(np.float32))
     grad = torch.from_numpy(np.abs(rng.normal(size=777)).astype(np.float32)
                             * 20)
     gleaf = torch.from_numpy((rng.random(777) < 0.4).astype(np.int32))
-    geps = float(torch.quantile(torch.cdist(gq, gc, p=1).flatten(), 0.01))
-    l1_err = max(l1_err, frontier_vs_plain_m(
-        f"[8a] tree_frontier_l1 ragged (1000x777x100) eps={geps:.6g}",
-        tree_frontier_l1_cuda, tree_frontier_l1_ref, gq.to(dev), gc.to(dev),
-        grad.to(dev), gleaf.to(dev), gact, geps))
+    for gd in (100, 99):           # TMA copies; d % 4 != 0: cp.async
+        geps = float(torch.quantile(torch.cdist(gq[:, :gd], gc[:, :gd],
+                                                p=1).flatten(), 0.01))
+        l1_err = max(l1_err, frontier_vs_plain_m(
+            f"[8a] tree_frontier_l1 ragged (1000x777x{gd}) eps={geps:.6g}",
+            tree_frontier_l1_cuda, tree_frontier_l1_ref,
+            gq[:, :gd].contiguous().to(dev), gc[:, :gd].contiguous().to(dev),
+            grad.to(dev), gleaf.to(dev), gact, geps))
     ze, zx = tree_frontier_l1_cuda(gq.to(dev), gc.to(dev), grad.to(dev),
                                    gleaf.to(dev), torch.zeros_like(gact), geps)
     check(not ze.any() and not zx.any(),
           "tree_frontier_l1: an all-inactive mask emitted or expanded")
-    print("[8a] tree_frontier_l1 with an all-inactive mask: zero words")
+    print("[8a] tree_frontier_l1 with an all-inactive mask (a zero "
+          "live-tile count): zero words")
     print(f"[8a] script wall {time.perf_counter() - t_start:.1f} s")
 
     # -- 8b. the calls --------------------------------------------------------
@@ -1726,7 +1892,7 @@ def main() -> int:
     lf_ms, lf_plain_ms, lf_bound, lf_by, lf_lib_ms = frontier_times(
         "[8d] tree_frontier_l1", tree_frontier_l1_cuda, tree_frontier_l1_ref,
         l_launch, l_first, EPS8, DIM, 2 * DIM, l1_rate,
-        lambda q, c: torch.cdist(q, c, p=1))
+        lambda q, c: torch.cdist(q, c, p=1), l_live)
     del P, lx, ly, lones, l_first, l_launch
     torch.cuda.empty_cache()
     print(f"[8d] script wall {time.perf_counter() - t_start:.1f} s")

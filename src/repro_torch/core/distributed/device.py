@@ -41,7 +41,9 @@ tiles, so the triangle-inequality prune fires inside every round.
 ``_systolic_local_tree`` is the serial schedule and
 ``_systolic_local_tree_split`` the double-buffered one, whose rounds rotate
 either the forest tables or the raw points as ``plan_ring_schedule``
-decides.
+decides. Each block travels in its own forest's DFS order
+(``dfs_row_order``), so the queries of a frontier tile share subtrees and
+most tiles hold no active pair; the outputs return in the caller's order.
 """
 from __future__ import annotations
 
@@ -294,8 +296,9 @@ def tree_traverse(qp, qids, qcells, forest: DeviceForest, eps, k_cap: int,
          pair with every query); else it is gathered densely through the
          parent slots. Both give the same words;
       2. frontier kernel (``ops.tree_frontier_step``): fused distance and
-         {emit, expand} decisions as packed words; blocks with no active
-         pair skip their distances;
+         {emit, expand} decisions as packed words; tiles with no active
+         pair skip their distances (rows that share subtrees, as the
+         ring's DFS order gives, leave most tiles without one);
       3. leaf-range emission: each emitted node adds +1 at its DFS leaf
          range's start and -1 at its end in the pass's (c, n_leaf + 1)
          int32 delta table (exact integer scatters) — no per-leaf distances
@@ -588,6 +591,28 @@ def _systolic_local(xs, *, nranks, eps, metric, k_cap, prune, overlap=True):
             torch.zeros(nranks, dtype=torch.float32))
 
 
+def dfs_row_order(forest: DeviceForest, id0: int) -> torch.Tensor:
+    """A block's rows in its own forest's DFS order: ``forest.leaf_ids``'
+    valid entries less the block's first global id ``id0`` -> (n_loc,)
+    int64, a permutation of the block's rows (every point is one leaf).
+    Rows next to each other in it share subtrees, so the query rows of a
+    frontier tile meet few of a level's node tiles."""
+    lid = forest.leaf_ids
+    return lid[lid != SENTINEL].long() - id0
+
+
+def _dfs_blocks(xs, forests):
+    """Each rank's block and its global ids in its forest's DFS order, and
+    the orders: (rows, ids, orders). The ring carries these rows and ids
+    in place of the caller's, and ``_tree_outputs`` restores the caller's
+    order once at the end."""
+    n_loc = xs[0].shape[0]
+    orders = [dfs_row_order(f, me * n_loc) for me, f in enumerate(forests)]
+    rows = [x[o] for x, o in zip(xs, orders)]
+    ids = [(o + me * n_loc).to(torch.int32) for me, o in enumerate(orders)]
+    return rows, ids, orders
+
+
 def _systolic_local_tree(xs, forests, *, nranks, eps, metric, k_cap,
                          prune):
     """The per-rank body, cover-tree flavour, SERIAL schedule
@@ -600,16 +625,17 @@ def _systolic_local_tree(xs, forests, *, nranks, eps, metric, k_cap,
     and the visiting points query my tree (the mirror accumulator) — so the
     in-tree triangle prune fires inside every round. The block-summary
     prune still skips whole rounds above it. Every hop is made before its
-    round evaluates. Returns what ``_systolic_local`` returns."""
+    round evaluates. Each block travels in its forest's DFS order
+    (``_dfs_blocks``; the block summaries are taken in the caller's).
+    Returns what ``_systolic_local`` returns."""
     n_loc = xs[0].shape[0]
     dev = xs[0].device
     perm = [(i, (i - 1) % nranks) for i in range(nranks)]
     rounds = nranks // 2
-    ids = [torch.arange(me * n_loc, (me + 1) * n_loc, dtype=torch.int32,
-                        device=dev) for me in range(nranks)]
     qcells = torch.zeros(n_loc, dtype=torch.int32, device=dev)
     do_eval, tiles_skipped = _eval_schedule(xs, nranks, eps, metric=metric,
                                             prune=prune)
+    xs, ids, orders = _dfs_blocks(xs, forests)
 
     def trav(qp, qids, fr):
         return tree_traverse(qp, qids, qcells, fr, eps, k_cap, metric)
@@ -640,7 +666,8 @@ def _systolic_local_tree(xs, forests, *, nranks, eps, metric, k_cap,
                 dists[me] = dists[me] + fd + rd
                 pruned[me] = pruned[me] + fp + rp
         nbrs, cnt = _return_mirror(nbrs, cnt, ynbrs, ycnt, nranks)
-    return _tree_outputs(nbrs, cnt, k_cap, tiles_skipped, dists, pruned)
+    return _tree_outputs(nbrs, cnt, orders, k_cap, tiles_skipped, dists,
+                         pruned)
 
 
 def _systolic_local_tree_split(xs, forests, *, nranks, eps, metric, k_cap,
@@ -662,17 +689,17 @@ def _systolic_local_tree_split(xs, forests, *, nranks, eps, metric, k_cap,
     Round r + 1's hops are issued before round r evaluates, as in the tiles
     flavour. The mirror traversal always queries the LOCAL forest, so only
     the forward direction needs the rotated tables. The mode moves bytes
-    and work, never edges: tiles and traversal emit the same edge set."""
+    and work, never edges: tiles and traversal emit the same edge set.
+    Blocks travel in their forests' DFS order, as in the serial body."""
     n_loc = xs[0].shape[0]
     dev = xs[0].device
     perm = [(i, (i - 1) % nranks) for i in range(nranks)]
     rounds = nranks // 2
     assert len(ring_modes) == rounds, (ring_modes, rounds)
-    ids = [torch.arange(me * n_loc, (me + 1) * n_loc, dtype=torch.int32,
-                        device=dev) for me in range(nranks)]
     qcells = torch.zeros(n_loc, dtype=torch.int32, device=dev)
     do_eval, tiles_skipped = _eval_schedule(xs, nranks, eps, metric=metric,
                                             prune=prune)
+    xs, ids, orders = _dfs_blocks(xs, forests)
 
     def trav(qp, qids, fr):
         return tree_traverse(qp, qids, qcells, fr, eps, k_cap, metric)
@@ -717,9 +744,9 @@ def _systolic_local_tree_split(xs, forests, *, nranks, eps, metric, k_cap,
                 else:
                     fc, fb, rc, rb = nng_tile_bits_pair(
                         xs[me], y_cur[me], eps, metric=metric)
-                    fn = _bits_to_ids(fb, (me + r) % nranks * n_loc, k_cap)
+                    fn = _bits_to_gathered_ids(fb, yids_cur[me], k_cap)
                     del fb
-                    rn = _bits_to_ids(rb, me * n_loc, k_cap)
+                    rn = _bits_to_gathered_ids(rb, ids[me], k_cap)
                     del rb
                     dists[me] = dists[me] + n_loc * n_loc
                 nbrs[me] = _merge_ids(nbrs[me], fn)
@@ -727,7 +754,8 @@ def _systolic_local_tree_split(xs, forests, *, nranks, eps, metric, k_cap,
                 ynbrs[me] = _merge_ids(ynbrs[me], rn)
                 ycnt[me] = ycnt[me] + rc
         nbrs, cnt = _return_mirror(nbrs, cnt, ynbrs, ycnt, nranks)
-    return _tree_outputs(nbrs, cnt, k_cap, tiles_skipped, dists, pruned)
+    return _tree_outputs(nbrs, cnt, orders, k_cap, tiles_skipped, dists,
+                         pruned)
 
 
 def _return_mirror(nbrs, cnt, ynbrs, ycnt, nranks):
@@ -740,10 +768,16 @@ def _return_mirror(nbrs, cnt, ynbrs, ycnt, nranks):
             [a + b for a, b in zip(cnt, ycnt)])
 
 
-def _tree_outputs(nbrs, cnt, k_cap, tiles_skipped, dists, pruned):
-    """The tree bodies' outputs in ``_systolic_local``'s form: the exact
-    int64 counters become the float32 the RunStats normalization uses."""
+def _tree_outputs(nbrs, cnt, orders, k_cap, tiles_skipped, dists, pruned):
+    """The tree bodies' outputs in ``_systolic_local``'s form: each rank's
+    rows back in the caller's order (row i of a block's DFS order is its
+    row ``orders[me][i]``), and the exact int64 counters as the float32
+    the RunStats normalization uses."""
     dev = nbrs[0].device
+    nbrs = [torch.empty_like(a).index_copy_(0, o, a)
+            for a, o in zip(nbrs, orders)]
+    cnt = [torch.empty_like(a).index_copy_(0, o, a)
+           for a, o in zip(cnt, orders)]
     overflow = torch.stack([(c > k_cap).any() for c in cnt])
     counts = [torch.stack([torch.as_tensor(v, dtype=torch.int64, device=dev)
                            for v in vals]).to(torch.float32)

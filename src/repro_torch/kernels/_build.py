@@ -59,12 +59,14 @@ _ENTRY = {
                           (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P)),
     "bits_to_cols": ("bits_to_cols_launch", (_P, _P, _I, _I, _I, _P)),
     "tree_frontier": ("tree_frontier_launch",
-                      (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P)),
+                      (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                       _I, _F, _F, _I, _P)),
     "tree_frontier_hamming": ("tree_frontier_hamming_launch",
                               (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                _P)),
     "tree_frontier_l1": ("tree_frontier_l1_launch",
-                         (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P)),
+                         (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
+                          _I, _P)),
     "leaf_range_pack": ("leaf_range_pack_launch",
                         (_P, _LL, _P, _P, _P, _P, _I, _I, _P)),
     "pairwise_sqdist": ("pairwise_sqdist_launch",

@@ -1,5 +1,5 @@
-// The fp32 L1 (Manhattan) distance tile shared by nng_tile_l1.cu and
-// tree_frontier_l1.cu.
+// The fp32 L1 (Manhattan) distance tile shared by nng_tile_l1.cu,
+// nng_tile_grouped_l1.cu and nng_tile_ghost_l1.cu.
 //
 // One 256-thread block owns a 128 x 128 tile (tile_io.cuh). x and y are
 // staged through shared memory in chunks of 16 features, transposed (padded
@@ -14,10 +14,12 @@
 // partials of 4 rows x 4 columns at a time, so the partials and the
 // distances fit in registers together.
 //
-// Both kernels get d from distances(), so a pair's d is bit-identical in
-// the two, and a leaf's `d <= eps` in the tree frontier is the tile's own
-// hit test. Ragged q, p and d are masked: out-of-range features load as 0
-// in both operands, and |0 - 0| adds exactly 0 to a partial.
+// The kernels get d from distances(), and l1_pipe.cuh's core (under
+// tree_frontier_l1.cu) sums in the same order, so a pair's d is
+// bit-identical in all of them, and a leaf's `d <= eps` in the tree
+// frontier is the tile's own hit test. Ragged q, p and d are masked:
+// out-of-range features load as 0 in both operands, and |0 - 0| adds
+// exactly 0 to a partial.
 #pragma once
 
 #include "tile_io.cuh"

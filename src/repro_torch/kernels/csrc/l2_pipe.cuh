@@ -1,9 +1,10 @@
 // The pipelined fp32 L2 product core of nng_tile.cu, eps_count.cu,
-// pairwise_sqdist.cu and nng_tile_ghost.cu.
+// pairwise_sqdist.cu, nng_tile_ghost.cu and tree_frontier.cu, and the walk
+// and staging that l1_pipe.cuh's L1 core (tree_frontier_l1.cu) shares.
 //
 // Same function and same arithmetic as l2_tile.cuh's products and d2, so a
-// pair's d2 here is bit-identical to the one that the kernels still on
-// l2_tile.cuh compute (nng_tile_grouped, tree_frontier):
+// pair's d2 here is bit-identical to the one that the kernel still on
+// l2_tile.cuh computes (nng_tile_grouped):
 //   - each pair's product is one fmaf chain over k = 0, 1, ..., d - 1 in
 //     ascending order from 0.f (no split-K, no second accumulator);
 //   - each row norm is one fmaf(v, v, .) chain in the same order;
@@ -24,7 +25,8 @@
 //     + gridDim.x, ... of the output row after row, or of a list of tile
 //     indices in the same numbering whose length the block reads from
 //     device memory (a launch whose live tiles are found on the card, with
-//     no host sync: nng_tile_ghost.cu; blocks past the count exit);
+//     no host sync: nng_tile_ghost.cu, tree_frontier.cu,
+//     tree_frontier_l1.cu; blocks past the count exit);
 //   - the block's (tile, 32-feature chunk) pairs form one stream, loaded
 //     STAGES - 1 chunks ahead into a ring of stages in dynamic shared
 //     memory, so the next tile's first chunk loads while this tile ends
@@ -246,6 +248,17 @@ __device__ __forceinline__ void chunk_products(const Stage& s,
   }
 }
 
+// The walk's per-chunk body (a template parameter of run): the L2 core's
+// products, with the rows' squared norms staged beside each tile's first
+// chunk. l1_pipe.cuh's body sums L1 distances and stages no norms.
+struct Dot {
+  static constexpr bool NORMS = true;
+  __device__ __forceinline__ static void chunk(const Stage& s,
+                                               float (&acc)[TM][PTN]) {
+    chunk_products(s, acc);
+  }
+};
+
 // The four tensor maps of a TMA launch: x and y in BK x PM and BK x PN
 // boxes, their norms in PM and PN boxes.
 struct Maps {
@@ -258,7 +271,10 @@ struct Maps {
 // (row_norms_kernel's xn and yn) in shared memory. TMA copies through the
 // tensor maps if TMA, else 4-byte copies from x, y, xn and yn. Must be
 // launched with PTHREADS threads and SMEM_BYTES of dynamic shared memory;
-// every thread of the block calls it.
+// every thread of the block calls it. Body::chunk sums each staged chunk
+// into acc (Dot: the products above); without Body::NORMS no norms are
+// staged (xn, yn and their maps are not read, and epi's xnorm and ynorm
+// hold nothing).
 //
 // The tiles: without LIST, every tile of the (q, p) output, numbered row
 // after row (t = (m0 / PM) * nt + n0 / PN); with LIST, entries
@@ -266,7 +282,7 @@ struct Maps {
 // walk then skips the tiles the list leaves out; both pointers are read on
 // the device). The implicit walk compiles to the same code as before the
 // list existed: LIST is a template parameter.
-template <bool TMA, bool LIST = false, class Epi>
+template <bool TMA, bool LIST = false, class Body = Dot, class Epi>
 __device__ __forceinline__ void run(const Maps& maps,
                                     const float* __restrict__ x,
                                     const float* __restrict__ y,
@@ -319,10 +335,13 @@ __device__ __forceinline__ void run(const Maps& maps,
           const unsigned bar = bar0 + 8 * slot;
           // the block's generic reads of the slot before the async writes
           asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-          mbar_expect(bar, STAGE_BYTES + (pk == 0 ? sizeof(Norms) : 0));
+          if (Body::NORMS)
+            mbar_expect(bar, STAGE_BYTES + (pk == 0 ? sizeof(Norms) : 0));
+          else
+            mbar_expect(bar, STAGE_BYTES);
           tma_load(dst, &maps.x, pk * BK, pm0, bar);
           tma_load(dst + PM * BK * 4, &maps.y, pk * BK, pn0, bar);
-          if (pk == 0) {
+          if (Body::NORMS && pk == 0) {
             tma_load1(ndst, &maps.xn, pm0, bar);
             tma_load1(ndst + PM * 4, &maps.yn, pn0, bar);
           }
@@ -330,7 +349,7 @@ __device__ __forceinline__ void run(const Maps& maps,
       } else {
         copy_rows4<PM>(dst, x, q, d, pm0, pk * BK);
         copy_rows4<PN>(dst + PM * BK * 4, y, p, d, pn0, pk * BK);
-        if (pk == 0) {
+        if (Body::NORMS && pk == 0) {
           copy_vec4<PM>(ndst, xn, q, pm0);
           copy_vec4<PN>(ndst + PM * 4, yn, p, pn0);
         }
@@ -368,7 +387,7 @@ __device__ __forceinline__ void run(const Maps& maps,
     }
     __syncthreads();
     issue(slot == 0 ? STAGES - 1 : slot - 1);
-    chunk_products(ring[slot], acc);
+    Body::chunk(ring[slot], acc);
     if (++slot == STAGES) {
       slot = 0;
       phase ^= 1u;
@@ -483,9 +502,10 @@ inline int persistent_grid(Kernel kernel, int q, int p, int sms,
 
 // Everything a launch of `kernel` needs, on `stream`: the rows' norms
 // into xn (q,) and yn (p,) (row_norms_kernel; NaN for a y row whose
-// y_valid flag is 0, if y_valid is not null), the tensor maps if the TMA
-// path applies (tma), the grid size and the kernel's shared-memory opt-in.
-// Returns a CUDA error code (0 on success).
+// y_valid flag is 0, if y_valid is not null; none if xn is null: a body
+// without NORMS), the tensor maps if the TMA path applies (tma), the grid
+// size and the kernel's shared-memory opt-in. Returns a CUDA error code
+// (0 on success).
 template <class Kernel>
 inline int prepare(Kernel kernel, bool tma, const void* x, const void* y,
                    const void* y_valid, void* xn, void* yn, int q, int p,
@@ -495,12 +515,12 @@ inline int prepare(Kernel kernel, bool tma, const void* x, const void* y,
   if (tma) {
     e = matrix_map(&maps.x, x, q, d, PM);
     if (e == 0) e = matrix_map(&maps.y, y, p, d, PN);
-    if (e == 0) e = vector_map(&maps.xn, xn, q, PM);
-    if (e == 0) e = vector_map(&maps.yn, yn, p, PN);
+    if (e == 0 && xn != nullptr) e = vector_map(&maps.xn, xn, q, PM);
+    if (e == 0 && xn != nullptr) e = vector_map(&maps.yn, yn, p, PN);
     if (e != 0) return e;
   }
   e = persistent_grid(kernel, q, p, sms, blocks);
-  if (e != 0) return e;
+  if (e != 0 || xn == nullptr) return e;
   const int grid = (q > p ? q : p) / 256 + 1;
   row_norms_kernel<<<grid < 4 * sms ? grid : 4 * sms, 256, 0, stream>>>(
       static_cast<const float*>(x), q, d, nullptr, static_cast<float*>(xn));

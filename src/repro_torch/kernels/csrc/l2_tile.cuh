@@ -1,4 +1,4 @@
-// The fp32 L2 tile shared by nng_tile.cu and tree_frontier.cu.
+// The fp32 L2 tile of nng_tile_grouped.cu, and the d2 of l2_pipe.cuh's core.
 //
 // The block geometry and epilogues are tile_io.cuh's: one 256-thread block
 // owns a 128 x 128 (query row x candidate column) tile. x and y are staged
@@ -8,9 +8,9 @@
 // tile of fp32 FMAs and reads its 16 x values as broadcast float4 loads.
 // The row norms are summed in the same pass over the staged chunks.
 //
-// Both kernels get d2 from l2tile::d2 over the same products and norms, so
-// a pair's d2 is bit-identical in the two, and a leaf's `d2 <= eps2` test in
-// the tree frontier is the tile's own hit test. The arithmetic is IEEE fp32
+// Both cores get d2 from l2tile::d2 over the same products and norms, so a
+// pair's d2 is bit-identical in the two, and a leaf's `d2 <= eps2` test in
+// the tree frontier (on l2_pipe.cuh) is the tile's own hit test. The arithmetic is IEEE fp32
 // on the CUDA cores (no TF32, no tensor cores). Ragged q, p and d are masked:
 // out-of-range features load as 0, which adds exactly 0 to every sum.
 #pragma once

@@ -21,96 +21,31 @@
 // pairs only (2 fp32 instructions per feature and pair) and must read q, c
 // and the active words and write two words per 32 pairs; on the
 // traversal's sparse masks those bytes outweigh the active pairs'
-// instructions, so the bound is bytes. The kernel computes every pair of a
-// 128 x 128 block that has one active pair.
+// instructions, so the bound is bytes. What a launch costs beyond that is
+// the pairs of the tiles it computes.
 //
-// What the simple design does about it: tile_io.cuh's prologue stages the
-// block's active words and a block with none writes zero words and leaves
-// (__syncthreads_or); otherwise the L1 tile of nng_tile_l1.cu
-// (l1_tile.cuh), so a leaf's d is bit-identical to the tile kernel's, and
-// tile_io.cuh's __ballot_sync epilogue. Ragged nq and n are masked:
-// out-of-range nodes are never active.
-#include "l1_tile.cuh"
-
-namespace {
-
-using namespace l1tile;
-
-__global__ void __launch_bounds__(THREADS, 2)
-tree_frontier_l1_kernel(const float* __restrict__ q,
-                        const float* __restrict__ c,
-                        const float* __restrict__ rad,
-                        const int32_t* __restrict__ leaf,
-                        const uint32_t* __restrict__ act,
-                        uint32_t* __restrict__ emit,
-                        uint32_t* __restrict__ expand, int nq, int n, int d,
-                        int nw, float eps) {
-  __shared__ Smem s;
-  __shared__ uint32_t sact[BM][WPB];
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-  const int w0 = n0 >> 5;
-
-  if (!stage_active(act, nq, nw, m0, w0, sact)) {
-    zero_masks(nq, nw, m0, w0, emit, expand);
-    return;
-  }
-  float acc[TM][TN];
-  distances(q, c, nq, n, d, m0, n0, s, acc);
-
-  float r[TN];
-  bool ok[TN];
-  bool lf[TN];
-#pragma unroll
-  for (int j = 0; j < TN; ++j) {
-    const int col = n0 + lane + 32 * j;
-    ok[j] = col < n;
-    r[j] = ok[j] ? rad[col] : 0.f;
-    lf[j] = ok[j] && leaf[col] != 0;
-  }
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    bool e_bit[TN];
-    bool x_bit[TN];
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const bool a = ok[j] && active_bit(sact, warp * TM + i, j);
-      const float dist = acc[i][j];
-      const float slack =
-          __fadd_rn(__fmul_rn(__fadd_rn(__fadd_rn(dist, r[j]), eps), 1e-5f),
-                    1e-6f);
-      x_bit[j] = false;
-      if (lf[j]) {
-        e_bit[j] = a && dist <= eps;
-      } else {
-        e_bit[j] = a && __fadd_rn(dist, r[j]) <= __fsub_rn(eps, slack);
-        x_bit[j] = a && !e_bit[j] &&
-                   dist <= __fadd_rn(__fadd_rn(r[j], eps), slack);
-      }
-    }
-    store_masks(e_bit, x_bit, m0 + warp * TM + i, nq, w0, nw, emit, expand);
-  }
-}
-
-}  // namespace
+// What the design does about it: tree_frontier.cu's design
+// (frontier_pipe.cuh: queries in their forest's DFS order, a plan pass that
+// lists the live 64 x 256 tiles on the card and zeroes the dead ones' words,
+// a persistent walk over the live tiles, the same epilogue with the leaf
+// test d <= eps) on l1_pipe.cuh's core: l2_pipe.cuh's walk and staging with
+// an L1 body in l1_tile.cuh's summation order, so a leaf's d is
+// nng_tile_l1's bit for bit.
+#include "frontier_pipe.cuh"
 
 // emit and expand are (nq, nw) with nw = ceil(n / 32); every word is
-// written. Launches on `stream` and returns cudaGetLastError().
+// written. tiles and ntiles are as tree_frontier_launch's; sms is the
+// device's SM count. Launches on `stream` and returns a CUDA error code:
+// the memset's, the tensor maps', shared-memory opt-in's or occupancy
+// query's, else cudaGetLastError() of the launches (0 on success).
 extern "C" int tree_frontier_l1_launch(const void* q, const void* c,
                                        const void* rad, const void* leaf,
-                                       const void* act, void* emit,
+                                       const void* act, void* tiles,
+                                       void* ntiles, void* emit,
                                        void* expand, int nq, int n, int d,
-                                       float eps, void* stream) {
-  const int nw = (n + 31) / 32;
-  const dim3 grid((n + BN - 1) / BN, (nq + BM - 1) / BM);
-  tree_frontier_l1_kernel<<<grid, THREADS, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(c),
-      static_cast<const float*>(rad), static_cast<const int32_t*>(leaf),
-      static_cast<const uint32_t*>(act), static_cast<uint32_t*>(emit),
-      static_cast<uint32_t*>(expand), nq, n, d, nw, eps);
-  return static_cast<int>(cudaGetLastError());
+                                       float eps, int sms, void* stream) {
+  return fpipe::frontier_launch<false>(q, c, rad, leaf, act, tiles, ntiles,
+                                       emit, expand, nullptr, nullptr, nq, n,
+                                       d, eps, 0.f, sms,
+                                       static_cast<cudaStream_t>(stream));
 }

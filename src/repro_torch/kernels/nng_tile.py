@@ -491,17 +491,24 @@ def ghost_tile_plan(x_gbits, y_group):
     rows = _key_order(key)
     keys = key[rows].contiguous()
     live = ghost_block_active(_pad_rows(keys, tq)[0],
-                              _pad_rows(y_group, tp, -1)[0], tq,
-                              tp).reshape(-1)
-    # a stable partition by scatter: live tile t goes to the live tiles
-    # before it, dead tile t after all live ones and the dead before it
+                              _pad_rows(y_group, tp, -1)[0], tq, tp)
+    return (rows, keys) + live_tiles_first(live.reshape(-1))
+
+
+def live_tiles_first(live):
+    """A persistent walk's tile list from the (T,) bool live flags of
+    tiles 0 .. T - 1: (tiles (T,) int32, the live ones first and then the
+    dead ones, each in ascending order; count (1,) int32, the live ones),
+    on the flags' device with no host sync. A stable partition by
+    scatter: live tile t goes after the live tiles before it, dead tile t
+    after all live ones and the dead ones before it."""
     n = live.shape[0]
     ramp = torch.arange(1, n + 1, dtype=torch.int32, device=live.device)
     n_live = torch.cumsum(live, 0, dtype=torch.int32)
     count = n_live[-1:]
     pos = torch.where(live, n_live, count + ramp - n_live) - 1
     tiles = torch.empty_like(ramp).scatter_(0, pos.long(), ramp - 1)
-    return rows, keys, tiles, count
+    return tiles, count
 
 
 def nng_tile_ghost_cuda(x, y, x_gbits, y_group, eps: float):

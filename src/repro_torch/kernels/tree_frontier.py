@@ -25,16 +25,22 @@ Words are int32 tensors holding the uint32 bit pattern (node j is word
 j // 32, bit j % 32), as in ``nng_tile``.
 
 Three metrics, each a hand-written CUDA kernel that takes CUDA tensors
-only (a (128 × 128) block with no active pair skips its distances) and its
-plain PyTorch version, with the distances of the metric's ε-tile
-(``nng_tile``), so a leaf's test is the tile's own:
+only and its plain PyTorch version, with the distances of the metric's
+ε-tile (``nng_tile``), so a leaf's test is the tile's own:
 
-  - L2: ``tree_frontier_cuda`` (``csrc/tree_frontier.cu``) /
-    ``tree_frontier_ref``;
-  - Hamming: ``tree_frontier_hamming_cuda`` (``csrc/tree_frontier_hamming.cu``)
+  - L2: ``tree_frontier_cuda`` (``csrc/tree_frontier.cu`` on the pipelined
+    core ``csrc/l2_pipe.cuh``) / ``tree_frontier_ref``;
+  - Hamming: ``tree_frontier_hamming_cuda`` (``csrc/tree_frontier_hamming.cu``;
+    a (128 × 128) block with no active pair skips its distances)
     / ``tree_frontier_hamming_ref``;
-  - L1: ``tree_frontier_l1_cuda`` (``csrc/tree_frontier_l1.cu``) /
-    ``tree_frontier_l1_ref``.
+  - L1: ``tree_frontier_l1_cuda`` (``csrc/tree_frontier_l1.cu`` on
+    ``csrc/l1_pipe.cuh``) / ``tree_frontier_l1_ref``.
+
+The L2 and L1 kernels compute only the live ``PIPE_TILE`` tiles, those
+with an active word: a plan pass on the card lists them (no host sync)
+and writes zero words for the others, by the rule of
+``frontier_tile_plan``, its plain version. The engine hands each block's
+queries in its forest's DFS order, which makes most tiles dead.
 """
 from __future__ import annotations
 
@@ -42,10 +48,11 @@ import numpy as np
 import torch
 
 from . import _build
-from .nng_tile import (check_operands, eps2_f32, eps_int, hamming_dist,
-                       l1_dist, pack_words, unpack_words)
+from .nng_tile import (PIPE_TILE, check_operands, eps2_f32, eps_int,
+                       hamming_dist, l1_dist, live_tiles_first, pack_words,
+                       row_norm_scratch, sm_count, unpack_words)
 
-TQ = TN = 128        # the kernel's block: query rows × level nodes
+TQ = TN = 128        # the Hamming kernel's block: query rows × level nodes
 
 
 def _frontier_masks_float(d, rad, leaf, active, eps, leaf_hit=None):
@@ -116,9 +123,30 @@ def tree_frontier_l1_ref(q, c, rad, leaf, act_bits, eps: float):
     return pack_words(emit), pack_words(expand)
 
 
-def _launch_frontier(lib: str, q, c, rad, leaf, act_bits, dtype, *thr):
-    """Check the operands of frontier kernel ``lib`` and launch it with
-    thresholds ``thr`` -> (emit, expand, launched)."""
+def frontier_tile_plan(act_bits, tile_rows: int, tile_words: int):
+    """The live-tile list of a frontier launch on packed active words
+    act_bits (nq, nw) int32: the (tile_rows × tile_words) blocks of words,
+    numbered row after row, a block live iff one of its words is nonzero
+    (padding past nq and nw is zero). Returns (tiles (T,) int32, the live
+    ones first, each part in ascending order; count (1,) int32, the live
+    ones), on act_bits' device with no host sync. The plain version of the
+    pipelined frontier kernels' plan pass (``csrc/frontier_pipe.cuh``),
+    which lists the same live tiles (in the order of its atomics) at
+    ``PIPE_TILE``; the tests, ``chip_smoke.py`` and ``tree_ab.py --ratios``
+    count live tiles with it."""
+    nq, nw = act_bits.shape
+    nz = (act_bits != 0).view(torch.uint8)
+    if nq % tile_rows:
+        nz = torch.nn.functional.pad(nz, (0, 0, 0, -nq % tile_rows))
+    rows = nz.view(-1, tile_rows, nw).amax(1)              # (mt, nw)
+    if nw % tile_words:
+        rows = torch.nn.functional.pad(rows, (0, -nw % tile_words))
+    live = rows.view(rows.shape[0], -1, tile_words).amax(2) != 0
+    return live_tiles_first(live.reshape(-1))
+
+
+def _check_frontier(lib: str, q, c, rad, leaf, act_bits, dtype):
+    """Check the operands of frontier kernel ``lib`` -> (nq, n, d, nw)."""
     check_operands(f"{lib}_cuda", ("q", q, dtype, 2), ("c", c, dtype, 2),
                    ("rad", rad, torch.float32, 1),
                    ("leaf", leaf, torch.int32, 1),
@@ -132,6 +160,14 @@ def _launch_frontier(lib: str, q, c, rad, leaf, act_bits, dtype, *thr):
                          f"c {tuple(c.shape)}, rad {tuple(rad.shape)}, "
                          f"leaf {tuple(leaf.shape)}, act_bits "
                          f"{tuple(act_bits.shape)}")
+    return nq, n, d, nw
+
+
+def _launch_frontier(lib: str, q, c, rad, leaf, act_bits, dtype, *thr):
+    """Check the operands of frontier kernel ``lib`` (one 128 × 128 block a
+    tile) and launch it with thresholds ``thr`` -> (emit, expand,
+    launched)."""
+    nq, n, d, nw = _check_frontier(lib, q, c, rad, leaf, act_bits, dtype)
     emit = torch.empty((nq, nw), dtype=torch.int32, device=q.device)
     expand = torch.empty_like(emit)
     if nq == 0 or nw == 0:
@@ -146,14 +182,48 @@ def _launch_frontier(lib: str, q, c, rad, leaf, act_bits, dtype, *thr):
     return emit, expand, True
 
 
+def _launch_pipe_frontier(lib: str, q, c, rad, leaf, act_bits, thr,
+                          norms: bool):
+    """Check the operands of pipelined frontier kernel ``lib`` and launch
+    it once (its plan pass, then its walk over the live tiles) with
+    thresholds ``thr``, int32 scratch for the tile list and its count and,
+    with ``norms``, fp32 scratch for the rows' squared norms -> (emit,
+    expand, launched)."""
+    nq, n, d, nw = _check_frontier(lib, q, c, rad, leaf, act_bits,
+                                   torch.float32)
+    emit = torch.empty((nq, nw), dtype=torch.int32, device=q.device)
+    expand = torch.empty_like(emit)
+    if nq == 0 or nw == 0:
+        return emit, expand, False
+    tq, tn = PIPE_TILE
+    tiles = torch.empty(-(-nq // tq) * -(-n // tn), dtype=torch.int32,
+                        device=q.device)
+    count = torch.empty(1, dtype=torch.int32, device=q.device)
+    scratch = row_norm_scratch(nq, n, q.device) if norms else ()
+    launch = _build.entry(lib)
+    with torch.cuda.device(q.device):
+        code = launch(q.data_ptr(), c.data_ptr(), rad.data_ptr(),
+                      leaf.data_ptr(), act_bits.data_ptr(), tiles.data_ptr(),
+                      count.data_ptr(), emit.data_ptr(), expand.data_ptr(),
+                      *(t.data_ptr() for t in scratch), nq, n, d, *thr,
+                      sm_count(q.device.index),
+                      torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, code)
+    return emit, expand, True
+
+
 def tree_frontier_cuda(q, c, rad, leaf, act_bits, eps: float):
     """The L2 CUDA kernel: q (nq, d), c (N, d), rad (N,) fp32, leaf (N,)
     int32, act_bits (nq, ceil(N/32)) int32, all contiguous on one CUDA
     device -> (emit, expand), each (nq, ceil(N/32)) int32. Any nq, N and d:
-    the kernel masks ragged edges, and nodes past N - 1 are never active."""
-    emit, expand, launched = _launch_frontier(
-        "tree_frontier", q, c, rad, leaf, act_bits, torch.float32,
-        float(np.float32(eps)), eps2_f32(eps))
+    the kernel masks ragged edges, and nodes past N - 1 are never active.
+
+    A plan pass and a persistent grid (``csrc/l2_pipe.cuh``) over the live
+    tiles (``csrc/frontier_pipe.cuh``); a leaf's d² is ``nng_tile_cuda``'s
+    bit for bit."""
+    emit, expand, launched = _launch_pipe_frontier(
+        "tree_frontier", q, c, rad, leaf, act_bits,
+        (float(np.float32(eps)), eps2_f32(eps)), norms=True)
     tree_frontier_cuda.launches += launched
     return emit, expand
 
@@ -170,10 +240,11 @@ def tree_frontier_hamming_cuda(q, c, rad, leaf, act_bits, eps: float):
 
 def tree_frontier_l1_cuda(q, c, rad, leaf, act_bits, eps: float):
     """The L1 CUDA kernel: q (nq, d), c (N, d) fp32, the rest as
-    ``tree_frontier_cuda``."""
-    emit, expand, launched = _launch_frontier(
-        "tree_frontier_l1", q, c, rad, leaf, act_bits, torch.float32,
-        float(np.float32(eps)))
+    ``tree_frontier_cuda``; one launch over the live tiles on
+    ``csrc/l1_pipe.cuh``, whose d is ``nng_tile_l1_cuda``'s bit for bit."""
+    emit, expand, launched = _launch_pipe_frontier(
+        "tree_frontier_l1", q, c, rad, leaf, act_bits,
+        (float(np.float32(eps)),), norms=False)
     tree_frontier_l1_cuda.launches += launched
     return emit, expand
 

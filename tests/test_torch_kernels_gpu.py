@@ -8,7 +8,8 @@ reference package, so it runs on a GPU machine that has neither:
 
 ``gap_safe_eps``, ``random_words``, ``hamming_points``, ``frontier_case``,
 ``range_deltas``, ``grouped_case`` and ``ghost_case`` are shared with the
-CPU tests in ``test_torch_kernels.py``, ``sqdist_bound`` and ``count_eps``
+CPU tests in ``test_torch_kernels.py`` (``frontier_case`` also with
+``test_torch_frontier_plan.py``), ``sqdist_bound`` and ``count_eps``
 with ``test_torch_distance_kernels.py``.
 
 Tolerances: the Hamming kernels are exact integer arithmetic and must equal
@@ -217,6 +218,95 @@ def test_tree_frontier_cuda_all_inactive(cuda_device):
         q, c, torch.ones(544, device=cuda_device),
         torch.zeros(544, dtype=torch.int32, device=cuda_device), act, 5.0)
     assert not e.any() and not x.any()
+
+
+# (nq, n, d, pattern) for the pipelined L2 and L1 frontiers (64 x 256 tiles
+# over frontier_tile_plan's list): one live tile ("one"), no active word
+# ("none": a zero count), ragged nq and n, d % 4 != 0 (the cp.async copies)
+# and d % 4 == 0 (TMA), more tiles than the grid's resident blocks
+# ("dense", 33 x 17 = 561 tiles), and the sparse random mask ("random")
+PIPE_FRONTIER_CASES = [(200, 700, 17, "one"), (200, 700, 16, "one"),
+                       (130, 300, 9, "none"), (130, 300, 9, "random"),
+                       (65, 257, 12, "random"), (1000, 1300, 33, "random"),
+                       (1000, 1300, 128, "random"), (2100, 4100, 5, "dense")]
+
+
+def pipe_frontier_inputs(metric, nq, n, d, pattern):
+    """A frontier case whose active mask follows ``pattern``, as tensors:
+    (q, c, rad, leaf, act words, eps)."""
+    q, c, rad, leaf, act, eps = frontier_case(nq, n, d, nq + n + d,
+                                              metric=metric)
+    if pattern == "one":
+        keep = np.zeros_like(act)
+        keep[64:128, 256:512] = True          # tile (1, 1) of 64 x 256
+        act &= keep
+    elif pattern == "none":
+        act[:] = False
+    elif pattern == "dense":
+        act[:] = True
+    words = tnt.pack_words(torch.from_numpy(np.pad(act, ((0, 0),
+                                                         (0, -n % 32)))))
+    return (tuple(torch.from_numpy(a) for a in (q, c, rad, leaf))
+            + (words, eps))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", ["euclidean", "manhattan"])
+@pytest.mark.parametrize("nq,n,d,pattern", PIPE_FRONTIER_CASES)
+def test_pipe_frontier_cuda_matches_plain(cuda_device, metric, nq, n, d,
+                                          pattern):
+    """tree_frontier and tree_frontier_l1 (one launch over the live tiles)
+    equal their plain versions bit for bit in emit and expand, and launch
+    once."""
+    kern = ttf.tree_frontier_cuda if metric == "euclidean" else \
+        ttf.tree_frontier_l1_cuda
+    *ops, eps = pipe_frontier_inputs(metric, nq, n, d, pattern)
+    tiles, count = ttf.frontier_tile_plan(ops[4], 64, 8)
+    want_live = {"one": 1, "none": 0, "dense": len(tiles)}.get(pattern)
+    assert want_live is None or int(count[0]) == want_live
+    e0, x0 = tops.tree_frontier_step(*ops, eps, metric=metric)
+    before = kern.launches
+    e1, x1 = kern(*(a.to(cuda_device) for a in ops), eps)
+    assert kern.launches == before + 1
+    if pattern != "none":
+        assert int(tnt.unpack_words(e0).sum()) > 0
+        assert int(tnt.unpack_words(x0).sum()) > 0
+    assert torch.equal(e1.cpu(), e0) and torch.equal(x1.cpu(), x0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", ["euclidean", "manhattan"])
+@pytest.mark.parametrize("q,p,d", [(300, 700, 17), (1000, 777, 128),
+                                   (129, 300, 9)])
+def test_pipe_frontier_leaf_test_is_the_tiles(cuda_device, metric, q, p, d):
+    """With every node a leaf and every pair active, the frontier's emit
+    words equal the ε-tile's hit words bit for bit at an eps exactly on
+    one pair's fp32 distance (nng_tile's d² on l2_pipe.cuh; nng_tile_l1's
+    d on l1_tile.cuh): the frontiers' per-pair arithmetic is the tiles'."""
+    g = torch.Generator(device=cuda_device).manual_seed(q + p + d)
+    x = torch.randn(q, d, generator=g, device=cuda_device)
+    y = torch.randn(p, d, generator=g, device=cuda_device)
+    ones = torch.ones(p, dtype=torch.int32, device=cuda_device)
+    if metric == "euclidean":
+        eps = eps_on_pair(pairwise_sqdist_cuda(x, y), 0.02)
+        assert eps is not None
+        _, bits = tnt.nng_tile_cuda(x, y, ones, eps)
+        kern = ttf.tree_frontier_cuda
+    else:
+        # an fp32 L1 distance of a pair, as the tile computes it
+        dist = tnt.l1_dist(x, y)
+        eps = float(torch.quantile(dist.flatten()[:1 << 20], 0.02))
+        eps = float(dist.flatten()[(dist.flatten() - eps).abs().argmin()])
+        _, bits = tnt.nng_tile_l1_cuda(x, y, ones, eps)
+        kern = ttf.tree_frontier_l1_cuda
+    every = torch.zeros((q, p + (-p % 32)), dtype=torch.bool,
+                        device=cuda_device)
+    every[:, :p] = True
+    act = tnt.pack_words(every)
+    emit, expand = kern(x, y, torch.zeros(p, device=cuda_device), ones, act,
+                        eps)
+    assert int(tnt.unpack_words(bits).sum()) > 0
+    assert torch.equal(emit, bits) and not expand.any()
 
 
 @pytest.mark.gpu

@@ -91,7 +91,7 @@ def fake_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "current_stream", lambda: Stream())
     monkeypatch.setattr(_build, "entry", entry)
     monkeypatch.setattr(_build, "load", lambda: None)
-    for mod in (tnt, tec, tpl):
+    for mod in (tnt, tec, tpl, ttf):
         monkeypatch.setattr(mod, "sm_count", lambda _i: SMS)
     return calls
 
@@ -148,7 +148,8 @@ WRAPPERS = {
                                                           _i32(P, W)),
     "eps_count": lambda: tec.eps_count_cuda(_f32(Q, D), _f32(P, D), 1.5),
 }
-PERSISTENT = {"nng_tile", "eps_count", "pairwise_sqdist", "nng_tile_ghost"}
+PERSISTENT = {"nng_tile", "eps_count", "pairwise_sqdist", "nng_tile_ghost",
+              "tree_frontier", "tree_frontier_l1"}
 
 
 def test_every_entry_has_a_wrapper_case():
@@ -193,3 +194,29 @@ def test_persistent_wrappers_launch_once_for_any_rows(fake_card, q, d):
     assert pa[5:9] == (q, P, d, SMS)
     assert ga[1] == y.data_ptr() and ga[3] == yg.data_ptr()
     assert ga[11:17] == (q, P, d, 2, tnt.eps2_f32(2.5), SMS)
+
+
+def test_frontier_wrappers_launch_once_with_plan_scratch(fake_card):
+    """tree_frontier and tree_frontier_l1 make one call of their entry
+    point (its plan pass and its walk) with q's, c's, rad's, leaf's and
+    the active words' own pointers, emit and expand (the returned
+    tensors), (nq, n, d), the thresholds and the SM count; the L2 one also
+    norm scratch."""
+    nq, n, d = 130, 300, 17
+    q, c = _f32(nq + 1, d)[1:], _f32(n, d)
+    rad, leaf = _f32(n), _i32(n)
+    act = _i32(nq, 10)
+    outs = [ttf.tree_frontier_cuda(q, c, rad, leaf, act, 2.5),
+            ttf.tree_frontier_l1_cuda(q, c, rad, leaf, act, 2.5)]
+    assert [c_[0] for c_ in fake_card] == ["tree_frontier",
+                                           "tree_frontier_l1"]
+    eps = float(np.float32(2.5))
+    for (lib, args), (emit, expand) in zip(fake_card, outs):
+        assert args[:5] == (q.data_ptr(), c.data_ptr(), rad.data_ptr(),
+                            leaf.data_ptr(), act.data_ptr())
+        assert args[7:9] == (emit.data_ptr(), expand.data_ptr())
+        assert emit.shape == expand.shape == (nq, 10)
+        assert len(set(args[5:9])) == 4        # the list, its count, outputs
+    fa, la = fake_card[0][1], fake_card[1][1]
+    assert fa[11:17] == (nq, n, d, eps, tnt.eps2_f32(2.5), SMS)
+    assert la[9:13] == (nq, n, d, eps)
