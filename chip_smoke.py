@@ -55,13 +55,18 @@ each printed as it runs; any failed check raises and exits non-zero:
      kernel's [6f];
   7. Hamming at the ``nng-word2bits`` configuration's full size (399360 x
      25 words, synthetic stand-in from seed 0), eps = 40, 8 logical ranks:
-     ``nng_tile_hamming`` and ``tree_frontier_hamming`` bit-identical to
-     their plain versions at the path's inputs and at ragged shapes (and an
-     all-inactive mask) [7a]; ``build_nng`` with both traversals, each
-     kernel's launches from its own call, profiled [7b]; the tree graph
-     equal to the tiles graph and 1024 sampled rows equal to exact integer
+     ``nng_tile_hamming`` and ``tree_frontier_hamming`` (the pipelined
+     walk over the live tiles) bit-identical to their plain versions at
+     the path's inputs (the frontier's leaf decisions also equal
+     ``nng_tile_hamming``'s hits, and on one live tile), at ragged shapes
+     with w = 1, 9, 25, 33 (4-byte copies) and 32 (TMA), and on an
+     all-inactive mask [7a]; ``build_nng`` with both traversals, each
+     kernel's launches from its own call, profiled, their edges, counters
+     and comm_bytes equal to the parent's [7b]; the tree graph equal to
+     the tiles graph and 1024 sampled rows equal to exact integer
      distances to all n points [7c]; both kernels' times beside their
-     bounds [7d];
+     bounds, the frontier's beside the parent design's and its live
+     64 x 256 tiles beside the old 128 x 128 blocks [7d];
   8. L1 on the first 2^19 of the points of [3] (a depth cut, printed with
      its reason), eps in the widest gap near 26.5 of the sampled rows'
      float64 distances: ``nng_tile_l1``
@@ -88,11 +93,12 @@ each printed as it runs; any failed check raises and exits non-zero:
      tree flavour: the three ghost kernels against their plain versions on
      ragged inputs with m = 32, 40 and 70 cells, on disjoint cells and on
      ghost bits only outside y's cells (zero words), on keys that
-     interleave in the caller's order and on fewer live tiles than
-     resident blocks; the L2 kernel (ghost row order, live-tile list) bit
-     for bit, in the caller's row order, against its plain version at a
-     gap-safe eps and against ``nng_tile_grouped``'s hits under the ghost
-     test [10a]; the ring call at n = 2^20 with its launches and counters
+     interleave in the caller's order, on fewer live tiles than resident
+     blocks and on exactly one live tile; the L2 and L1 kernels (ghost row
+     order, live-tile list) bit for bit, in the caller's row order,
+     against their plain versions (L2 at a gap-safe eps, L1 at any) and
+     against the old cores' hits under the ghost test
+     (``nng_tile_grouped``'s d², ``nng_tile_l1``'s d) [10a]; the ring call at n = 2^20 with its launches and counters
      (equal to those printed before the ghost row order), the live pairs
      of the L2 kernel's tiles beside the old 128 x 128 blocks', the ghost
      kernel against its plain version (off the knife) and against
@@ -103,15 +109,20 @@ each printed as it runs; any failed check raises and exits non-zero:
      Hamming at the full [7] stand-in through the ring (or a printed cut
      when its id tables exceed TABLE_BUDGET), its graph equal to [7]'s bit
      for bit, its kernel at its own call's launch [10c]; L1 through the
-     ring at [8]'s cut, its graph against [8]'s off the knife, its kernel
-     likewise [10d]; the tree flavour with both ghost modes at 2^20 (the
-     ring's run profiled), the Hamming ring and the L1 collective
-     exchange, each graph against the point partition's, and the tree
-     kernels against their plain versions at a traversal captured from
-     each call [10e]; the three ghost kernels' times at their captured
-     launches beside their bounds over the pairs the function needs (the
-     live blocks' pairs printed beside), their plain versions' and the
-     library yardstick's, and the L2 call's parts (row order and tile
+     ring at [8]'s cut (the call profiled), its graph against [8]'s off
+     the knife, its edges, counters and comm_bytes equal to the parent's,
+     its kernel bit for bit against its plain version and against
+     ``nng_tile_l1``'s hits under the ghost test at its own call's launch
+     [10d]; the tree flavour with both ghost modes at 2^20 (the ring's
+     run profiled), the Hamming ring and the L1 collective exchange, each
+     graph against the point partition's and its edges, counters and
+     comm_bytes against the parent's, and the tree kernels against their
+     plain versions at a traversal captured from each call [10e]; the
+     three ghost kernels' times at their captured launches beside their
+     bounds over the pairs the function needs (the live tiles' pairs
+     printed beside, and for L2 and L1 the old 128 x 128 blocks' and the
+     parent design's time), their plain versions' and the library
+     yardstick's, and the L2 and L1 calls' parts (row order and tile
      list, gather, zeroed outputs, the launch) timed apart [10f];
  11. the distance-kernel API (the reference's ``repro.kernels``
      ``pairwise_sqdist``, ``pairwise_hamming``, ``eps_count``; no engine
@@ -185,6 +196,51 @@ TABLE_BUDGET = 32 << 30  # [9e], [10c]: all ranks' id tables on the card
 # them; the counters come from the reference's block schedule, which no
 # kernel's order moves
 RING_COUNTERS = ("6083616", "2968997", "4.08239e+11")
+# [7b], [10d], [10e]: each call's edges, work counters and comm_bytes as the
+# tree before the L1 ghost tile and the Hamming frontier moved onto the
+# pipelined cores (commit d884014) printed them (stats_line's format); no
+# kernel of this tree may move them
+PARENT_STATS = {
+    '[7b] tiles':
+        '19770044 edges; tiles_scheduled 36 tiles_skipped 0 '
+        'dists_evaluated 8.97122e+10 nodes_pruned 0; comm_bytes '
+        '{"ring_mirror": 21373747200.0, "ring_summary": 832.0, '
+        '"ring_points": 199680160.0}',
+    '[7b] tree':
+        '19770044 edges; tiles_scheduled 36 tiles_skipped 0 '
+        'dists_evaluated 1.52104e+09 nodes_pruned 1.47471e+09; comm_bytes '
+        '{"ring_mirror": 21373747200.0, "ring_summary": 832.0, '
+        '"ring_points": 166133760.0, "ring_forest": 600637440.0}',
+    '[10d] manhattan':
+        '6434535 edges; tiles_scheduled 6327720 tiles_skipped 3361906 '
+        'dists_evaluated 9.71838e+10 nodes_pruned 0; comm_bytes '
+        '{"coalesce": 287539200.0, "ghost_ring": 1129157120.0}',
+    '[10e] tree coll':
+        '35759614 edges; tiles_scheduled 0 tiles_skipped 0 dists_evaluated '
+        '4.51874e+09 nodes_pruned 4.04824e+09; comm_bytes {"coalesce": '
+        '560235520.0, "ghost": 801149440.0}',
+    '[10e] tree ring':
+        '35759614 edges; tiles_scheduled 0 tiles_skipped 0 dists_evaluated '
+        '4.35725e+09 nodes_pruned 3.90251e+09; comm_bytes {"coalesce": '
+        '560235520.0, "ghost_ring": 2225184000.0}',
+    '[10e] hamming tree ring':
+        '19770044 edges; tiles_scheduled 0 tiles_skipped 0 dists_evaluated '
+        '1.05329e+09 nodes_pruned 1.01219e+09; comm_bytes {"coalesce": '
+        '44886528.0, "ghost_ring": 175958784.0}',
+    '[10e] manhattan tree coll':
+        '6434535 edges; tiles_scheduled 0 tiles_skipped 0 dists_evaluated '
+        '1.12876e+09 nodes_pruned 1.02561e+09; comm_bytes {"coalesce": '
+        '287539200.0, "ghost": 372669440.0}',
+}
+# the parent design's times of the two kernels redesigned since (PERF.md
+# section 6, rows 10 and 12: commit ad36c62's chip_smoke.py and commit
+# d884014's kernel in tree_ab.py, on an NVIDIA H100 80GB HBM3 at 700.00 W),
+# printed beside this run's
+PARENT_MS = {"tree_frontier_hamming": "0.624 ms one level; 4.569 ms a warm "
+                                      "traversal (tree_ab.py --kernels); "
+                                      "128x128 blocks",
+             "nng_tile_ghost_l1": "56.924 ms (128x128 blocks in the "
+                                  "caller's order)"}
 
 # H100 SXM data sheet: fp32 outside the tensor cores, HBM3 bandwidth
 PEAK_FP32 = 67e12
@@ -421,7 +477,8 @@ def main() -> int:
         """Run ``fn()`` once under torch.profiler, tracing the card only
         (recording every host op slowed the tree run by a third); print its
         device busy time and idle share and the top 8 kernels by device
-        time. Reads the trace's raw events: building the profiler's
+        time, and the pipelined cores' kernels (``*pipe::``) below them.
+        Reads the trace's raw events: building the profiler's
         per-event Python objects takes minutes on the tree run's million
         launches. Returns (fn's result, wall seconds)."""
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -447,8 +504,11 @@ def main() -> int:
         print(f"{label} profiled {what} {run_s:.3f} s; device busy "
               f"{busy / 1e3:.1f} ms of {window / 1e3:.1f} ms (idle share "
               f"{1 - busy / window:.4f})")
-        for kname, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
-            print(f"{label}   {ms:10.2f} ms  {kname[:90]}")
+        ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
+        for rank, (kname, ms) in enumerate(ranked):
+            # the top 8, and the pipelined cores' kernels wherever they rank
+            if rank < 8 or "pipe::" in kname:
+                print(f"{label}   {ms:10.2f} ms  {kname[:90]}")
         return out, run_s
 
     def sample_check(label, graph, P):
@@ -1476,6 +1536,25 @@ def main() -> int:
         check(far <= q.shape[1], f"{label}: pairs differ off the L1 knife")
         return err
 
+    def stats_line(g_):
+        """A call's edges, work counters and comm_bytes, as PARENT_STATS
+        holds them."""
+        st_ = g_.stats
+        return (f"{g_.num_edges} edges; tiles_scheduled "
+                f"{st_.tiles_scheduled:.0f} tiles_skipped "
+                f"{st_.tiles_skipped:.0f} dists_evaluated "
+                f"{st_.dists_evaluated:.6g} nodes_pruned "
+                f"{st_.nodes_pruned:.6g}; comm_bytes "
+                f"{json.dumps(st_.comm_bytes)}")
+
+    def parent_check(label, g_):
+        """Fail unless call ``label``'s ``stats_line`` is the parent's."""
+        got, want = stats_line(g_), PARENT_STATS[label]
+        check(got == want, f"{label}: the graph or the counters moved: "
+                           f"{got}, the parent's {want}")
+        print(f"{label} edges, counters and comm_bytes equal the parent's "
+              f"(commit d884014): {got}")
+
     def graph_call(label, pts_, eps, metric, traversal):
         """``build_nng`` on the 8 logical ranks under torch.profiler, with
         every kernel's launches counted from this call alone."""
@@ -1537,7 +1616,8 @@ def main() -> int:
     def traversal_inputs(label, X, n_loc, eps, metric):
         """The forest of X on the card, then one traced traversal (block 0's
         points, in their forest's DFS order as the ring hands them, against
-        block 1's tree), and its live tiles against the rows in index order
+        block 1's tree; after an untimed one), and its live tiles against
+        the rows in index order
         (``order_counts``) -> (launch records, first pass's kernel inputs
         per level, forest L, the order counts)."""
         t0 = time.perf_counter()
@@ -1548,6 +1628,11 @@ def main() -> int:
         Fm = DeviceForest.from_tables(fo)
         F1_ = Fm.rank(1)
         qs, ids = engine_rows(X, Fm.rank(0), n_loc)
+        # an untimed traversal first, so that the timed one's launches hold
+        # no one-time cost (module loads, the first launches' set-up)
+        tree_traverse(qs, ids, torch.zeros_like(ids), F1_, eps, METRIC_K_CAP,
+                      metric)
+        torch.cuda.synchronize()
         _, wall_, lin, fst, _ = traced_traverse(qs, ids, F1_, eps,
                                                 METRIC_K_CAP, metric=metric)
         print(f"{label} forest built on the card in {build_s_:.3f} s: L {Lm},"
@@ -1610,6 +1695,9 @@ def main() -> int:
               f", {sum(nb for _, _, nb in trav)} bytes); live 64x256 tiles "
               f"{live['dfs'][1]} ({live['index'][1]} in index order), "
               f"128x128 blocks {live['dfs'][0]} ({live['index'][0]})")
+        if kern.__name__[:-5] in PARENT_MS:
+            print(f"{label} the parent design at the same level and "
+                  f"traversal: {PARENT_MS[kern.__name__[:-5]]}")
         return ms, plain_ms, bound, by, lib_ms
 
     print(f"[7] popcount rate {popc_rate:.4g}/s = {POPC_PER_CLK_SM} a clock "
@@ -1659,30 +1747,46 @@ def main() -> int:
             f"{c.shape[0]}, {int(tdev._popcount(act))} active pairs)",
             tree_frontier_hamming_cuda, tree_frontier_hamming_ref, q, c, rad,
             leaf, act, HAM_EPS))
-    gq = torch.from_numpy(rng.integers(-2**31, 2**31, size=(1000, 9))
-                          .astype(np.int32)).to(dev)
-    gc = torch.cat([gq[:500] ^ 1, torch.from_numpy(rng.integers(
-        -2**31, 2**31, size=(277, 9)).astype(np.int32)).to(dev)])
+    q, c, rad, leaf, act = h_first[leaf_lv][:5]
+    leaf_vs_tile(f"[7a] tree_frontier_hamming level {leaf_lv} vs "
+                 f"nng_tile_hamming", tree_frontier_hamming_cuda,
+                 nng_tile_hamming_cuda, q, c, rad, leaf, act, HAM_EPS)
+    ham_err = max(ham_err, frontier_vs_plain_m(
+        f"[7a] tree_frontier_hamming level {leaf_lv}, one live 64x256 tile",
+        tree_frontier_hamming_cuda, tree_frontier_hamming_ref, q, c, rad,
+        leaf, one_live_tile(act), HAM_EPS))
     grad = torch.from_numpy((rng.random(777) * 150).astype(np.float32)).to(dev)
     gleaf = torch.from_numpy((rng.random(777) < 0.4).astype(np.int32)).to(dev)
     gact = torch.from_numpy(rng.random((1000, 800)) < 0.7)
     gact[:128, :256] = False
     gact[:, 777:] = False
     gact = pack_words(gact).to(dev)
-    frontier_vs_plain_m("[7a] tree_frontier_hamming ragged (1000x777x9)",
-                        tree_frontier_hamming_cuda, tree_frontier_hamming_ref,
-                        gq, gc, grad, gleaf, gact, 100.0)
+    # w = 9, 1, 25, 33: the 4-byte copies; w = 32: TMA
+    for gw in (9, 1, 25, 33, 32):
+        gq = torch.from_numpy(rng.integers(-2**31, 2**31, size=(1000, gw))
+                              .astype(np.int32)).to(dev)
+        gc = torch.cat([gq[:500] ^ 1, torch.from_numpy(rng.integers(
+            -2**31, 2**31, size=(277, gw)).astype(np.int32)).to(dev)])
+        geps = float(torch.quantile(hamming_dist(gq, gc).flatten().float(),
+                                    0.05)) + 0.5
+        ham_err = max(ham_err, frontier_vs_plain_m(
+            f"[7a] tree_frontier_hamming ragged (1000x777x{gw}) eps={geps}",
+            tree_frontier_hamming_cuda, tree_frontier_hamming_ref, gq, gc,
+            grad * gw / 9, gleaf, gact, geps))
     ze, zx = tree_frontier_hamming_cuda(gq, gc, grad, gleaf,
                                         torch.zeros_like(gact), 100.0)
     check(not ze.any() and not zx.any(),
           "tree_frontier_hamming: an all-inactive mask emitted or expanded")
-    print("[7a] tree_frontier_hamming with an all-inactive mask: zero words")
+    print("[7a] tree_frontier_hamming with an all-inactive mask (a zero "
+          "live-tile count): zero words")
     print(f"[7a] script wall {time.perf_counter() - t_start:.1f} s")
 
     # -- 7b. the calls --------------------------------------------------------
     gh, h_tiles_l = graph_call("[7b] tiles", hpts, HAM_EPS, "hamming",
                                "tiles")
     ght, h_tree_l = graph_call("[7b] tree", hpts, HAM_EPS, "hamming", "tree")
+    parent_check("[7b] tiles", gh)
+    parent_check("[7b] tree", ght)
     print(f"[7b] script wall {time.perf_counter() - t_start:.1f} s")
 
     # -- 7c. exactness: tree = tiles, and sampled rows exact ------------------
@@ -1974,17 +2078,20 @@ def main() -> int:
     def ghost_vs_plain(label, metric, x, y, gb, yg, eps, rows=4096,
                        limit=None):
         """A ghost kernel against its plain version, as
-        ``grouped_vs_plain``."""
+        ``grouped_vs_plain``, but the L1 one bit for bit (it sums in the
+        plain version's order)."""
         kern, plain = GHOST[metric]
         cnt, bits = kern(x, y, gb, yg, eps)
         yp, ygp = _pad_rows(y, 32)[0], _pad_rows(yg, 32, -1)[0]
         return vs_plain(label, metric, x, y, cnt, bits, lambda sl: plain(
-            x[sl], yp, gb[sl], ygp, eps), eps, rows, limit)
+            x[sl], yp, gb[sl], ygp, eps), eps, rows, limit,
+                        exact=metric == "manhattan")
 
     def vs_plain(label, metric, x, y, cnt, bits, plain_rows, eps, rows,
-                 limit):
+                 limit, exact=False):
         """A fused kernel's (cnt, bits) against ``plain_rows(rows)``, the
-        plain version on a slice of x's rows."""
+        plain version on a slice of x's rows; with ``exact`` an L1 kernel
+        must equal it bit for bit."""
         nw = bits.shape[1]
         q_ = x.shape[0] if limit is None else min(limit, x.shape[0])
         di, dj, err, plain_ms = [], [], 0, 0.0
@@ -2005,6 +2112,10 @@ def main() -> int:
         what = (f"{label}: {int(cnt[:q_].sum())} hits in {q_} rows, plain "
                 f"version {plain_ms:.3f} ms")
         if metric == "hamming":
+            check(len(i) == 0 and err == 0,
+                  f"{label}: {len(i)} pairs differ from the plain version")
+            print(f"{what}; bit-identical")
+        elif metric == "manhattan" and exact:
             check(len(i) == 0 and err == 0,
                   f"{label}: {len(i)} pairs differ from the plain version")
             print(f"{what}; bit-identical")
@@ -2091,17 +2202,22 @@ def main() -> int:
         return ms, max(b_ops, b_bytes), by, lib_ms
 
     def spatial_call(label, pts_, eps, metric, k_cap, ghost_mode="coll",
-                     traversal="tiles"):
+                     traversal="tiles", profiled=False):
         """``build_nng(partition="spatial")`` on the 8 logical ranks, every
-        kernel's launches counted from this call alone."""
+        kernel's launches counted from this call alone (with ``profiled``,
+        the call under torch.profiler: its device busy time by kernel)."""
         for fn in KERNELS:
             fn.launches = 0
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+
+        def call():
+            return build_nng(pts_, eps, metric=metric, partition="spatial",
+                             mesh=mesh, k_cap=k_cap, ghost_mode=ghost_mode,
+                             traversal=traversal)
         t0 = time.perf_counter()
-        g_ = build_nng(pts_, eps, metric=metric, partition="spatial",
-                       mesh=mesh, k_cap=k_cap, ghost_mode=ghost_mode,
-                       traversal=traversal)
+        g_ = (profiled_run(label, call, what="build_nng call")[0]
+              if profiled else call())
         wall_ = time.perf_counter() - t0
         st_ = g_.stats
         launches_ = {fn.__name__[:-5]: fn.launches for fn in KERNELS
@@ -2400,14 +2516,50 @@ def main() -> int:
         kern = GHOST[metric][0]
         q_, p_ = x.shape[0], y.shape[0]
         ms = cuda_ms(torch, lambda: kern(x, y, gb, yg, eps), 5)
-        l2 = metric == "euclidean"
-        pairs, blocks, need = ghost_live(gb, yg, ordered=l2)
+        ordered = metric != "hamming"      # the ghost order's live tiles
+        pairs, blocks, need = ghost_live(gb, yg, ordered=ordered)
         nbytes = 4 * ((q_ + p_) * feat + q_ * gb.shape[1] + p_ + q_
                       + q_ * -(-p_ // 32))
-        return fused_times(label, ms, x, y, feat, need, "ghost-cell", pairs,
-                           blocks, nbytes, pair_ops, rate, library,
-                           plain_ms, prep,
-                           tile=PIPE_TILE if l2 else (128, 128))
+        out = fused_times(label, ms, x, y, feat, need, "ghost-cell", pairs,
+                          blocks, nbytes, pair_ops, rate, library, plain_ms,
+                          prep, tile=PIPE_TILE if ordered else (128, 128))
+        if ordered:
+            old_p, old_b, _ = ghost_live(gb, yg)
+            print(f"{label} the old design's live 128x128 blocks in the "
+                  f"caller's order: {old_b} of "
+                  f"{-(-q_ // 128) * -(-p_ // 128)}, {old_p} pairs "
+                  f"({old_p / max(need, 1):.3f}x the needed pairs)" + (
+                      f"; its time (the parent design): "
+                      f"{PARENT_MS[kern.__name__[:-5]]}"
+                      if kern.__name__[:-5] in PARENT_MS else ""))
+        return out
+
+    def ghost_parts(label, launch, lib, whole_ms, launches):
+        """A pipelined ghost call's parts at ``launch``: the row order and
+        live-tile list, the gathered x, the zeroed outputs, and kernel
+        ``lib``'s launch alone (for L2 its norm pre-pass too), each timed
+        apart, beside the whole call's ``whole_ms``."""
+        x_, y_, gb_, yg_, eps_ = launch
+        q_, p_ = x_.shape[0], y_.shape[0]
+        plan_ms = cuda_ms(torch, lambda: ghost_tile_plan(gb_, yg_), 5)
+        rows_, keys_, tiles_, count_ = ghost_tile_plan(gb_, yg_)
+        gather_ms = cuda_ms(torch, lambda: x_[rows_], 5)
+        zero_ms = cuda_ms(torch, lambda: (
+            torch.zeros(q_, dtype=torch.int32, device=dev),
+            torch.zeros((q_, -(-p_ // 32)), dtype=torch.int32, device=dev)),
+            5)
+        xs_, r32_ = x_[rows_], rows_.to(torch.int32)
+        c_ = torch.zeros(q_, dtype=torch.int32, device=dev)
+        b_ = torch.zeros((q_, -(-p_ // 32)), dtype=torch.int32, device=dev)
+        kern_ms = cuda_ms(torch, lambda: ghost_launch(
+            lib, xs_, y_, keys_, yg_, r32_, tiles_, count_, eps_, c_, b_), 5)
+        print(f"{label} {lib}'s parts at that launch: row order and "
+              f"live-tile list {plan_ms:.3f} ms, x gathered {gather_ms:.3f} "
+              f"ms, cnt and bits zeroed {zero_ms:.3f} ms, the kernel's "
+              f"launch ({'norm pre-pass and ' if lib == 'nng_tile_ghost' else ''}"
+              f"{int(count_[0])} live tiles of {tiles_.numel()}) "
+              f"{kern_ms:.3f} ms against {whole_ms:.3f} ms for the call; "
+              f"{launches} launches on the ring call, 1 a call")
 
     def spatial_tree_kernels(label, metric, kept):
         """The spatial tree path's traversal that ``rank0_launch`` kept,
@@ -2454,20 +2606,24 @@ def main() -> int:
     print(f"[10] the ghost ring (ghost_mode='ring') and the spatial tree "
           f"flavour; script wall {time.perf_counter() - t_start:.1f} s")
     # -- 10a. the ghost kernels against their plain versions ----------------
-    def ghost_anchor_check(label, x, y, gb, yg, eps, cnt, bits, rows=2048):
-        """The L2 ghost kernel's (cnt, bits), in x's row order, bit for bit
-        against the old core's d² hits (``anchor_hits``, row chunks) under
-        the plain version's ghost test (``ghost_hit``)."""
+    def ghost_anchor_check(label, x, y, gb, yg, eps, cnt, bits, rows=2048,
+                           metric="euclidean"):
+        """The L2 (L1) ghost kernel's (cnt, bits), in x's row order, bit for
+        bit against the old core's hits (``anchor_hits``' d²; L1:
+        ``nng_tile_l1``'s d on l1_tile.cuh), row chunks, under the plain
+        version's ghost test (``ghost_hit``)."""
         p_ = y.shape[0]
+        ones_ = torch.ones(p_, dtype=torch.int32, device=dev)
         for r0 in range(0, x.shape[0], rows):
             sl = slice(r0, r0 + rows)
-            _, hb = anchor_hits(x[sl], y, eps)
+            _, hb = (anchor_hits(x[sl], y, eps) if metric == "euclidean"
+                     else nng_tile_l1_cuda(x[sl], y, ones_, eps))
             hit = ghost_hit(unpack_words(hb)[:, :p_], gb[sl], yg)
             del hb
             check(torch.equal(cnt[sl], hit.sum(1, dtype=torch.int32))
                   and torch.equal(bits[sl], pack_words(
                       torch.nn.functional.pad(hit, (0, -p_ % 32)))),
-                  f"{label}: differs from nng_tile_grouped's hits under the "
+                  f"{label}: differs from the old core's hits under the "
                   f"ghost test in rows {r0}..{r0 + rows - 1}")
             del hit
 
@@ -2502,7 +2658,8 @@ def main() -> int:
                                      (700, 1500, 32, 32, "interleave"),
                                      (500, 900, 16, 32, "zero"),
                                      (1000, 2000, 24, 40, "sorted"),
-                                     (3000, 6000, 16, 32, "sparse")):
+                                     (3000, 6000, 16, 32, "sparse"),
+                                     (300, 250, 7, 40, "one")):
             if metric == "hamming":
                 x, y = (torch.from_numpy(rng.integers(
                     -2**31, 2**31, size=(r_, d)).astype(np.int32)).to(dev)
@@ -2532,6 +2689,11 @@ def main() -> int:
                         near = rng.integers(0, m_, 1) if i_ % 150 == 0 \
                             else np.zeros(0, np.int64)
                     sets[i_, np.clip(near, 0, m_ - 1)] = True
+            elif pattern == "one":
+                # one cell, its columns inside one 256-column tile, on a
+                # few rows (every 7th of the first 280): one live tile
+                yg = np.sort(rng.integers(0, m_, size=p))
+                sets[:280:7, yg[p // 2]] = True
             elif pattern == "zero":
                 # ghost bits only on cells y lacks, inside y's cell range:
                 # every key is zero, though the words are not
@@ -2555,19 +2717,23 @@ def main() -> int:
             if pattern in ("disjoint", "zero"):
                 check(not bits.any() and not cnt.any(),
                       f"[10a] {metric}: {pattern} ghost cells set a word")
-            if metric == "euclidean":
-                # bit for bit: the plain version (a gap-safe eps), and the
-                # old core's hits under the ghost test
+            if metric != "hamming":
+                # bit for bit: the plain version (L2: a gap-safe eps; L1:
+                # the same summation order, any eps), and the old core's
+                # hits under the ghost test
                 yp, ygp = _pad_rows(y, 32)[0], _pad_rows(yg, 32, -1)[0]
                 c0, b0 = GHOST[metric][1](x, yp, gb, ygp, eps)
                 check(torch.equal(cnt, c0) and torch.equal(
                     bits, b0[:, :bits.shape[1]]),
                       f"{label}: differs from its plain version")
-                ghost_anchor_check(label, x, y, gb, yg, eps, cnt, bits)
+                ghost_anchor_check(label, x, y, gb, yg, eps, cnt, bits,
+                                   metric=metric)
                 live_t = int(ghost_tile_plan(gb, yg)[3][0])
                 n_t = -(-q // PIPE_TILE[0]) * -(-p // PIPE_TILE[1])
+                anchor = ("nng_tile_grouped" if metric == "euclidean"
+                          else "nng_tile_l1")
                 print(f"    {label}: bit-identical to its plain version and "
-                      f"to nng_tile_grouped's hits under the ghost test; "
+                      f"to {anchor}'s hits under the ghost test; "
                       f"{live_t} of {n_t} tiles live (the ghost order), "
                       f"{resident} resident blocks")
                 if pattern == "sparse":
@@ -2575,6 +2741,8 @@ def main() -> int:
                           f"tiles, not fewer than {resident} blocks")
                 if pattern in ("disjoint", "zero"):
                     check(live_t == 0, f"{label}: {live_t} live tiles")
+                if pattern == "one":
+                    check(live_t == 1, f"{label}: {live_t} live tiles")
     print("[10a] every disjoint and zero-key case stored zero words")
     torch.cuda.empty_cache()
     print(f"[10a] script wall {time.perf_counter() - t_start:.1f} s")
@@ -2671,8 +2839,9 @@ def main() -> int:
     with rank0_launch("nng_tile_bits_ghost", 1) as kept:
         grl, rl_launches = spatial_call("[10d] manhattan", pts8, EPS8,
                                         "manhattan", METRIC_K_CAP,
-                                        ghost_mode="ring")
+                                        ghost_mode="ring", profiled=True)
     ring_tables("[10d] manhattan", grl.meta["plan"], METRIC_K_CAP)
+    parent_check("[10d] manhattan", grl)
     l1_launch = ring_launch("[10d] nng_tile_ghost_l1", kept)
     del kept
     P = torch.from_numpy(pts8).to(dev)
@@ -2685,10 +2854,16 @@ def main() -> int:
           f"|d64-eps| = {far:.4g} u·eps (knife {DIM} u·eps)")
     check(far <= DIM, "[10d] the L1 ring graph differs off the knife")
     del P, grl
-    _, _, gl1_plain_ms, e_ = ghost_vs_plain(
+    gc_, gbits_, gl1_plain_ms, e_ = ghost_vs_plain(
         "[10d] nng_tile_ghost_l1 at rank 0's round-1 launch", "manhattan",
         *l1_launch, rows=2048)
     ghost_err["manhattan"] = max(ghost_err["manhattan"], e_)
+    ghost_anchor_check("[10d] nng_tile_ghost_l1 at rank 0's round-1 launch",
+                       *l1_launch, gc_, gbits_, metric="manhattan")
+    print("[10d] nng_tile_ghost_l1 at rank 0's round-1 launch bit-identical, "
+          "in every count and word, to nng_tile_l1's hits (l1_tile.cuh) "
+          "under the plain version's ghost test")
+    del gc_, gbits_
     torch.cuda.empty_cache()
     print(f"[10d] script wall {time.perf_counter() - t_start:.1f} s")
 
@@ -2703,6 +2878,7 @@ def main() -> int:
         print(f"[10e] tree {mode} graph vs [3]'s point-partition graph: "
               f"{gt_.num_edges} vs {g.num_edges} edges, {n_t} only in the "
               f"tree graph, {n_pt} only in the point graph")
+        parent_check(f"[10e] tree {mode}", gt_)
         knife_check(f"[10e] tree {mode} vs point", P, P, i, j, eps2)
         plan_t = gt_.meta["plan"]
         del gt_
@@ -2724,6 +2900,7 @@ def main() -> int:
           "[10e] the hamming tree ring graph differs from the point graph")
     print(f"[10e] hamming tree ring graph equals the point-partition graph "
           f"bit for bit ({gth.num_edges} edges)")
+    parent_check("[10e] hamming tree ring", gth)
     del gth, gph
     ham_err = max(ham_err, spatial_tree_kernels("[10e] hamming", "hamming",
                                                 kept))
@@ -2739,6 +2916,7 @@ def main() -> int:
           f"one, the farthest at |d64-eps| = {far:.4g} u·eps (knife {DIM} "
           f"u·eps)")
     check(far <= DIM, "[10e] the L1 tree graph differs off the knife")
+    parent_check("[10e] manhattan tree coll", gtl)
     del P, gtl
     l1_err = max(l1_err, spatial_tree_kernels("[10e] manhattan",
                                               "manhattan", kept))
@@ -2751,34 +2929,13 @@ def main() -> int:
         "[10f] nng_tile_ghost at rank 0's round-1 launch", "euclidean",
         l2_launch, DIM, 2 * DIM, PEAK_FP32, lambda a, b: torch.mm(a, b.T),
         gl2_plain_ms)
-    # the L2 call's parts: the row order and live-tile list, the gathered
-    # x, the zeroed outputs, and the kernel's launch alone (its norm
-    # pre-pass and the live tiles)
-    x_, y_, gb_, yg_, eps_ = l2_launch
-    q_, p_ = x_.shape[0], y_.shape[0]
-    plan_ms = cuda_ms(torch, lambda: ghost_tile_plan(gb_, yg_), 5)
-    rows_, keys_, tiles_, count_ = ghost_tile_plan(gb_, yg_)
-    gather_ms = cuda_ms(torch, lambda: x_[rows_], 5)
-    zero_ms = cuda_ms(torch, lambda: (
-        torch.zeros(q_, dtype=torch.int32, device=dev),
-        torch.zeros((q_, -(-p_ // 32)), dtype=torch.int32, device=dev)), 5)
-    xs_, r32_ = x_[rows_], rows_.to(torch.int32)
-    c_ = torch.zeros(q_, dtype=torch.int32, device=dev)
-    b_ = torch.zeros((q_, -(-p_ // 32)), dtype=torch.int32, device=dev)
-    kern_ms = cuda_ms(torch, lambda: ghost_launch(
-        xs_, y_, keys_, yg_, r32_, tiles_, count_, eps_, c_, b_), 5)
-    live_p, live_b, need_p = ghost_live(gb_, yg_, ordered=True)
-    print(f"[10f] nng_tile_ghost's parts at that launch: row order and "
-          f"live-tile list {plan_ms:.3f} ms, x gathered {gather_ms:.3f} ms, "
-          f"cnt and bits zeroed {zero_ms:.3f} ms, the kernel's launch (norm "
-          f"pre-pass and {int(count_[0])} live tiles of {tiles_.numel()}) "
-          f"{kern_ms:.3f} ms against {gt_l2[0]:.3f} ms for the call; "
-          f"bound over the needed pairs {gt_l2[1]:.3f} ms, over the live "
-          f"tiles' {live_p} pairs ({live_p / need_p:.4f}x) "
-          f"{2 * DIM * live_p / PEAK_FP32 * 1e3:.3f} ms ({gt_l2[2]}); "
-          f"library {gt_l2[3]:.3f} ms; {r_launches['nng_tile_ghost']} "
-          f"launches on the ring call ([10b]), 1 a call")
-    del x_, y_, gb_, yg_, rows_, keys_, tiles_, count_, xs_, r32_, c_, b_
+    ghost_parts("[10f]", l2_launch, "nng_tile_ghost", gt_l2[0],
+                r_launches["nng_tile_ghost"])
+    live_p, _, need_p = ghost_live(*l2_launch[2:4], ordered=True)
+    print(f"[10f] nng_tile_ghost: bound over the needed pairs "
+          f"{gt_l2[1]:.3f} ms, over the live tiles' {live_p} pairs "
+          f"({live_p / need_p:.4f}x) {2 * DIM * live_p / PEAK_FP32 * 1e3:.3f}"
+          f" ms ({gt_l2[2]}); library {gt_l2[3]:.3f} ms")
     gt_h = ghost_times(
         "[10f] nng_tile_ghost_hamming at rank 0's round-1 launch", "hamming",
         h_launch, HW, HW, popc_rate, lambda a, b: torch.cdist(a, b, p=0),
@@ -2787,6 +2944,8 @@ def main() -> int:
         "[10f] nng_tile_ghost_l1 at rank 0's round-1 launch", "manhattan",
         l1_launch, DIM, 2 * DIM, l1_rate,
         lambda a, b: torch.cdist(a, b, p=1), gl1_plain_ms)
+    ghost_parts("[10f]", l1_launch, "nng_tile_ghost_l1", gt_l1[0],
+                rl_launches["nng_tile_ghost_l1"])
     print(f"[10f] launches: nng_tile_ghost {r_launches['nng_tile_ghost']} "
           f"([10b]), nng_tile_ghost_hamming "
           f"{rh_launches['nng_tile_ghost_hamming']} ([10c]), "

@@ -3,16 +3,16 @@
 from another source tree, each on one launch of the ghost ring.
 
     python3 ghost_ab.py OTHER [--metric all] [--rounds 4] [--reps 9]
-    python3 ghost_ab.py --ratios [--device cpu]
+    python3 ghost_ab.py --ratios [--device cpu] [--metric euclidean]
 
 OTHER is the root of another checkout, or of an unpacked ``git archive``
 of one. Its ``src/repro_torch/kernels/csrc/nng_tile_ghost*.cu`` (with its
 own headers) are compiled with this checkout's nvcc flags into
 ``build/ab/``; their C entry points take this checkout's arguments, or,
-for the L2 kernel, those of the single-tile kernel before the row order
-and the live-tile list (x, y, ghost words, y cells, cnt, bits, q, p, d,
-mw, eps², stream: every tile of the caller's order), which this script
-then calls with the launch's own operands.
+for the L2 and L1 kernels, those of the single-tile kernels before the row
+order and the live-tile list (x, y, ghost words, y cells, cnt, bits, q, p,
+d, mw, the threshold, stream: every tile of the caller's order), which
+this script then calls with the launch's own operands.
 
 A metric's launch is rank 0's round-1 block-against-W launch of
 ``build_nng(partition="spatial", ghost_mode="ring")`` on 8 logical ranks
@@ -32,15 +32,16 @@ its wrapper's, the row order, live-tile list and zeroed outputs
 included), the card's name and power limit, and a last line of JSON.
 Needs one CUDA card.
 
-``--ratios`` builds no kernel and evaluates no distance: it plans the
-euclidean ring of [10b] (the device planner, the exchange and each
-rank's ring block on ``--device``, the card by default) and, for every
-launch of one engine run (36 on 8 ranks; the call runs the engine twice),
-prints the pairs the function needs (a row against a column of one of
-its ghost cells), the pairs of the live 128 x 128 blocks in the caller's
-row order (the single-tile kernel's skip) and of the live 64 x 256 tiles
-in ``ghost_row_order`` (this checkout's kernel), for rank 0's round-1
-launch and summed over the run.
+``--ratios`` builds no kernel and evaluates no distance: it plans the ring
+of ``--metric`` (euclidean: [10b]; manhattan: [10d]; the device planner,
+the exchange and each rank's ring block on ``--device``, the card by
+default) and, for every launch of one engine run (36 on 8 ranks; the call
+runs the engine twice), prints the pairs the function needs (a row
+against a column of one of its ghost cells), the pairs of the live
+128 x 128 blocks in the caller's row order (the single-tile kernels'
+skip) and of the live 64 x 256 tiles in ``ghost_row_order`` (this
+checkout's L2 and L1 kernels), for rank 0's round-1 launch and summed
+over the run.
 """
 from __future__ import annotations
 
@@ -56,8 +57,8 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 NRANKS, SEED = 8, 0
-# the single-tile L2 ghost kernel's C arguments (x, y, ghost words, y cells,
-# cnt, bits, q, p, d, mw, eps², stream)
+# the single-tile L2 and L1 ghost kernels' C arguments (x, y, ghost words, y
+# cells, cnt, bits, q, p, d, mw, the threshold, stream)
 SINGLE = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 4 + (ctypes.c_float,
                                                          ctypes.c_void_p)
 # metric -> (kernel library, eps, k_cap), as chip_smoke.py's [10b]-[10d]
@@ -92,24 +93,33 @@ def live_pairs(torch, live, q, p, tq, tp):
     return int((live * rq[:, None] * rp[None, :]).sum())
 
 
-def ratios(device: str) -> int:
+def case_points(metric: str):
+    """The points of ``metric``'s ring launch (see the module's
+    docstring)."""
+    from repro_torch.data import synthetic_pointset
+    if metric == "hamming":
+        return synthetic_pointset(399360, 25, "hamming", seed=SEED)
+    sift = synthetic_pointset(1 << 20, 128, seed=SEED)
+    return sift[:1 << 19] if metric == "manhattan" else sift
+
+
+def ratios(device: str, metric: str) -> int:
     """The --ratios mode (see the module's docstring)."""
     import torch
     sys.path.insert(0, str(HERE / "src"))
     from repro_torch.core.distributed import device as tdev
     from repro_torch.core.distributed import make_nng_mesh
     from repro_torch.core.metrics import get_metric
-    from repro_torch.data import synthetic_pointset
     from repro_torch.kernels import nng_tile as nt
     from repro_torch.kernels.ops import _pad_rows, ghost_block_active
     from repro_torch.nng import SpatialPartitionEngine
 
-    _, eps, k_cap = CASES["euclidean"]
-    met = get_metric("euclidean")
+    _, eps, k_cap = CASES[metric]
+    met = get_metric(metric)
     mesh = make_nng_mesh(NRANKS, device=device)
-    pts = synthetic_pointset(1 << 20, 128, seed=SEED)
+    pts = case_points(metric)
     t0 = time.perf_counter()
-    eng = SpatialPartitionEngine(pts, eps, mesh, "euclidean", k_cap=k_cap,
+    eng = SpatialPartitionEngine(pts, eps, mesh, metric, k_cap=k_cap,
                                  ghost_mode="ring")
     plan = eng.initial_plan()
     x = eng.points
@@ -126,8 +136,9 @@ def ratios(device: str) -> int:
     blks = [tdev.ring_block(W, Wids, Wgrp, eng.centers, eps=eps, metric=met,
                             cap_rank=plan.cap_rank)
             for W, Wids, Wgrp in bufs]
-    print(f"ghost_ab: [10b]'s ring on {device}: {plan} planned and "
-          f"exchanged in {time.perf_counter() - t0:.3f} s")
+    print(f"ghost_ab: the {metric} ring ({len(pts)} points, eps {eps}) on "
+          f"{device}: {plan} planned and exchanged in "
+          f"{time.perf_counter() - t0:.3f} s")
     tq, tp = nt.PIPE_TILE
     rounds = NRANKS // 2
     total = {"need": 0, "old": 0, "new": 0}
@@ -165,21 +176,23 @@ def ratios(device: str) -> int:
           f"({total['old'] / total['need']:.4f}x); live {tq} x {tp} tiles "
           f"in the ghost order {total['new']} pairs "
           f"({total['new'] / total['need']:.4f}x)")
-    print(json.dumps({"launches": launches, **total}))
+    print(json.dumps({"metric": metric, "launches": launches, **total}))
     return 0
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("other", type=Path, nargs="?")
-    ap.add_argument("--metric", choices=[*CASES, "all"], default="all")
+    ap.add_argument("--metric", choices=[*CASES, "all"], default=None,
+                    help="the A/B's metric (default all) or --ratios' ring "
+                    "(default euclidean)")
     ap.add_argument("--rounds", type=int, default=4)
     ap.add_argument("--reps", type=int, default=9)
     ap.add_argument("--ratios", action="store_true")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
     if args.ratios:
-        return ratios(args.device)
+        return ratios(args.device, args.metric or "euclidean")
     if args.other is None:
         ap.error("OTHER is required without --ratios")
     import torch
@@ -187,17 +200,18 @@ def main() -> int:
         print("ghost_ab: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(HERE / "src"))
+    import numpy as np
     from repro_torch.core.distributed import device as tdev
     from repro_torch.core.distributed import make_nng_mesh
-    from repro_torch.data import synthetic_pointset
     from repro_torch.kernels import _build
     from repro_torch.kernels import nng_tile as nt
     from repro_torch.nng import build_nng
 
     csrc = args.other.resolve() / "src/repro_torch/kernels/csrc"
     thr = {"euclidean": nt.eps2_f32, "hamming": nt.eps_int,
-           "manhattan": float}
-    metrics = list(CASES) if args.metric == "all" else [args.metric]
+           "manhattan": lambda e: float(np.float32(e))}
+    metrics = (list(CASES) if args.metric in (None, "all")
+               else [args.metric])
     out_dir = _build.BUILD_DIR.parent / "ab"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -217,7 +231,7 @@ def main() -> int:
             return 1
         lib = CASES[metric][0]
         symbol, argtypes = _build._ENTRY[lib]
-        if metric == "euclidean" and "int sms" not in (
+        if metric != "hamming" and "int sms" not in (
                 csrc / f"{lib}.cu").read_text():
             argtypes = SINGLE
         fn = getattr(ctypes.CDLL(str(so)), symbol)
@@ -227,42 +241,42 @@ def main() -> int:
 
     def other(metric, x, y, gb, yg, eps):
         """The other build on the launch's operands: the single-tile
-        argument list as it is (it stores every word), this checkout's
-        through its own wrapper's plan (nng_tile_ghost_cuda's body)."""
+        argument list as it is (it stores every word), the pipelined one
+        through this checkout's plan (``_ghost_pipe``'s body; L2 with norm
+        scratch)."""
         fn = other_fn[metric]
         q, d = x.shape
         p = y.shape[0]
         stream = torch.cuda.current_stream().cuda_stream
         cnt = torch.zeros(q, dtype=torch.int32, device=x.device)
-        if tuple(fn.argtypes) == SINGLE or metric != "euclidean":
+        if tuple(fn.argtypes) == SINGLE or metric == "hamming":
             bits = torch.empty((q, -(-p // 32)), dtype=torch.int32,
                                device=x.device)
             code = fn(x.data_ptr(), y.data_ptr(), gb.data_ptr(),
                       yg.data_ptr(), cnt.data_ptr(), bits.data_ptr(), q, p,
                       d, gb.shape[1], thr[metric](eps), stream)
         else:
-            # nng_tile_ghost_cuda's body, with the other build's entry
+            # _ghost_pipe's body, with the other build's entry
             bits = torch.zeros((q, -(-p // 32)), dtype=torch.int32,
                                device=x.device)
             rows, keys, tiles, count = nt.ghost_tile_plan(gb, yg)
             xs, rows32 = x[rows], rows.to(torch.int32)
-            xsq, ysq = nt.row_norm_scratch(q, p, x.device)
+            norms = (nt.row_norm_scratch(q, p, x.device)
+                     if metric == "euclidean" else ())
             code = fn(xs.data_ptr(), y.data_ptr(), keys.data_ptr(),
                       yg.data_ptr(), rows32.data_ptr(), tiles.data_ptr(),
                       count.data_ptr(), cnt.data_ptr(), bits.data_ptr(),
-                      xsq.data_ptr(), ysq.data_ptr(), q, p, d, keys.shape[1],
-                      thr[metric](eps), nt.sm_count(x.device.index), stream)
+                      *(t.data_ptr() for t in norms), q, p, d,
+                      keys.shape[1], thr[metric](eps),
+                      nt.sm_count(x.device.index), stream)
         _build.check(f"other {CASES[metric][0]}", code)
         return cnt, bits
 
     mesh = make_nng_mesh(NRANKS)
-    sift = synthetic_pointset(1 << 20, 128, seed=SEED)
     record = {}
     for metric in metrics:
         lib, eps, k_cap = CASES[metric]
-        pts = (synthetic_pointset(399360, 25, "hamming", seed=SEED)
-               if metric == "hamming" else
-               sift[:1 << 19] if metric == "manhattan" else sift)
+        pts = case_points(metric)
         kept = []
         orig = tdev.nng_tile_bits_ghost
 

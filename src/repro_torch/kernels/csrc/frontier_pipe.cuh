@@ -1,6 +1,7 @@
 // The pipelined tree frontier shared by tree_frontier.cu (L2, on
-// l2_pipe.cuh's core) and tree_frontier_l1.cu (L1, on l1_pipe.cuh's): one
-// level of the batched cover-tree traversal over the live tiles only.
+// l2_pipe.cuh's core), tree_frontier_l1.cu (L1, on l1_pipe.cuh's) and
+// tree_frontier_hamming.cu (Hamming, on hamming_pipe.cuh's): one level of
+// the batched cover-tree traversal over the live tiles only.
 //
 // A launch (frontier_launch) is three kernels on one stream, with no host
 // sync:
@@ -21,8 +22,9 @@
 //      decisions below, and __ballot_sync packs the emit and expand words
 //      (tile_io.cuh's layout), which lanes 0..7 store.
 //
-// The decisions, each operation rounded to fp32 in the order written, as
-// the plain versions do (no contraction into FMAs, correctly rounded sqrt):
+// The decisions of the float metrics, each operation rounded to fp32 in
+// the order written, as the plain versions do (no contraction into FMAs,
+// correctly rounded sqrt):
 //   L2: d2 = l2tile::d2 of the core, d = sqrt(max(d2, 0)); leaf: d2 <= eps2
 //   L1: d = the core's sum;                                leaf: d <= eps
 //   slack = ((d + rad_j) + eps) * 1e-5 + 1e-6
@@ -30,9 +32,16 @@
 //   internal node: emit   = active && d + rad_j <= eps - slack
 //                  expand = active && !emit && d <= (rad_j + eps) + slack
 // A pair's d2 (d) is the core's, so a leaf's test is nng_tile.cu's
-// (nng_tile_l1.cu's) own, bit for bit. Columns past n are never active.
+// (nng_tile_l1.cu's) own, bit for bit. Hamming's are integer comparisons
+// with zero slack (kernels/tree_frontier.py's _frontier_masks_hamming):
+//   d = the core's popcount sum, r = (int) rad_j (truncated), eps an int
+//   leaf node:     emit   = active && d <= eps,           expand = 0
+//   internal node: emit   = active && d + r <= eps
+//                  expand = active && !emit && d <= r + eps
+// Columns past n are never active.
 #pragma once
 
+#include "hamming_pipe.cuh"
 #include "l1_pipe.cuh"
 
 namespace fpipe {
@@ -41,14 +50,27 @@ using namespace l2pipe;
 
 constexpr int TW = PN / 32;        // active words a tile row: 8
 
+enum class Metric { L2, L1, Hamming };
+
 // The core's per-chunk body of each metric.
-template <bool L2>
+template <Metric M>
 struct BodyOf {
   using type = Dot;
 };
 template <>
-struct BodyOf<false> {
+struct BodyOf<Metric::L1> {
   using type = l1pipe::L1;
+};
+template <>
+struct BodyOf<Metric::Hamming> {
+  using type = hampipe::Hamming;
+};
+
+// A launch's thresholds: fp32 eps and eps2 (L2) for the float metrics, the
+// integer eps for Hamming.
+struct Thr {
+  float eps, eps2;
+  int ieps;
 };
 
 // The plan (step 1 above). A block owns PLAN_WORDS word columns of one
@@ -97,13 +119,15 @@ frontier_plan_kernel(const uint32_t* __restrict__ act,
 }
 
 // The epilogue (step 3 above) of the tile at (m0, n0).
-template <bool L2>
+template <Metric M>
 __device__ __forceinline__ void frontier_tile(
     int m0, int n0, const float (&acc)[TM][PTN], const float* xnorm,
     const float* ynorm, const float* __restrict__ rad,
     const int32_t* __restrict__ leaf, const uint32_t* __restrict__ act,
     uint32_t* __restrict__ emit, uint32_t* __restrict__ expand, int nq,
-    int n, int nw, float eps, float eps2) {
+    int n, int nw, Thr thr) {
+  constexpr bool L2 = M == Metric::L2;
+  const float eps = thr.eps, eps2 = thr.eps2;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   // column j: its norm (L2), radius, and bit j of the valid and leaf masks
@@ -134,22 +158,34 @@ __device__ __forceinline__ void frontier_tile(
         // every lane takes part in the shuffle and the ballots
         const uint32_t word = __shfl_sync(FULL, aw, j);
         const bool a = ((ok >> j) & 1u) && ((word >> lane) & 1u);
-        float dist, v = 0.f;
-        if (L2) {
-          v = l2tile::d2(xn, yn[j], acc[i][j]);
-          dist = sqrtf(fmaxf(v, 0.f));
-        } else {
-          dist = acc[i][j];
-        }
-        const float slack = __fadd_rn(
-            __fmul_rn(__fadd_rn(__fadd_rn(dist, r[j]), eps), 1e-5f), 1e-6f);
         bool e_bit, x_bit = false;
-        if ((lf >> j) & 1u) {
-          e_bit = a && (L2 ? v <= eps2 : dist <= eps);
+        if constexpr (M == Metric::Hamming) {
+          const int dist = __float_as_int(acc[i][j]);
+          const int ri = static_cast<int>(r[j]);
+          if ((lf >> j) & 1u) {
+            e_bit = a && dist <= thr.ieps;
+          } else {
+            e_bit = a && dist + ri <= thr.ieps;
+            x_bit = a && !e_bit && dist <= ri + thr.ieps;
+          }
         } else {
-          e_bit = a && __fadd_rn(dist, r[j]) <= __fsub_rn(eps, slack);
-          x_bit = a && !e_bit &&
-                  dist <= __fadd_rn(__fadd_rn(r[j], eps), slack);
+          float dist, v = 0.f;
+          if (L2) {
+            v = l2tile::d2(xn, yn[j], acc[i][j]);
+            dist = sqrtf(fmaxf(v, 0.f));
+          } else {
+            dist = acc[i][j];
+          }
+          const float slack = __fadd_rn(
+              __fmul_rn(__fadd_rn(__fadd_rn(dist, r[j]), eps), 1e-5f),
+              1e-6f);
+          if ((lf >> j) & 1u) {
+            e_bit = a && (L2 ? v <= eps2 : dist <= eps);
+          } else {
+            e_bit = a && __fadd_rn(dist, r[j]) <= __fsub_rn(eps, slack);
+            x_bit = a && !e_bit &&
+                    dist <= __fadd_rn(__fadd_rn(r[j], eps), slack);
+          }
         }
         const unsigned be = __ballot_sync(FULL, e_bit);
         const unsigned bx = __ballot_sync(FULL, x_bit);
@@ -166,7 +202,7 @@ __device__ __forceinline__ void frontier_tile(
   }
 }
 
-template <bool L2, bool TMA>
+template <Metric M, bool TMA>
 __global__ void __launch_bounds__(PTHREADS, 2)
 frontier_kernel(const __grid_constant__ Maps maps,
                 const float* __restrict__ q, const float* __restrict__ c,
@@ -177,24 +213,24 @@ frontier_kernel(const __grid_constant__ Maps maps,
                 const int32_t* __restrict__ ntiles,
                 uint32_t* __restrict__ emit, uint32_t* __restrict__ expand,
                 const float* __restrict__ qsq, const float* __restrict__ csq,
-                int nq, int n, int d, int nw, float eps, float eps2) {
-  run<TMA, true, typename BodyOf<L2>::type>(
+                int nq, int n, int d, int nw, Thr thr) {
+  run<TMA, true, typename BodyOf<M>::type>(
       maps, q, c, qsq, csq, nq, n, d,
       [&](int m0, int n0, const float (&acc)[TM][PTN], const float* xnorm,
           const float* ynorm) {
-        frontier_tile<L2>(m0, n0, acc, xnorm, ynorm, rad, leaf, act, emit,
-                          expand, nq, n, nw, eps, eps2);
+        frontier_tile<M>(m0, n0, acc, xnorm, ynorm, rad, leaf, act, emit,
+                         expand, nq, n, nw, thr);
       },
       tiles, ntiles);
 }
 
-template <bool L2, bool TMA>
+template <Metric M, bool TMA>
 int launch_walk(const void* q, const void* c, const void* rad,
                 const void* leaf, const void* act, const void* tiles,
                 const void* ntiles, void* emit, void* expand, void* qsq,
-                void* csq, int nq, int n, int d, float eps, float eps2,
-                int sms, cudaStream_t st) {
-  const auto kernel = frontier_kernel<L2, TMA>;
+                void* csq, int nq, int n, int d, Thr thr, int sms,
+                cudaStream_t st) {
+  const auto kernel = frontier_kernel<M, TMA>;
   Maps maps{};
   int blocks = 0;
   const int e = prepare(kernel, TMA, q, c, nullptr, qsq, csq, nq, n, d, sms,
@@ -206,19 +242,20 @@ int launch_walk(const void* q, const void* c, const void* rad,
       static_cast<const uint32_t*>(act), static_cast<const int32_t*>(tiles),
       static_cast<const int32_t*>(ntiles), static_cast<uint32_t*>(emit),
       static_cast<uint32_t*>(expand), static_cast<const float*>(qsq),
-      static_cast<const float*>(csq), nq, n, d, (n + 31) / 32, eps, eps2);
+      static_cast<const float*>(csq), nq, n, d, (n + 31) / 32, thr);
   return static_cast<int>(cudaGetLastError());
 }
 
 // One frontier launch: the plan, then (for L2, the norms into qsq and csq
 // and) the walk. tiles has room for every tile's index and ntiles for one
-// int32; qsq and csq are null for L1. Returns a CUDA error code.
-template <bool L2>
+// int32; qsq and csq are null for L1 and Hamming (whose q and c are int32
+// words, d their count). Returns a CUDA error code.
+template <Metric M>
 int frontier_launch(const void* q, const void* c, const void* rad,
                     const void* leaf, const void* act, void* tiles,
                     void* ntiles, void* emit, void* expand, void* qsq,
-                    void* csq, int nq, int n, int d, float eps, float eps2,
-                    int sms, cudaStream_t st) {
+                    void* csq, int nq, int n, int d, Thr thr, int sms,
+                    cudaStream_t st) {
   const int nw = (n + 31) / 32;
   const int mt = (nq + PM - 1) / PM;
   const int nt = (nw + TW - 1) / TW;
@@ -232,12 +269,12 @@ int frontier_launch(const void* q, const void* c, const void* rad,
   ce = cudaGetLastError();
   if (ce != cudaSuccess) return static_cast<int>(ce);
   return tma_ok(q, c, d)
-             ? launch_walk<L2, true>(q, c, rad, leaf, act, tiles, ntiles,
-                                     emit, expand, qsq, csq, nq, n, d, eps,
-                                     eps2, sms, st)
-             : launch_walk<L2, false>(q, c, rad, leaf, act, tiles, ntiles,
-                                      emit, expand, qsq, csq, nq, n, d, eps,
-                                      eps2, sms, st);
+             ? launch_walk<M, true>(q, c, rad, leaf, act, tiles, ntiles,
+                                    emit, expand, qsq, csq, nq, n, d, thr,
+                                    sms, st)
+             : launch_walk<M, false>(q, c, rad, leaf, act, tiles, ntiles,
+                                     emit, expand, qsq, csq, nq, n, d, thr,
+                                     sms, st);
 }
 
 }  // namespace fpipe

@@ -1,5 +1,6 @@
-// The Hamming distance tile shared by nng_tile_hamming.cu and
-// tree_frontier_hamming.cu.
+// The Hamming distance tile shared by nng_tile_hamming.cu,
+// nng_tile_grouped_hamming.cu, nng_tile_ghost_hamming.cu and
+// pairwise_hamming.cu.
 //
 // Points are rows of w packed 32-bit words. One 256-thread block owns a
 // 128 x 128 tile (tile_io.cuh). The x and y word rows are staged through
@@ -8,8 +9,9 @@
 // and adds __popc(x ^ y) for each staged word, reading its 16 x words as
 // broadcast uint4 loads.
 //
-// The distances are exact integers, so both kernels' tests are exact and a
-// leaf's `d <= eps` in the tree frontier is the tile's own hit test. Ragged
+// The distances are exact integers, so the kernels' tests are exact (and
+// hamming_pipe.cuh's body under the tree frontier gives the same integers,
+// so a leaf's `d <= eps` there is the tile's own hit test). Ragged
 // q, p and w are masked: out-of-range words load as 0 in both operands, and
 // popcount(0 ^ 0) adds 0; the loop over a chunk's words stops at w.
 #pragma once

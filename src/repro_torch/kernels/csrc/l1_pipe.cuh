@@ -1,4 +1,5 @@
-// The pipelined fp32 L1 (Manhattan) distance core of tree_frontier_l1.cu.
+// The pipelined fp32 L1 (Manhattan) distance core of tree_frontier_l1.cu
+// and nng_tile_ghost_l1.cu.
 //
 // l2_pipe.cuh's walk and staging with an L1 body: the persistent grid of
 // two 128-thread blocks an SM over 64 x 256 tiles (all of them, or a tile

@@ -1,6 +1,8 @@
 // The pipelined fp32 L2 product core of nng_tile.cu, eps_count.cu,
 // pairwise_sqdist.cu, nng_tile_ghost.cu and tree_frontier.cu, and the walk
-// and staging that l1_pipe.cuh's L1 core (tree_frontier_l1.cu) shares.
+// and staging that l1_pipe.cuh's L1 body (tree_frontier_l1.cu,
+// nng_tile_ghost_l1.cu) and hamming_pipe.cuh's Hamming body
+// (tree_frontier_hamming.cu) share.
 //
 // Same function and same arithmetic as l2_tile.cuh's products and d2, so a
 // pair's d2 here is bit-identical to the one that the kernel still on
@@ -25,8 +27,8 @@
 //     + gridDim.x, ... of the output row after row, or of a list of tile
 //     indices in the same numbering whose length the block reads from
 //     device memory (a launch whose live tiles are found on the card, with
-//     no host sync: nng_tile_ghost.cu, tree_frontier.cu,
-//     tree_frontier_l1.cu; blocks past the count exit);
+//     no host sync: the ghost tiles (ghost_pipe.cuh) and the tree
+//     frontiers (frontier_pipe.cuh); blocks past the count exit);
 //   - the block's (tile, 32-feature chunk) pairs form one stream, loaded
 //     STAGES - 1 chunks ahead into a ring of stages in dynamic shared
 //     memory, so the next tile's first chunk loads while this tile ends

@@ -27,108 +27,17 @@
 // row's key has a bit in the tile's [min, max] y-cell range are listed,
 // the live ones first, their count a device scalar; cnt and bits are
 // zeroed. Callers sort y by cell, so a live tile's rows mostly want its
-// columns. Here: l2_pipe.cuh's core (persistent grid, TMA-fed ring, 16 x 8
-// register tiles, row norms summed once) walks the live tiles only, and
-// the epilogue tests each pair's cell bit against its row's key (one
-// register when mw == 1) before tile_io.cuh's __ballot_sync packing, and
-// stores each word and count at the row's place in the caller's order
-// (rows[i]). Dead tiles store nothing: their words stay zero. The per-pair
-// arithmetic is l2_tile.cuh's, bit for bit. The engine's tiles_scheduled /
+// columns. Here: ghost_pipe.cuh's kernel with l2_pipe.cuh's Dot body
+// (persistent grid, TMA-fed ring, 16 x 8 register tiles, row norms summed
+// once) walks the live tiles only, and its epilogue tests each pair's cell
+// bit against its row's key (one register when mw == 1) before
+// tile_io.cuh's __ballot_sync packing, and stores each word and count at
+// the row's place in the caller's order (rows[i]). Dead tiles store
+// nothing: their words stay zero. The per-pair arithmetic is l2_tile.cuh's,
+// bit for bit. The engine's tiles_scheduled /
 // tiles_skipped counters come from ops.ghost_block_active at the
 // reference's own tile geometry and row order, not from this launch.
-#include "l2_pipe.cuh"
-
-namespace {
-
-using namespace l2pipe;
-
-template <bool TMA, bool ONE_WORD>
-__global__ void __launch_bounds__(PTHREADS, 2)
-nng_tile_ghost_kernel(const __grid_constant__ Maps maps,
-                      const float* __restrict__ x,
-                      const float* __restrict__ y,
-                      const uint32_t* __restrict__ keys,
-                      const int32_t* __restrict__ yg,
-                      const int32_t* __restrict__ rows,
-                      const int32_t* __restrict__ tiles,
-                      const int32_t* __restrict__ ntiles,
-                      int32_t* __restrict__ cnt, uint32_t* __restrict__ bits,
-                      const float* __restrict__ xsq,
-                      const float* __restrict__ ysq, int q, int p, int d,
-                      int mw, int nw, float eps2) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  run<TMA, true>(
-      maps, x, y, xsq, ysq, q, p, d,
-      [&](int m0, int n0, const float (&acc)[TM][PTN], const float* xnorm,
-          const float* ynorm) {
-        // column j's cell as a bit of its key word (0: padding or past p,
-        // never a hit) and, for mw > 1, that word's index
-        float yn[PTN];
-        uint32_t cb[PTN];
-        int cw[PTN];
-#pragma unroll
-        for (int j = 0; j < PTN; ++j) {
-          const int col = n0 + lane + 32 * j;
-          const int32_t c = col < p ? yg[col] : -1;
-          yn[j] = ynorm[lane + 32 * j];
-          cb[j] = c >= 0 ? 1u << (c & 31) : 0u;
-          cw[j] = c >= 0 ? c >> 5 : 0;
-        }
-#pragma unroll
-        for (int i = 0; i < TM; ++i) {
-          const int r = m0 + warp * TM + i;
-          const bool in = r < q;
-          const float xn = xnorm[warp * TM + i];
-          const uint32_t* kr = keys + (size_t)r * mw;
-          const uint32_t key = ONE_WORD && in ? kr[0] : 0u;
-          // the row's PTN words, n0 / 32 onwards: lane j keeps word j
-          uint32_t mine = 0u;
-          int rc = 0;
-#pragma unroll
-          for (int j = 0; j < PTN; ++j) {
-            const uint32_t k = ONE_WORD ? key : (in ? kr[cw[j]] : 0u);
-            const unsigned word = __ballot_sync(
-                FULL, (k & cb[j]) != 0u &&
-                          l2tile::d2(xn, yn[j], acc[i][j]) <= eps2);
-            if (lane == j) mine = word;
-            rc += __popc(word);
-          }
-          if (in) {
-            const int orow = rows[r];
-            const int w = (n0 >> 5) + lane;
-            if (lane < PTN && w < nw) bits[(size_t)orow * nw + w] = mine;
-            if (lane == 0 && rc != 0) atomicAdd(&cnt[orow], rc);
-          }
-        }
-      },
-      tiles, ntiles);
-}
-
-template <bool TMA>
-int launch(bool one_word, const void* x, const void* y, const void* keys,
-           const void* yg, const void* rows, const void* tiles,
-           const void* ntiles, void* cnt, void* bits, void* xsq, void* ysq,
-           int q, int p, int d, int mw, float eps2, int sms,
-           cudaStream_t st) {
-  const auto kernel = one_word ? nng_tile_ghost_kernel<TMA, true>
-                               : nng_tile_ghost_kernel<TMA, false>;
-  Maps maps{};
-  int blocks = 0;
-  const int e = prepare(kernel, TMA, x, y, nullptr, xsq, ysq, q, p, d, sms,
-                        st, maps, blocks);
-  if (e != 0) return e;
-  kernel<<<blocks, PTHREADS, SMEM_BYTES, st>>>(
-      maps, static_cast<const float*>(x), static_cast<const float*>(y),
-      static_cast<const uint32_t*>(keys), static_cast<const int32_t*>(yg),
-      static_cast<const int32_t*>(rows), static_cast<const int32_t*>(tiles),
-      static_cast<const int32_t*>(ntiles), static_cast<int32_t*>(cnt),
-      static_cast<uint32_t*>(bits), static_cast<const float*>(xsq),
-      static_cast<const float*>(ysq), q, p, d, mw, (p + 31) / 32, eps2);
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
+#include "ghost_pipe.cuh"
 
 // x (q, d) is the visiting rows in key order (x[rows]); keys (q, mw) their
 // keys in the same order; rows (q,) int32 each one's row in the caller's
@@ -147,11 +56,7 @@ extern "C" int nng_tile_ghost_launch(const void* x, const void* y,
                                      void* bits, void* xsq, void* ysq, int q,
                                      int p, int d, int mw, float eps2,
                                      int sms, void* stream) {
-  const auto st = static_cast<cudaStream_t>(stream);
-  return tma_ok(x, y, d)
-             ? launch<true>(mw == 1, x, y, keys, yg, rows, tiles, ntiles,
-                            cnt, bits, xsq, ysq, q, p, d, mw, eps2, sms, st)
-             : launch<false>(mw == 1, x, y, keys, yg, rows, tiles, ntiles,
-                             cnt, bits, xsq, ysq, q, p, d, mw, eps2, sms,
-                             st);
+  return gpipe::ghost_launch<l2pipe::Dot>(
+      x, y, keys, yg, rows, tiles, ntiles, cnt, bits, xsq, ysq, q, p, d, mw,
+      eps2, sms, static_cast<cudaStream_t>(stream));
 }

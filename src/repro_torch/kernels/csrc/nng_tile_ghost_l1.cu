@@ -13,75 +13,37 @@
 //
 // What bounds it on an H100: operations, 2 fp32 instructions a feature for
 // each pair the function needs (a row against a column of one of its ghost
-// cells) against the CUDA cores' issue rate, as for nng_tile_l1.cu. A live
-// block computes all its pairs.
+// cells: on the ring's launches a small share of all pairs) against the
+// CUDA cores' issue rate. What a launch costs is the pairs of the tiles it
+// computes: in the caller's row order a 128 x 128 block holds rows of many
+// ghost cells, so the live blocks held about 9.5x the needed pairs.
 //
-// What the simple design does about it: nng_tile_l1.cu's block
-// (l1_tile.cuh's distances, tile_io.cuh's epilogue) behind tile_io.cuh's
-// ghost prologue, which writes zero words for a block whose rows have no
-// ghost bit in its y cell range and skips its distances; a live pair tests
-// one bit of its row's words, read from device memory.
-#include "l1_tile.cuh"
+// What the design does about it: nng_tile_ghost.cu's, with l1_pipe.cuh's
+// body. The wrapper (kernels/nng_tile.py, ghost_launch) orders the rows by
+// their ghost cells among y's (ghost_row_order), gathers x in that order
+// and lists the live 64 x 256 tiles on the card (ghost_tile_plan, no host
+// sync); ghost_pipe.cuh's kernel walks the listed live tiles on
+// l2_pipe.cuh's persistent grid and TMA-fed ring (4-byte copies where
+// d % 4 != 0), sums each pair's d in l1_tile.cuh's order bit for bit
+// (l1pipe::L1: no norms), and stores in the caller's row order. So the
+// kernel equals the plain version on every input, and nng_tile_l1's d on
+// every pair.
+#include "ghost_pipe.cuh"
 
-namespace {
-
-using namespace l1tile;
-
-__global__ void __launch_bounds__(THREADS, 2)
-nng_tile_ghost_l1_kernel(const float* __restrict__ x,
-                         const float* __restrict__ y,
-                         const uint32_t* __restrict__ gb,
-                         const int32_t* __restrict__ yg,
-                         int32_t* __restrict__ cnt,
-                         uint32_t* __restrict__ bits, int q, int p, int d,
-                         int mw, int nw, float eps) {
-  __shared__ Smem s;
-  __shared__ Ghost g;
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-  const int w0 = n0 >> 5;
-
-  if (!stage_ghost(gb, yg, q, p, mw, m0, n0, g)) {
-    zero_words(q, nw, m0, w0, bits);
-    return;
-  }
-
-  float acc[TM][TN];
-  distances(x, y, q, p, d, m0, n0, s, acc);
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = warp * TM + i;
-    const bool in = m0 + r < q;
-    const uint32_t* xw = gb + (size_t)(m0 + r) * mw;
-    bool hit[TN];
-#pragma unroll
-    for (int j = 0; j < TN; ++j)
-      hit[j] = in && ghost_bit(g, xw, lane + 32 * j) && acc[i][j] <= eps;
-    store_hits(hit, m0 + r, q, w0, nw, bits, cnt);
-  }
-}
-
-}  // namespace
-
-// cnt (q,) must be zero on entry; bits is (q, nw) with nw = ceil(p / 32),
-// every word of which is stored. Launches on `stream` and returns
-// cudaGetLastError() (0 on success).
+// x (q, d) is the visiting rows in key order (x[rows]); keys, yg, rows,
+// tiles, ntiles, cnt and bits are as nng_tile_ghost_launch's (cnt and bits
+// zero on entry, indexed in the caller's order); there is no norm
+// scratch. sms is the device's SM count. Launches on `stream` and returns
+// a CUDA error code: the tensor maps', shared-memory opt-in's or occupancy
+// query's, else cudaGetLastError() of the launch (0 on success).
 extern "C" int nng_tile_ghost_l1_launch(const void* x, const void* y,
-                                        const void* gb, const void* yg,
-                                        void* cnt, void* bits, int q, int p,
-                                        int d, int mw, float eps,
+                                        const void* keys, const void* yg,
+                                        const void* rows, const void* tiles,
+                                        const void* ntiles, void* cnt,
+                                        void* bits, int q, int p, int d,
+                                        int mw, float eps, int sms,
                                         void* stream) {
-  const int nw = (p + 31) / 32;
-  const dim3 grid((p + BN - 1) / BN, (q + BM - 1) / BM);
-  nng_tile_ghost_l1_kernel<<<grid, THREADS, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(y),
-      static_cast<const uint32_t*>(gb), static_cast<const int32_t*>(yg),
-      static_cast<int32_t*>(cnt), static_cast<uint32_t*>(bits), q, p, d, mw,
-      nw, eps);
-  return static_cast<int>(cudaGetLastError());
+  return gpipe::ghost_launch<l1pipe::L1>(
+      x, y, keys, yg, rows, tiles, ntiles, cnt, bits, nullptr, nullptr, q, p,
+      d, mw, eps, sms, static_cast<cudaStream_t>(stream));
 }

@@ -1,6 +1,7 @@
 // Block geometry and the packed-bitmask epilogues shared by the distance
 // tiles (l2_tile.cuh, hamming_tile.cuh, l1_tile.cuh), the fused ε-tile
-// kernels, their grouped variants and the tree frontier kernels.
+// kernels and their grouped and ghost variants; the pipelined cores
+// (l2_pipe.cuh) keep its warp layout and its constants.
 //
 // One 256-thread block owns a 128 x 128 (query row x candidate column)
 // tile. Warp w owns rows [16w, 16w + 16) and lane l owns columns l, l + 32,
@@ -55,25 +56,6 @@ __device__ __forceinline__ void count_hits(const bool (&hit)[TN], int row,
   if ((threadIdx.x & 31) == 0 && row < q && rc != 0) atomicAdd(&cnt[row], rc);
 }
 
-// A frontier block's prologue: its BM x WPB active words into shared
-// memory (zero past nq rows and nw words). Returns, to every thread,
-// whether any of them is set.
-__device__ __forceinline__ bool stage_active(const uint32_t* __restrict__ act,
-                                             int nq, int nw, int m0, int w0,
-                                             uint32_t (&sact)[BM][WPB]) {
-  int any = 0;
-  for (int e = threadIdx.x; e < BM * WPB; e += THREADS) {
-    const int r = e / WPB;
-    const int j = e % WPB;
-    const int row = m0 + r;
-    const uint32_t v = (row < nq && w0 + j < nw)
-                           ? act[(size_t)row * nw + w0 + j] : 0u;
-    sact[r][j] = v;
-    any |= v != 0u;
-  }
-  return __syncthreads_or(any);
-}
-
 // Zero the block's BM x WPB words of a (nq, nw) mask (rows past nq and
 // words past nw are not stored).
 __device__ __forceinline__ void zero_words(int nq, int nw, int m0, int w0,
@@ -83,14 +65,6 @@ __device__ __forceinline__ void zero_words(int nq, int nw, int m0, int w0,
     const int w = w0 + e % WPB;
     if (row < nq && w < nw) words[(size_t)row * nw + w] = 0u;
   }
-}
-
-// A frontier block with no active pair writes zero emit and expand words.
-__device__ __forceinline__ void zero_masks(int nq, int nw, int m0, int w0,
-                                           uint32_t* __restrict__ emit,
-                                           uint32_t* __restrict__ expand) {
-  zero_words(nq, nw, m0, w0, emit);
-  zero_words(nq, nw, m0, w0, expand);
 }
 
 // The grouped tiles' block prologue (the landmark engine's cell-scoped
@@ -204,30 +178,6 @@ __device__ __forceinline__ bool ghost_bit(const Ghost& g,
                                           const uint32_t* xw, int c) {
   const int32_t cell = g.yg[c];
   return cell >= 0 && ((xw[cell >> 5] >> (cell & 31)) & 1u);
-}
-
-// Whether the calling lane's column slot j is active for tile row r.
-__device__ __forceinline__ bool active_bit(const uint32_t (&sact)[BM][WPB],
-                                           int r, int j) {
-  return (sact[r][j] >> (threadIdx.x & 31)) & 1u;
-}
-
-// The frontier epilogue of one row: emit and expand words, as store_hits.
-__device__ __forceinline__ void store_masks(const bool (&e)[TN],
-                                            const bool (&x)[TN], int row,
-                                            int nq, int w0, int nw,
-                                            uint32_t* __restrict__ emit,
-                                            uint32_t* __restrict__ expand) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int j = 0; j < TN; ++j) {
-    const unsigned we = __ballot_sync(FULL, e[j]);
-    const unsigned wx = __ballot_sync(FULL, x[j]);
-    if (lane == j && row < nq && w0 + j < nw) {
-      emit[(size_t)row * nw + w0 + j] = we;
-      expand[(size_t)row * nw + w0 + j] = wx;
-    }
-  }
 }
 
 }  // namespace tile

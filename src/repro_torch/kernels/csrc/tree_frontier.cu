@@ -51,8 +51,7 @@ extern "C" int tree_frontier_launch(const void* q, const void* c,
                                     void* qsq, void* csq, int nq, int n,
                                     int d, float eps, float eps2, int sms,
                                     void* stream) {
-  return fpipe::frontier_launch<true>(q, c, rad, leaf, act, tiles, ntiles,
-                                      emit, expand, qsq, csq, nq, n, d, eps,
-                                      eps2, sms,
-                                      static_cast<cudaStream_t>(stream));
+  return fpipe::frontier_launch<fpipe::Metric::L2>(
+      q, c, rad, leaf, act, tiles, ntiles, emit, expand, qsq, csq, nq, n, d,
+      fpipe::Thr{eps, eps2, 0}, sms, static_cast<cudaStream_t>(stream));
 }

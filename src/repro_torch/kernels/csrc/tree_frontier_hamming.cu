@@ -9,7 +9,7 @@
 // Computes, for queries q (nq, w), level nodes c (n, w) packed 32-bit
 // words, radii rad (n,) fp32, leaf flags leaf (n,) int32 and the packed
 // active mask act (nq, nw) uint32, nw = ceil(n / 32):
-//   d     = Hamming distance (hamming_tile.cuh, exact)
+//   d     = Hamming distance (exact)
 //   r     = (int) rad_j                    (truncated, as the reference)
 //   leaf node:     emit   = active && d <= eps,        expand = 0
 //   internal node: emit   = active && d + r <= eps
@@ -20,93 +20,38 @@
 // What bounds it on an H100: the function needs the distances of its active
 // pairs only (w popcounts a pair) and must read q, c and the active words
 // and write two words per 32 pairs; on the traversal's sparse masks the
-// bytes outweigh the active pairs' popcounts, so the bound is bytes. The
-// kernel computes every pair of a 128 x 128 block that has one active pair.
+// bytes outweigh the active pairs' popcounts, so the bound is bytes. What a
+// launch costs beyond that is the dead tiles' reads and writes and the
+// pairs of the live tiles it computes.
 //
-// What the simple design does about it: tile_io.cuh's prologue stages the
-// block's active words and a block with none writes zero words and leaves
-// (__syncthreads_or); otherwise the Hamming tile of nng_tile_hamming.cu
-// (hamming_tile.cuh), so a leaf's test is the tile's own, and tile_io.cuh's
-// __ballot_sync epilogue. Ragged nq and n are masked: out-of-range nodes are
-// never active.
-#include "hamming_tile.cuh"
-
-namespace {
-
-using namespace hamtile;
-
-__global__ void __launch_bounds__(THREADS, 2)
-tree_frontier_hamming_kernel(const uint32_t* __restrict__ q,
-                             const uint32_t* __restrict__ c,
-                             const float* __restrict__ rad,
-                             const int32_t* __restrict__ leaf,
-                             const uint32_t* __restrict__ act,
-                             uint32_t* __restrict__ emit,
-                             uint32_t* __restrict__ expand, int nq, int n,
-                             int w, int nw, int eps) {
-  __shared__ Smem s;
-  __shared__ uint32_t sact[BM][WPB];
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-  const int w0 = n0 >> 5;
-
-  if (!stage_active(act, nq, nw, m0, w0, sact)) {
-    zero_masks(nq, nw, m0, w0, emit, expand);
-    return;
-  }
-  int acc[TM][TN];
-  distances(q, c, nq, n, w, m0, n0, s, acc);
-
-  int r[TN];
-  bool ok[TN];
-  bool lf[TN];
-#pragma unroll
-  for (int j = 0; j < TN; ++j) {
-    const int col = n0 + lane + 32 * j;
-    ok[j] = col < n;
-    r[j] = ok[j] ? static_cast<int>(rad[col]) : 0;
-    lf[j] = ok[j] && leaf[col] != 0;
-  }
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    bool e_bit[TN];
-    bool x_bit[TN];
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const bool a = ok[j] && active_bit(sact, warp * TM + i, j);
-      const int dist = acc[i][j];
-      x_bit[j] = false;
-      if (lf[j]) {
-        e_bit[j] = a && dist <= eps;
-      } else {
-        e_bit[j] = a && dist + r[j] <= eps;
-        x_bit[j] = a && !e_bit[j] && dist <= r[j] + eps;
-      }
-    }
-    store_masks(e_bit, x_bit, m0 + warp * TM + i, nq, w0, nw, emit, expand);
-  }
-}
-
-}  // namespace
+// What the design does about it: tree_frontier_l1.cu's design with a
+// Hamming body. frontier_pipe.cuh's plan pass reads the active words in
+// whole rows, lists the live 64 x 256 tiles on the card (no host sync) and
+// writes the dead tiles' zero words; the persistent walk of l2_pipe.cuh
+// (queries in their forest's DFS order, so about 1% of a level's tiles are
+// live) sums each live pair's popcounts with hamming_pipe.cuh's body, whose
+// int32 count is exact at any w; the shared epilogue applies the integer
+// rules above. At the word2bits shape (w = 25, 100-byte rows) the copies
+// are 4-byte cp.async ones, not TMA: the walk is a small part of a launch.
+#include "frontier_pipe.cuh"
 
 // emit and expand are (nq, nw) with nw = ceil(n / 32); every word is
-// written. Launches on `stream` and returns cudaGetLastError().
+// written (dead tiles' by the plan). tiles and ntiles are as
+// tree_frontier_launch's; w is the words a row and eps the integer
+// threshold; sms is the device's SM count. Launches on `stream` and
+// returns a CUDA error code: the memset's, the tensor maps', shared-memory
+// opt-in's or occupancy query's, else cudaGetLastError() of the launches
+// (0 on success).
 extern "C" int tree_frontier_hamming_launch(const void* q, const void* c,
                                             const void* rad,
                                             const void* leaf,
-                                            const void* act, void* emit,
+                                            const void* act, void* tiles,
+                                            void* ntiles, void* emit,
                                             void* expand, int nq, int n,
-                                            int w, int eps, void* stream) {
-  const int nw = (n + 31) / 32;
-  const dim3 grid((n + BN - 1) / BN, (nq + BM - 1) / BM);
-  tree_frontier_hamming_kernel<<<grid, THREADS, 0,
-                                 static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(q), static_cast<const uint32_t*>(c),
-      static_cast<const float*>(rad), static_cast<const int32_t*>(leaf),
-      static_cast<const uint32_t*>(act), static_cast<uint32_t*>(emit),
-      static_cast<uint32_t*>(expand), nq, n, w, nw, eps);
-  return static_cast<int>(cudaGetLastError());
+                                            int w, int eps, int sms,
+                                            void* stream) {
+  return fpipe::frontier_launch<fpipe::Metric::Hamming>(
+      q, c, rad, leaf, act, tiles, ntiles, emit, expand, nullptr, nullptr, nq,
+      n, w, fpipe::Thr{0.f, 0.f, eps}, sms,
+      static_cast<cudaStream_t>(stream));
 }

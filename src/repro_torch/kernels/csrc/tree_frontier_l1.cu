@@ -44,8 +44,7 @@ extern "C" int tree_frontier_l1_launch(const void* q, const void* c,
                                        void* ntiles, void* emit,
                                        void* expand, int nq, int n, int d,
                                        float eps, int sms, void* stream) {
-  return fpipe::frontier_launch<false>(q, c, rad, leaf, act, tiles, ntiles,
-                                       emit, expand, nullptr, nullptr, nq, n,
-                                       d, eps, 0.f, sms,
-                                       static_cast<cudaStream_t>(stream));
+  return fpipe::frontier_launch<fpipe::Metric::L1>(
+      q, c, rad, leaf, act, tiles, ntiles, emit, expand, nullptr, nullptr, nq,
+      n, d, fpipe::Thr{eps, 0.f, 0}, sms, static_cast<cudaStream_t>(stream));
 }

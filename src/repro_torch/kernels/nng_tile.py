@@ -38,9 +38,10 @@ Lemma-1 ghost cells as packed words (``x_gbits``, (q, ceil(m/32)), the
 threshold and bit ``y_group[j]`` of row i's words is set (``ghost_hit``).
 A row's own cell bit is never set, so no id test is needed. The kernels
 skip the distances of a block where no row has a bit in the block's y
-cell range and store zero words there; the L2 one first orders the rows
-by their ghost cells among y's (``ghost_row_order``) and walks a list of
-the live tiles only (``ghost_tile_plan``), storing in the caller's order.
+cell range and store zero words there; the L2 and L1 ones first order the
+rows by their ghost cells among y's (``ghost_row_order``) and walk a list
+of the live tiles only (``ghost_tile_plan``), storing in the caller's
+order.
 """
 from __future__ import annotations
 
@@ -522,7 +523,14 @@ def nng_tile_ghost_cuda(x, y, x_gbits, y_group, eps: float):
     tiles of ``ghost_tile_plan`` on x gathered in ``ghost_row_order``; the
     words of dead tiles stay zero. Its d² are those of ``nng_tile_cuda``
     bit for bit."""
-    fn = "nng_tile_ghost_cuda"
+    return _ghost_pipe("nng_tile_ghost", x, y, x_gbits, y_group, eps)
+
+
+def _ghost_pipe(lib: str, x, y, x_gbits, y_group, eps: float):
+    """Check the operands of pipelined ghost kernel ``lib`` (fp32 x and y)
+    and launch it once on ``ghost_tile_plan``'s order and live tiles ->
+    (cnt, bits) in x's row order."""
+    fn = f"{lib}_cuda"
     check_operands(fn, ("x", x, torch.float32, 2),
                    ("y", y, torch.float32, 2),
                    ("x_gbits", x_gbits, torch.int32, 2),
@@ -538,30 +546,35 @@ def nng_tile_ghost_cuda(x, y, x_gbits, y_group, eps: float):
     if q == 0 or p == 0:
         return cnt, bits
     rows, keys, tiles, count = ghost_tile_plan(x_gbits, y_group)
-    ghost_launch(x[rows], y, keys, y_group, rows.to(torch.int32), tiles,
-                 count, eps, cnt, bits)
+    ghost_launch(lib, x[rows], y, keys, y_group, rows.to(torch.int32),
+                 tiles, count, eps, cnt, bits)
     return cnt, bits
 
 
-def ghost_launch(xs, y, keys, y_group, rows, tiles, count, eps: float, cnt,
-                 bits) -> None:
-    """The ghost L2 kernel's launch alone, on ``ghost_tile_plan``'s
-    operands: xs = x[rows] contiguous, keys, rows as int32, the tile list
-    and its count; adds the live tiles' hits to cnt and stores their words
-    in bits, both in x's row order (zero where no live tile stores)."""
+def ghost_launch(lib: str, xs, y, keys, y_group, rows, tiles, count,
+                 eps: float, cnt, bits) -> None:
+    """The launch alone of pipelined ghost kernel ``lib``
+    ("nng_tile_ghost": L2, with fp32 scratch for the rows' norms and the
+    threshold ``eps2_f32(eps)``; "nng_tile_ghost_l1": L1, no norms, eps in
+    fp32), on ``ghost_tile_plan``'s operands: xs = x[rows] contiguous,
+    keys, rows as int32, the tile list and its count; adds the live tiles'
+    hits to cnt and stores their words in bits, both in x's row order
+    (zero where no live tile stores)."""
     q, d = xs.shape
     p = y.shape[0]
-    xsq, ysq = row_norm_scratch(q, p, xs.device)
-    launch = _build.entry("nng_tile_ghost")
+    l2 = lib == "nng_tile_ghost"
+    norms = row_norm_scratch(q, p, xs.device) if l2 else ()
+    thr = eps2_f32(eps) if l2 else float(np.float32(eps))
+    launch = _build.entry(lib)
     with torch.cuda.device(xs.device):
         code = launch(xs.data_ptr(), y.data_ptr(), keys.data_ptr(),
                       y_group.data_ptr(), rows.data_ptr(), tiles.data_ptr(),
                       count.data_ptr(), cnt.data_ptr(), bits.data_ptr(),
-                      xsq.data_ptr(), ysq.data_ptr(), q, p, d, keys.shape[1],
-                      eps2_f32(eps), sm_count(xs.device.index),
+                      *(t.data_ptr() for t in norms), q, p, d, keys.shape[1],
+                      thr, sm_count(xs.device.index),
                       torch.cuda.current_stream().cuda_stream)
-    _build.check("nng_tile_ghost", code)
-    nng_tile_ghost_cuda.launches += 1
+    _build.check(lib, code)
+    _GHOST_PIPE[lib].launches += 1
 
 
 def nng_tile_ghost_hamming_cuda(x, y, x_gbits, y_group, eps: float):
@@ -576,13 +589,11 @@ def nng_tile_ghost_hamming_cuda(x, y, x_gbits, y_group, eps: float):
 
 
 def nng_tile_ghost_l1_cuda(x, y, x_gbits, y_group, eps: float):
-    """The ghost L1 CUDA kernel, as ``nng_tile_ghost_cuda`` otherwise."""
-    cnt, bits, launched = _launch_tile("nng_tile_ghost_l1", x, y,
-                                       (("y_group", y_group, "p"),),
-                                       torch.float32, float(np.float32(eps)),
-                                       gbits=x_gbits)
-    nng_tile_ghost_l1_cuda.launches += launched
-    return cnt, bits
+    """The ghost L1 CUDA kernel, as ``nng_tile_ghost_cuda`` otherwise: one
+    launch over the live tiles of ``ghost_tile_plan`` on
+    ``csrc/l1_pipe.cuh``, whose d are ``nng_tile_l1_cuda``'s bit for
+    bit."""
+    return _ghost_pipe("nng_tile_ghost_l1", x, y, x_gbits, y_group, eps)
 
 
 nng_tile_cuda.launches = 0
@@ -594,3 +605,8 @@ nng_tile_grouped_l1_cuda.launches = 0
 nng_tile_ghost_cuda.launches = 0
 nng_tile_ghost_hamming_cuda.launches = 0
 nng_tile_ghost_l1_cuda.launches = 0
+
+# the pipelined ghost kernels' wrappers, whose launch counts ghost_launch
+# keeps
+_GHOST_PIPE = {"nng_tile_ghost": nng_tile_ghost_cuda,
+               "nng_tile_ghost_l1": nng_tile_ghost_l1_cuda}

@@ -30,17 +30,17 @@ only and its plain PyTorch version, with the distances of the metric's
 
   - L2: ``tree_frontier_cuda`` (``csrc/tree_frontier.cu`` on the pipelined
     core ``csrc/l2_pipe.cuh``) / ``tree_frontier_ref``;
-  - Hamming: ``tree_frontier_hamming_cuda`` (``csrc/tree_frontier_hamming.cu``;
-    a (128 × 128) block with no active pair skips its distances)
+  - Hamming: ``tree_frontier_hamming_cuda``
+    (``csrc/tree_frontier_hamming.cu`` on ``csrc/hamming_pipe.cuh``)
     / ``tree_frontier_hamming_ref``;
   - L1: ``tree_frontier_l1_cuda`` (``csrc/tree_frontier_l1.cu`` on
     ``csrc/l1_pipe.cuh``) / ``tree_frontier_l1_ref``.
 
-The L2 and L1 kernels compute only the live ``PIPE_TILE`` tiles, those
-with an active word: a plan pass on the card lists them (no host sync)
-and writes zero words for the others, by the rule of
-``frontier_tile_plan``, its plain version. The engine hands each block's
-queries in its forest's DFS order, which makes most tiles dead.
+The three kernels compute only the live ``PIPE_TILE`` tiles, those with
+an active word: a plan pass on the card lists them (no host sync) and
+writes zero words for the others, by the rule of ``frontier_tile_plan``,
+its plain version (``csrc/frontier_pipe.cuh``). The engine hands each
+block's queries in its forest's DFS order, which makes most tiles dead.
 """
 from __future__ import annotations
 
@@ -52,7 +52,9 @@ from .nng_tile import (PIPE_TILE, check_operands, eps2_f32, eps_int,
                        hamming_dist, l1_dist, live_tiles_first, pack_words,
                        row_norm_scratch, sm_count, unpack_words)
 
-TQ = TN = 128        # the Hamming kernel's block: query rows × level nodes
+# the old one-block-a-tile frontier kernels' block (query rows × level
+# nodes), which live-block counts still compare against
+TQ = TN = 128
 
 
 def _frontier_masks_float(d, rad, leaf, active, eps, leaf_hit=None):
@@ -163,34 +165,14 @@ def _check_frontier(lib: str, q, c, rad, leaf, act_bits, dtype):
     return nq, n, d, nw
 
 
-def _launch_frontier(lib: str, q, c, rad, leaf, act_bits, dtype, *thr):
-    """Check the operands of frontier kernel ``lib`` (one 128 × 128 block a
-    tile) and launch it with thresholds ``thr`` -> (emit, expand,
-    launched)."""
-    nq, n, d, nw = _check_frontier(lib, q, c, rad, leaf, act_bits, dtype)
-    emit = torch.empty((nq, nw), dtype=torch.int32, device=q.device)
-    expand = torch.empty_like(emit)
-    if nq == 0 or nw == 0:
-        return emit, expand, False
-    launch = _build.entry(lib)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = launch(q.data_ptr(), c.data_ptr(), rad.data_ptr(),
-                      leaf.data_ptr(), act_bits.data_ptr(), emit.data_ptr(),
-                      expand.data_ptr(), nq, n, d, *thr, stream)
-    _build.check(lib, code)
-    return emit, expand, True
-
-
 def _launch_pipe_frontier(lib: str, q, c, rad, leaf, act_bits, thr,
-                          norms: bool):
-    """Check the operands of pipelined frontier kernel ``lib`` and launch
-    it once (its plan pass, then its walk over the live tiles) with
-    thresholds ``thr``, int32 scratch for the tile list and its count and,
-    with ``norms``, fp32 scratch for the rows' squared norms -> (emit,
-    expand, launched)."""
-    nq, n, d, nw = _check_frontier(lib, q, c, rad, leaf, act_bits,
-                                   torch.float32)
+                          norms: bool, dtype=torch.float32):
+    """Check the operands of pipelined frontier kernel ``lib`` (q and c of
+    ``dtype``) and launch it once (its plan pass, then its walk over the
+    live tiles) with thresholds ``thr``, int32 scratch for the tile list
+    and its count and, with ``norms``, fp32 scratch for the rows' squared
+    norms -> (emit, expand, launched)."""
+    nq, n, d, nw = _check_frontier(lib, q, c, rad, leaf, act_bits, dtype)
     emit = torch.empty((nq, nw), dtype=torch.int32, device=q.device)
     expand = torch.empty_like(emit)
     if nq == 0 or nw == 0:
@@ -230,10 +212,13 @@ def tree_frontier_cuda(q, c, rad, leaf, act_bits, eps: float):
 
 def tree_frontier_hamming_cuda(q, c, rad, leaf, act_bits, eps: float):
     """The Hamming CUDA kernel: q (nq, w), c (N, w) int32 words, the rest
-    as ``tree_frontier_cuda``."""
-    emit, expand, launched = _launch_frontier(
-        "tree_frontier_hamming", q, c, rad, leaf, act_bits, torch.int32,
-        eps_int(eps))
+    as ``tree_frontier_cuda``; one launch over the live tiles on
+    ``csrc/hamming_pipe.cuh``, whose integer distances are
+    ``nng_tile_hamming_cuda``'s, with the integer threshold
+    ``eps_int(eps)``."""
+    emit, expand, launched = _launch_pipe_frontier(
+        "tree_frontier_hamming", q, c, rad, leaf, act_bits, (eps_int(eps),),
+        norms=False, dtype=torch.int32)
     tree_frontier_hamming_cuda.launches += launched
     return emit, expand
 

@@ -1,5 +1,5 @@
-"""The L2 and L1 frontier kernels' live-tile plan and the tree ring's query
-order, on the CPU.
+"""The L2, L1 and Hamming frontier kernels' live-tile plan and the tree
+ring's query order, on the CPU.
 
 ``kernels.tree_frontier.frontier_tile_plan`` lists the tiles of a frontier
 launch whose active words are not all zero, the live ones first; the
@@ -11,7 +11,9 @@ traversal of permuted rows gives the same neighbours, counts and counters
 once its rows are put back, and the ring gives what it gives with the rows
 in the caller's order. Float comparisons use an eps that no tree decision
 sits near (``tree_safe_eps``), so a pass's fp32 arithmetic cannot flip a
-pair; Hamming is exact.
+pair; Hamming is exact, and a torch emulation of its kernel's walk over
+the live tiles equals the reference's ``tree_frontier_hamming_ref`` bit
+for bit.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +22,7 @@ import torch
 
 from repro.core.distributed import DeviceForest as RefForest
 from repro.core.distributed import tree_traverse as ref_traverse
+from repro.kernels import tree_frontier as jtf
 from repro_torch.core import flat_tree as tft
 from repro_torch.core.distributed import (DeviceForest, dfs_row_order,
                                           make_nng_mesh, systolic_run,
@@ -28,9 +31,11 @@ from repro_torch.core.distributed import device as tdev
 from repro_torch.core.metrics import get_metric
 from repro_torch.data import synthetic_pointset
 from repro_torch.kernels import ops as tops
-from repro_torch.kernels.nng_tile import PIPE_TILE, pack_words, unpack_words
-from repro_torch.kernels.tree_frontier import frontier_tile_plan
-from tests.test_torch_kernels_gpu import frontier_case
+from repro_torch.kernels.nng_tile import (PIPE_TILE, hamming_dist,
+                                          pack_words, unpack_words)
+from repro_torch.kernels.tree_frontier import (_frontier_masks_hamming,
+                                               frontier_tile_plan)
+from tests.test_torch_kernels_gpu import as_words, frontier_case
 from tests.test_torch_tree import tree_safe_eps
 
 SENTINEL = 2**31 - 1
@@ -93,7 +98,7 @@ def test_frontier_tile_plan_lists_live_tiles_first(kind, nq, nw, rows, wds):
         == n_live
 
 
-@pytest.mark.parametrize("metric", ["euclidean", "manhattan"])
+@pytest.mark.parametrize("metric", ["euclidean", "manhattan", "hamming"])
 @pytest.mark.parametrize("nq,n", [(130, 700), (300, 544), (200, 256)])
 def test_frontier_dead_tiles_hold_no_decision(metric, nq, n):
     """The plain frontier's emit and expand words are zero on every tile
@@ -103,7 +108,7 @@ def test_frontier_dead_tiles_hold_no_decision(metric, nq, n):
                                               metric=metric)
     act[:, 300:] = False                     # whole dead tiles
     act[64:128] = False
-    tq, tc, trad, tleaf = (torch.from_numpy(a) for a in (q, c, rad, leaf))
+    tq, tc, trad, tleaf = (as_words(a) for a in (q, c, rad, leaf))
     tact = pack_words(torch.from_numpy(np.pad(act, ((0, 0), (0, -n % 32)))))
     e, x = tops.tree_frontier_step(tq, tc, trad, tleaf, tact, eps,
                                    metric=metric)
@@ -117,6 +122,73 @@ def test_frontier_dead_tiles_hold_no_decision(metric, nq, n):
         r0, w0 = t // nt * rows, t % nt * wds
         assert not e[r0:r0 + rows, w0:w0 + wds].any()
         assert not x[r0:r0 + rows, w0:w0 + wds].any()
+
+
+def emulate_hamming_walk(q, c, rad, leaf, act_bits, eps):
+    """The Hamming frontier kernel's launch on CPU tensors: zero words where
+    the plan leaves a tile out, and on each live ``PIPE_TILE`` tile (in
+    ``frontier_tile_plan``'s order) the tile's own integer distances
+    (``hamming_dist`` of its rows and columns) under the plain decision
+    rules, its words stored in place. Returns (emit, expand)."""
+    tq, tw = PIPE_TILE[0], PIPE_TILE[1] // 32
+    nq, nw = act_bits.shape
+    emit = torch.zeros((nq, nw), dtype=torch.int32)
+    expand = torch.zeros_like(emit)
+    tiles, count = frontier_tile_plan(act_bits, tq, tw)
+    nt = -(-nw // tw)
+    for t in tiles[:int(count[0])].tolist():
+        r0, w0 = t // nt * tq, t % nt * tw
+        rows, words = slice(r0, r0 + tq), slice(w0, w0 + tw)
+        cols = slice(32 * w0, 32 * (w0 + tw))
+        c_t = c[cols]
+        act = unpack_words(act_bits[rows, words])[:, :c_t.shape[0]]
+        e, x = _frontier_masks_hamming(hamming_dist(q[rows], c_t), rad[cols],
+                                       leaf[cols], act, eps)
+        pad = (0, -c_t.shape[0] % 32)
+        emit[rows, words] = pack_words(torch.nn.functional.pad(e, pad))
+        expand[rows, words] = pack_words(torch.nn.functional.pad(x, pad))
+    return emit, expand
+
+
+@pytest.mark.parametrize("pattern", ["sparse", "one", "none", "all"])
+@pytest.mark.parametrize("nq,n,w", [(130, 700, 1), (65, 257, 9),
+                                    (200, 544, 25), (300, 300, 33)])
+def test_hamming_walk_matches_reference(nq, n, w, pattern):
+    """The emulated walk of the Hamming frontier over the live tiles equals
+    the reference's ``tree_frontier_hamming_ref`` bit for bit in emit and
+    expand: ragged nq and n, w in {1, 9, 25, 33}, the frontier case's mask
+    with whole dead tiles ("sparse"), exactly one live tile ("one"), no
+    active word ("none") and every pair active ("all")."""
+    q, c, rad, leaf, act, eps = frontier_case(nq, n, w, nq + n + w,
+                                              metric="hamming")
+    if pattern == "sparse":
+        act[:, 300:] = False
+        act[64:128] = False
+    elif pattern == "one":
+        act[:] = False
+        act[64:128, 256:512] = True            # tile (1, 1) of 64 x 256
+    elif pattern == "none":
+        act[:] = False
+    else:
+        act[:] = True
+    pad = -n % 32
+    words = np.packbits(np.pad(act, ((0, 0), (0, pad))), axis=1,
+                        bitorder="little").view(np.uint32)
+    re, rx = jtf.tree_frontier_hamming_ref(
+        jnp.asarray(q), jnp.asarray(np.pad(c, ((0, pad), (0, 0)))),
+        jnp.asarray(np.pad(rad, (0, pad))), jnp.asarray(np.pad(leaf, (0, pad))),
+        jnp.asarray(words), eps)
+    tiles, count = frontier_tile_plan(as_words(words), PIPE_TILE[0],
+                                      PIPE_TILE[1] // 32)
+    live = {"one": 1, "none": 0}.get(pattern)
+    assert live is None or int(count[0]) == live
+    e, x = emulate_hamming_walk(as_words(q), as_words(c),
+                                torch.from_numpy(rad),
+                                torch.from_numpy(leaf), as_words(words), eps)
+    np.testing.assert_array_equal(e.numpy().view(np.uint32), np.asarray(re))
+    np.testing.assert_array_equal(x.numpy().view(np.uint32), np.asarray(rx))
+    if pattern in ("sparse", "all"):
+        assert np.asarray(re).any() and np.asarray(rx).any()
 
 
 def forests(pts, nranks, metric):

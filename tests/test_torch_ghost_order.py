@@ -1,14 +1,15 @@
-"""The ghost L2 kernel's row order and live-tile list, on the CPU.
+"""The ghost L2 and L1 kernels' row order and live-tile list, on the CPU.
 
-``nng_tile_ghost_cuda`` orders the visiting rows by their ghost cells among
-this launch's local ones (``ghost_row_order``), lists the live 64 x 256
-tiles of that order (``ghost_tile_plan``) and computes those tiles only,
-storing each row's words in the caller's order. None of that needs the
-card: here the plan runs on CPU tensors, and a torch emulation of the
-launch (the plain version on the gathered rows, the dead tiles' pairs
-dropped, the rows mapped back) stands in for the kernel. Both are held to
-the reference's ``nng_tile_ghost_ref`` on the same numpy inputs, bit for
-bit, at gap-safe eps.
+``nng_tile_ghost_cuda`` and ``nng_tile_ghost_l1_cuda`` order the visiting
+rows by their ghost cells among this launch's local ones
+(``ghost_row_order``), list the live 64 x 256 tiles of that order
+(``ghost_tile_plan``) and compute those tiles only, storing each row's
+words in the caller's order. None of that needs the card: here the plan
+runs on CPU tensors, and a torch emulation of the launch (the plain
+version on the gathered rows, the dead tiles' pairs dropped, the rows
+mapped back) stands in for the kernel. Both are held to the reference's
+``nng_tile_ghost_ref`` (L2) and ``nng_tile_ghost_l1_ref`` (L1) on the same
+numpy inputs, bit for bit, at gap-safe eps.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -147,8 +148,15 @@ def test_ghost_tile_plan_covers_every_needed_pair(q, p, m, pattern):
         assert n_live == mt * nt
 
 
-def emulate_launch(x, y, gb, yg, eps):
-    """The ghost L2 launch of ``nng_tile_ghost_cuda`` on CPU tensors: the
+# metric -> (the port's plain ghost tile, the reference's oracle)
+GHOST_REFS = {"euclidean": (tnt.nng_tile_ghost_ref, jnt.nng_tile_ghost_ref),
+              "manhattan": (tnt.nng_tile_ghost_l1_ref,
+                            jnt.nng_tile_ghost_l1_ref)}
+
+
+def emulate_launch(x, y, gb, yg, eps, metric="euclidean"):
+    """The ghost launch of ``nng_tile_ghost_cuda`` (L2) or
+    ``nng_tile_ghost_l1_cuda`` (``metric="manhattan"``) on CPU tensors: the
     plain version over x gathered in the plan's order against y with the
     ordered keys for words, every pair outside the live tiles dropped, the
     counts and words stored at each row's place in x's order. Returns
@@ -158,7 +166,7 @@ def emulate_launch(x, y, gb, yg, eps):
     pad = -p % 32
     yp = torch.nn.functional.pad(y, (0, 0, 0, pad))
     ygp = torch.nn.functional.pad(yg, (0, pad), value=-1)
-    _, b = tnt.nng_tile_ghost_ref(x[rows], yp, keys, ygp, eps)
+    _, b = GHOST_REFS[metric][0](x[rows], yp, keys, ygp, eps)
     hit = tnt.unpack_words(b)
     nt = -(-p // TP)
     keep = torch.zeros_like(hit)
@@ -171,41 +179,65 @@ def emulate_launch(x, y, gb, yg, eps):
     return out.sum(1, dtype=torch.int32), tnt.pack_words(out)
 
 
-@pytest.mark.parametrize("m", [5, 32, 40])
-@pytest.mark.parametrize("pattern", PATTERNS)
-@pytest.mark.parametrize("q,p,d,quantile", [(63, 255, 3, 0.02),
-                                            (300, 700, 9, 0.01),
-                                            (129, 1300, 16, 0.005)])
-def test_reordered_ghost_ref_maps_back(q, p, d, quantile, m, pattern):
-    """``nng_tile_ghost_ref`` on the reordered rows (with the gathered
-    words, or with the ordered keys as the kernel reads them), mapped back
-    through ``rows``, equals it on the original rows, and so does the
-    emulated launch (dead tiles dropped): all equal to the reference's
-    ``nng_tile_ghost_ref``, bit for bit, at a gap-safe eps."""
+REORDER_CASES = [(63, 255, 3, 0.02), (300, 700, 9, 0.01),
+                 (129, 1300, 16, 0.005)]
+
+
+def check_reordered_maps_back(metric, q, p, d, quantile, m, pattern):
+    """The ghost plain version of ``metric`` on the reordered rows (with the
+    gathered words, or with the ordered keys as the kernel reads them),
+    mapped back through ``rows``, and the emulated launch, each equal to
+    the reference's oracle on the original rows, bit for bit, at a
+    gap-safe eps."""
     gb, yg = order_case(q, p, m, pattern, q + 5 * p + m)
     rng = np.random.default_rng(q + d + m)
     x = rng.normal(size=(q, d)).astype(np.float32)
     y = rng.normal(size=(p, d)).astype(np.float32)
-    eps = gap_safe_eps(x, y, quantile, window=int(q * p * quantile / 4))
+    eps = gap_safe_eps(x, y, quantile, metric=metric,
+                       window=int(q * p * quantile / 4))
     pad = -p % 32
     yp = np.pad(y, ((0, pad), (0, 0)))
     ygp = np.pad(yg, (0, pad), constant_values=-1)
-    rc, rb = jnt.nng_tile_ghost_ref(jnp.asarray(x), jnp.asarray(yp),
-                                    jnp.asarray(gb), jnp.asarray(ygp), eps)
+    plain, oracle = GHOST_REFS[metric]
+    rc, rb = oracle(jnp.asarray(x), jnp.asarray(yp), jnp.asarray(gb),
+                    jnp.asarray(ygp), eps)
     rc, rb = np.asarray(rc), np.asarray(rb).view(np.int32)
     xt, gbt, ygt = torch.from_numpy(x), as_words(gb), torch.from_numpy(yg)
     ypt, ygpt = torch.from_numpy(yp), torch.from_numpy(ygp)
     rows, keys, _, _ = tnt.ghost_tile_plan(gbt, ygt)
     for words in (gbt[rows], keys):
-        c, b = tnt.nng_tile_ghost_ref(xt[rows], ypt, words, ygpt, eps)
+        c, b = plain(xt[rows], ypt, words, ygpt, eps)
         cb, bb = torch.empty_like(c), torch.empty_like(b)
         cb[rows], bb[rows] = c, b
         np.testing.assert_array_equal(cb.numpy(), rc)
         np.testing.assert_array_equal(bb.numpy(), rb)
-    c, b = emulate_launch(xt, torch.from_numpy(y), gbt, ygt, eps)
+    c, b = emulate_launch(xt, torch.from_numpy(y), gbt, ygt, eps, metric)
     np.testing.assert_array_equal(c.numpy(), rc)
     np.testing.assert_array_equal(b.numpy(), rb)
     if pattern == "dead":
         assert not rc.any()
     elif pattern != "live" or q * p > 20_000:
         assert rc.sum() > 0
+
+
+@pytest.mark.parametrize("m", [5, 32, 40])
+@pytest.mark.parametrize("pattern", PATTERNS)
+@pytest.mark.parametrize("q,p,d,quantile", REORDER_CASES)
+def test_reordered_ghost_ref_maps_back(q, p, d, quantile, m, pattern):
+    """``nng_tile_ghost_ref`` on the reordered rows (with the gathered
+    words, or with the ordered keys as the kernel reads them), mapped back
+    through ``rows``, equals it on the original rows, and so does the
+    emulated launch (dead tiles dropped): all equal to the reference's
+    ``nng_tile_ghost_ref``, bit for bit, at a gap-safe eps."""
+    check_reordered_maps_back("euclidean", q, p, d, quantile, m, pattern)
+
+
+@pytest.mark.parametrize("m", [5, 32, 40])
+@pytest.mark.parametrize("pattern", PATTERNS)
+@pytest.mark.parametrize("q,p,d,quantile", REORDER_CASES)
+def test_reordered_ghost_l1_ref_maps_back(q, p, d, quantile, m, pattern):
+    """The same for the L1 kernel's launch: ``nng_tile_ghost_l1_ref`` on
+    ``ghost_tile_plan``'s rows and keys, mapped back, and the emulated
+    live-tile launch, both equal to the reference's
+    ``nng_tile_ghost_l1_ref``, bit for bit, at a gap-safe L1 eps."""
+    check_reordered_maps_back("manhattan", q, p, d, quantile, m, pattern)

@@ -246,20 +246,23 @@ def pipe_frontier_inputs(metric, nq, n, d, pattern):
         act[:] = True
     words = tnt.pack_words(torch.from_numpy(np.pad(act, ((0, 0),
                                                          (0, -n % 32)))))
-    return (tuple(torch.from_numpy(a) for a in (q, c, rad, leaf))
-            + (words, eps))
+    return tuple(as_words(a) for a in (q, c, rad, leaf)) + (words, eps)
+
+
+PIPE_FRONTIERS = {"euclidean": ttf.tree_frontier_cuda,
+                  "manhattan": ttf.tree_frontier_l1_cuda,
+                  "hamming": ttf.tree_frontier_hamming_cuda}
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("metric", ["euclidean", "manhattan"])
+@pytest.mark.parametrize("metric", ["euclidean", "manhattan", "hamming"])
 @pytest.mark.parametrize("nq,n,d,pattern", PIPE_FRONTIER_CASES)
 def test_pipe_frontier_cuda_matches_plain(cuda_device, metric, nq, n, d,
                                           pattern):
-    """tree_frontier and tree_frontier_l1 (one launch over the live tiles)
-    equal their plain versions bit for bit in emit and expand, and launch
-    once."""
-    kern = ttf.tree_frontier_cuda if metric == "euclidean" else \
-        ttf.tree_frontier_l1_cuda
+    """tree_frontier, tree_frontier_l1 and tree_frontier_hamming (one
+    launch over the live tiles; d is the Hamming rows' words) equal their
+    plain versions bit for bit in emit and expand, and launch once."""
+    kern = PIPE_FRONTIERS[metric]
     *ops, eps = pipe_frontier_inputs(metric, nq, n, d, pattern)
     tiles, count = ttf.frontier_tile_plan(ops[4], 64, 8)
     want_live = {"one": 1, "none": 0, "dense": len(tiles)}.get(pattern)
@@ -275,19 +278,29 @@ def test_pipe_frontier_cuda_matches_plain(cuda_device, metric, nq, n, d,
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("metric", ["euclidean", "manhattan"])
+@pytest.mark.parametrize("metric", ["euclidean", "manhattan", "hamming"])
 @pytest.mark.parametrize("q,p,d", [(300, 700, 17), (1000, 777, 128),
                                    (129, 300, 9)])
 def test_pipe_frontier_leaf_test_is_the_tiles(cuda_device, metric, q, p, d):
     """With every node a leaf and every pair active, the frontier's emit
     words equal the ε-tile's hit words bit for bit at an eps exactly on
     one pair's fp32 distance (nng_tile's d² on l2_pipe.cuh; nng_tile_l1's
-    d on l1_tile.cuh): the frontiers' per-pair arithmetic is the tiles'."""
+    d on l1_tile.cuh; Hamming: an integer pair distance, nng_tile_hamming's
+    on hamming_tile.cuh): the frontiers' per-pair arithmetic is the
+    tiles'."""
     g = torch.Generator(device=cuda_device).manual_seed(q + p + d)
     x = torch.randn(q, d, generator=g, device=cuda_device)
     y = torch.randn(p, d, generator=g, device=cuda_device)
     ones = torch.ones(p, dtype=torch.int32, device=cuda_device)
-    if metric == "euclidean":
+    if metric == "hamming":
+        x, y = (torch.randint(-2**31, 2**31 - 1, (r, d), generator=g,
+                              dtype=torch.int32, device=cuda_device)
+                for r in (q, p))
+        eps = float(torch.quantile(tnt.hamming_dist(x, y).flatten()[
+            :1 << 20].float(), 0.02))
+        _, bits = tnt.nng_tile_hamming_cuda(x, y, ones, eps)
+        kern = ttf.tree_frontier_hamming_cuda
+    elif metric == "euclidean":
         eps = eps_on_pair(pairwise_sqdist_cuda(x, y), 0.02)
         assert eps is not None
         _, bits = tnt.nng_tile_cuda(x, y, ones, eps)
@@ -307,6 +320,35 @@ def test_pipe_frontier_leaf_test_is_the_tiles(cuda_device, metric, q, p, d):
                         eps)
     assert int(tnt.unpack_words(bits).sum()) > 0
     assert torch.equal(emit, bits) and not expand.any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w", [1, 9, 25, 33])
+@pytest.mark.parametrize("nq,n,pattern", [(130, 700, "random"),
+                                          (1000, 1300, "random"),
+                                          (65, 257, "one"), (200, 700, "one"),
+                                          (130, 300, "none"),
+                                          (300, 544, "dense")])
+def test_hamming_frontier_cuda_word_counts(cuda_device, w, nq, n, pattern):
+    """tree_frontier_hamming on the pipelined walk equals its plain version
+    bit for bit for w = 1, 9, 25 and 33 words a row (4-byte copies; TMA
+    never, as w % 4 != 0), ragged nq and n, one live tile, an all-inactive
+    mask (a zero live-tile count) and every pair active."""
+    *ops, eps = pipe_frontier_inputs("hamming", nq, n, w, pattern)
+    tiles, count = ttf.frontier_tile_plan(ops[4], 64, 8)
+    want_live = {"one": 1, "none": 0, "dense": len(tiles)}.get(pattern)
+    assert want_live is None or int(count[0]) == want_live
+    e0, x0 = tops.tree_frontier_step(*ops, eps, metric="hamming")
+    kern = ttf.tree_frontier_hamming_cuda
+    before = kern.launches
+    e1, x1 = kern(*(a.to(cuda_device) for a in ops), eps)
+    assert kern.launches == before + 1
+    if pattern in ("random", "dense"):
+        assert int(tnt.unpack_words(e0).sum()) > 0
+        assert int(tnt.unpack_words(x0).sum()) > 0
+    if pattern == "none":
+        assert not e1.any() and not x1.any()
+    assert torch.equal(e1.cpu(), e0) and torch.equal(x1.cpu(), x0)
 
 
 @pytest.mark.gpu
@@ -493,7 +535,10 @@ def ghost_case(metric, q, p, d, m, seed, pattern="random"):
     x sets odd, so no row has a bit among y's cells though its words are
     set inside y's cell range; "sparse" sorted y and three cells on every
     20th row only, so that the L2 kernel's ghost order leaves fewer live
-    tiles than resident blocks.
+    tiles than resident blocks; "one" sorted y and one cell (among the
+    first 256 columns' cells) on every seventh of the first 280 rows
+    only, so that the ghost order leaves exactly one live 64 x 256 tile
+    where p <= 256.
     Points and eps as ``grouped_case``."""
     x, y, _, eps = tile_case(metric, q, p, d, seed)
     if metric != "hamming" and q * p < 20_000:
@@ -516,6 +561,10 @@ def ghost_case(metric, q, p, d, m, seed, pattern="random"):
                 near = (rng.integers(0, m, 3) if i % 20 == 0
                         else np.zeros(0, np.int64))
             sets[i, np.clip(near, 0, m - 1)] = True
+    elif pattern == "one":
+        yg = np.sort(rng.integers(0, m, size=p))
+        sets = np.zeros((q, m), bool)
+        sets[:280:7, yg[min(p, 256) // 2]] = True
     elif pattern == "zero":
         yg = 2 * rng.integers(0, m // 2, size=p)
         sets = rng.random((q, m)) < 0.3
@@ -557,6 +606,52 @@ def test_ghost_tile_cuda_matches_plain(cuda_device, metric, q, p, d, m,
     rc, rb, _, _ = tops.nng_tile_bits_ghost(*args, eps, metric=metric)
     assert torch.equal(cnt.cpu(), rc)
     assert torch.equal(bits.cpu(), rb)
+    if pattern in ("disjoint", "zero"):
+        assert not bits.any() and not cnt.any()
+    else:
+        assert int(rc.sum()) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q,p,d,m,pattern", [
+    (37, 64, 3, 32, "random"), (1000, 777, 25, 70, "random"),
+    (600, 1200, 9, 70, "sorted"), (300, 515, 40, 70, "disjoint"),
+    (500, 900, 16, 32, "zero"), (300, 200, 12, 5, "one"),
+    (300, 250, 7, 40, "one"), (700, 1500, 32, 32, "interleave"),
+    (400, 1500, 64, 40, "sorted"), (300, 600, 24, 32, "sparse")])
+def test_ghost_l1_cuda_exact(cuda_device, q, p, d, m, pattern):
+    """The L1 ghost kernel (ghost row order, live-tile walk on
+    l1_pipe.cuh) equals its plain version bit for bit at an eps exactly on
+    a needed pair's fp32 distance, not only off the knife: both sum in
+    l1_tile.cuh's order. It also equals nng_tile_l1's hits (the old core,
+    l1_tile.cuh) under the plain ghost test. Ragged q, p and d (d % 4 != 0:
+    the 4-byte copies), one ghost word a row (m = 5, 32) and more (40,
+    70); the disjoint and zero-key patterns store nothing and list no live
+    tile, and "one" lists exactly one."""
+    x, y, gb, yg, _ = ghost_case("manhattan", q, p, d, m, q + d + 1, pattern)
+    xt, yt, gbt, ygt = (as_words(a).to(cuda_device) for a in (x, y, gb, yg))
+    need = tnt.ghost_hit(torch.ones((q, p), dtype=torch.bool,
+                                    device=cuda_device), gbt, ygt)
+    dist = tnt.l1_dist(xt, yt)
+    pool = dist[need] if bool(need.any()) else dist.flatten()
+    eps = float(pool.sort().values[len(pool) // 3])       # a pair's own d
+    live = int(tnt.ghost_tile_plan(gbt, ygt)[3][0])
+    want_live = {"one": 1, "disjoint": 0, "zero": 0}.get(pattern)
+    assert want_live is None or live == want_live
+    kern = tnt.nng_tile_ghost_l1_cuda
+    before = kern.launches
+    cnt, bits = kern(xt, yt, gbt, ygt, eps)
+    assert kern.launches == before + 1
+    rc, rb, _, _ = tops.nng_tile_bits_ghost(*(as_words(a) for a in
+                                              (x, y, gb, yg)), eps,
+                                            metric="manhattan")
+    assert torch.equal(cnt.cpu(), rc) and torch.equal(bits.cpu(), rb)
+    _, hb = tnt.nng_tile_l1_cuda(xt, yt, torch.ones(p, dtype=torch.int32,
+                                                    device=cuda_device), eps)
+    hit = tnt.ghost_hit(tnt.unpack_words(hb)[:, :p], gbt, ygt)
+    assert torch.equal(cnt, hit.sum(1, dtype=torch.int32))
+    assert torch.equal(bits, tnt.pack_words(torch.nn.functional.pad(
+        hit, (0, -p % 32))))
     if pattern in ("disjoint", "zero"):
         assert not bits.any() and not cnt.any()
     else:

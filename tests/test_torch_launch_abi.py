@@ -149,7 +149,8 @@ WRAPPERS = {
     "eps_count": lambda: tec.eps_count_cuda(_f32(Q, D), _f32(P, D), 1.5),
 }
 PERSISTENT = {"nng_tile", "eps_count", "pairwise_sqdist", "nng_tile_ghost",
-              "tree_frontier", "tree_frontier_l1"}
+              "nng_tile_ghost_l1", "tree_frontier", "tree_frontier_hamming",
+              "tree_frontier_l1"}
 
 
 def test_every_entry_has_a_wrapper_case():
@@ -172,9 +173,10 @@ def test_wrapper_passes_its_entry_argtypes(fake_card, lib):
 def test_persistent_wrappers_launch_once_for_any_rows(fake_card, q, d):
     """nng_tile, eps_count and pairwise_sqdist launch one persistent grid
     for the whole of x (no row chunks) with x's own pointer, rows, width
-    and the threshold eps2_f32(eps); the ghost kernel one grid over x
-    gathered in its row order, with the order, the keys and the live-tile
-    list of ``ghost_tile_plan``."""
+    and the threshold eps2_f32(eps); the L2 and L1 ghost kernels one grid
+    over x gathered in its row order, with the order, the keys and the
+    live-tile list of ``ghost_tile_plan`` (L2: norm scratch and eps2_f32;
+    L1: no norm scratch and eps in fp32)."""
     x, y = _f32(q + 1, d)[1:], _f32(P, d)
     tec.eps_count_cuda(x, y, 2.5)
     tnt.nng_tile_cuda(x, y, _i32(P), 2.5)
@@ -183,9 +185,11 @@ def test_persistent_wrappers_launch_once_for_any_rows(fake_card, q, d):
         0, 2**31, size=(q, 2)).astype(np.int32))
     yg = torch.arange(P, dtype=torch.int32) % 40 - 1
     tnt.nng_tile_ghost_cuda(x, y, gb, yg, 2.5)
+    tnt.nng_tile_ghost_l1_cuda(x, y, gb, yg, 2.5)
     assert [c[0] for c in fake_card] == ["eps_count", "nng_tile",
-                                         "pairwise_sqdist", "nng_tile_ghost"]
-    (_, ea), (_, ta), (_, pa), (_, ga) = fake_card
+                                         "pairwise_sqdist", "nng_tile_ghost",
+                                         "nng_tile_ghost_l1"]
+    (_, ea), (_, ta), (_, pa), (_, ga), (_, la) = fake_card
     assert ea[:2] == (x.data_ptr(), y.data_ptr())
     assert ea[5:10] == (q, P, d, tnt.eps2_f32(2.5), SMS)
     assert ta[:2] == (x.data_ptr(), y.data_ptr())
@@ -194,29 +198,40 @@ def test_persistent_wrappers_launch_once_for_any_rows(fake_card, q, d):
     assert pa[5:9] == (q, P, d, SMS)
     assert ga[1] == y.data_ptr() and ga[3] == yg.data_ptr()
     assert ga[11:17] == (q, P, d, 2, tnt.eps2_f32(2.5), SMS)
+    assert la[1] == y.data_ptr() and la[3] == yg.data_ptr()
+    assert la[9:15] == (q, P, d, 2, float(np.float32(2.5)), SMS)
+    # x gathered in the plan's order: a copy, not x itself
+    assert ga[0] != x.data_ptr() and la[0] != x.data_ptr()
 
 
 def test_frontier_wrappers_launch_once_with_plan_scratch(fake_card):
-    """tree_frontier and tree_frontier_l1 make one call of their entry
-    point (its plan pass and its walk) with q's, c's, rad's, leaf's and
-    the active words' own pointers, emit and expand (the returned
-    tensors), (nq, n, d), the thresholds and the SM count; the L2 one also
-    norm scratch."""
+    """tree_frontier, tree_frontier_l1 and tree_frontier_hamming make one
+    call of their entry point (its plan pass and its walk) with q's, c's,
+    rad's, leaf's and the active words' own pointers, emit and expand (the
+    returned tensors), (nq, n, d), the thresholds and the SM count; the L2
+    one also norm scratch; the Hamming one int32 words and the integer
+    eps."""
     nq, n, d = 130, 300, 17
     q, c = _f32(nq + 1, d)[1:], _f32(n, d)
     rad, leaf = _f32(n), _i32(n)
     act = _i32(nq, 10)
+    qw, cw = _i32(nq + 1, 3)[1:], _i32(n, 3)
     outs = [ttf.tree_frontier_cuda(q, c, rad, leaf, act, 2.5),
-            ttf.tree_frontier_l1_cuda(q, c, rad, leaf, act, 2.5)]
+            ttf.tree_frontier_l1_cuda(q, c, rad, leaf, act, 2.5),
+            ttf.tree_frontier_hamming_cuda(qw, cw, rad, leaf, act, 4.7)]
     assert [c_[0] for c_ in fake_card] == ["tree_frontier",
-                                           "tree_frontier_l1"]
+                                           "tree_frontier_l1",
+                                           "tree_frontier_hamming"]
     eps = float(np.float32(2.5))
-    for (lib, args), (emit, expand) in zip(fake_card, outs):
-        assert args[:5] == (q.data_ptr(), c.data_ptr(), rad.data_ptr(),
+    points = [(q, c), (q, c), (qw, cw)]
+    for (lib, args), (emit, expand), (q_, c_) in zip(fake_card, outs,
+                                                     points):
+        assert args[:5] == (q_.data_ptr(), c_.data_ptr(), rad.data_ptr(),
                             leaf.data_ptr(), act.data_ptr())
         assert args[7:9] == (emit.data_ptr(), expand.data_ptr())
         assert emit.shape == expand.shape == (nq, 10)
         assert len(set(args[5:9])) == 4        # the list, its count, outputs
-    fa, la = fake_card[0][1], fake_card[1][1]
+    fa, la, ha = (call[1] for call in fake_card)
     assert fa[11:17] == (nq, n, d, eps, tnt.eps2_f32(2.5), SMS)
     assert la[9:13] == (nq, n, d, eps)
+    assert ha[9:14] == (nq, n, 3, 4, SMS)

@@ -2,25 +2,37 @@
 """Time build_nng's calls in this checkout against another checkout.
 
     python3 tree_ab.py OTHER [--rounds 2] [--calls CALL,...] [--kernels]
+                       [--profile]
     python3 tree_ab.py --ratios [--device cpu] [--n N] [--metric M]
 
 OTHER is the root of another checkout, or of an unpacked ``git archive``
 of one. Each round runs both, each in a fresh process, in the order other,
 this, this, other: ``build_nng`` on chip_smoke.py's smoke points (the
 ``nng-sift-1m`` stand-in, 2^20 x 128, seed 0, eps 2.98, 8 logical ranks,
-k_cap 1024: no grow) in the calls named by ``--calls`` (default: all):
+k_cap 1024 unless a call names its own) in the calls named by ``--calls``
+(default: all):
 "point tree" and "ring tree" (``traversal="tree"`` through the point
 partition and through the spatial partition's ghost ring), "point
-tiles" (the main path, ``traversal="tiles"``) and "l1 tree" (the point
+tiles" (the main path, ``traversal="tiles"``), "l1 tree" (the point
 ring's tree under L1 on the first 2^19 points at eps 26.0194586,
-chip_smoke.py [8]'s cut and eps). With ``--kernels`` each
+chip_smoke.py [8]'s cut and eps), "hamming tree" (the point ring's
+tree under Hamming on the ``nng-word2bits`` stand-in, 399360 x 25 words,
+seed 0, eps 40: chip_smoke.py [7b]'s call), "l1 ring" (the spatial
+partition's ghost ring with tiles under L1 at [8]'s cut and eps:
+chip_smoke.py [10d]'s call) and "hamming ring tree" (the spatial tree
+flavour on the ghost ring under Hamming, k_cap 3072: chip_smoke.py
+[10e]'s call). With ``--profile`` each process runs each
+call once more under torch.profiler (the card's activity only) and
+reports its device busy time, idle share and the five kernels with the
+most device time; the timed call runs unprofiled. With ``--kernels`` each
 process also times its own ``nng_tile_cuda`` and ``eps_count_cuda`` on
 rank 0's block against rank 1's (131072 x 131072 x 128; CUDA events,
 median of 3 after a warm-up), and the frontier kernels over one
 traversal: rank 0's block, in its forest's DFS order (the engine's: the
 forest's valid ``leaf_ids``), against rank 1's forest, each launch timed
-in place, for L2 on the smoke points and for L1 on their first 2^19 at
-eps 26.0194586 ([8]'s cut), with the busiest launch's time. Prints each
+in place, for L2 on the smoke points, for L1 on their first 2^19 at
+eps 26.0194586 ([8]'s cut) and for Hamming on the word2bits stand-in at
+eps 40 ([7]'s), with the busiest launch's time. Prints each
 run's ``elapsed_s``, call wall, peak device memory and kernel times, the
 card's name and power limit, and a last line of JSON; each call's graph,
 work counters (tiles_scheduled, tiles_skipped, dists_evaluated,
@@ -37,7 +49,9 @@ blocks (the old kernels' block) and the live 64 x 256 tiles (the
 pipelined core's, ``frontier_tile_plan``). The frontier runs on the card's
 kernels, or on their plain versions with ``--device cpu``; the counts
 depend only on the masks, which are the same either way. ``--metric
-manhattan`` takes eps 26.0194586 ([8]'s) unless ``--eps`` is given.
+manhattan`` takes eps 26.0194586 ([8]'s) unless ``--eps`` is given;
+``--metric hamming`` takes the word2bits stand-in's points (all 399360
+by default, 2^16 with ``--device cpu``) and eps 40.
 Prints a line a launch, each traversal's sums, the busiest launch, and a
 last line of JSON.
 """
@@ -58,9 +72,26 @@ CALLS = {"point tree": {"traversal": "tree"},
          "ring tree": {"traversal": "tree", "partition": "spatial",
                        "ghost_mode": "ring"},
          "point tiles": {"traversal": "tiles"},
-         "l1 tree": {"traversal": "tree", "metric": "manhattan"}}
+         "l1 tree": {"traversal": "tree", "metric": "manhattan"},
+         "hamming tree": {"traversal": "tree", "metric": "hamming"},
+         "l1 ring": {"traversal": "tiles", "partition": "spatial",
+                     "ghost_mode": "ring", "metric": "manhattan"},
+         "hamming ring tree": {"traversal": "tree", "partition": "spatial",
+                               "ghost_mode": "ring", "metric": "hamming",
+                               "k_cap": 3072}}
 KERNELS = ("nng_tile", "eps_count")
 L1_N, L1_EPS = 1 << 19, 26.0194586      # chip_smoke.py [8]'s cut and eps
+HAM_N, HAM_W, HAM_EPS = 399360, 25, 40.0  # chip_smoke.py [7]'s stand-in
+
+
+def points(metric: str):
+    """A metric's points and eps: the smoke points (L2), their first L1_N
+    (L1), or the word2bits stand-in's uint32 word rows (Hamming)."""
+    from repro_torch.data import synthetic_pointset
+    if metric == "hamming":
+        return synthetic_pointset(HAM_N, HAM_W, "hamming", seed=SEED), HAM_EPS
+    pts = synthetic_pointset(N, DIM, seed=SEED)
+    return (pts[:L1_N], L1_EPS) if metric == "manhattan" else (pts, EPS)
 
 
 def median_ms(torch, fn, reps=3):
@@ -108,7 +139,8 @@ def frontier_ms(torch, pts, eps, metric, n):
     from repro_torch.core.distributed import DeviceForest, tree_traverse
     from repro_torch.core.distributed import device as tdev
     from repro_torch.core.flat_tree import build_block_forests
-    P = torch.from_numpy(pts[:n]).cuda()
+    from repro_torch.core.metrics import get_metric
+    P = get_metric(metric).as_device(pts[:n], "cuda")
     F = DeviceForest.from_tables(build_block_forests(
         P, NRANKS, metric, backend="device"))
     n_loc = n // NRANKS
@@ -142,24 +174,50 @@ def frontier_ms(torch, pts, eps, metric, n):
     return sum(t for t, _ in ms), len(ms), busiest
 
 
-def child(root: Path, calls: list, kernels: bool) -> None:
+def profiled(torch, fn) -> dict:
+    """``fn()`` once under torch.profiler (the card's activity only) ->
+    {busy_ms, window_ms, idle, top: [[kernel, ms], ...] (five)}."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name, spans = {}, []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            s0, d = e.start_ns() / 1e6, e.duration_ns() / 1e6
+            by_name[e.name()] = by_name.get(e.name(), 0.0) + d
+            spans.append((s0, s0 + d))
+    spans.sort()
+    busy, (s0, e0) = 0.0, spans[0]
+    for s1, e1 in spans[1:]:
+        if s1 > e0:
+            busy, s0 = busy + (e0 - s0), s1
+        e0 = max(e0, e1)
+    busy += e0 - s0
+    window = spans[-1][1] - spans[0][0]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return {"busy_ms": busy, "window_ms": window, "idle": 1 - busy / window,
+            "top": [[k[:60], ms] for k, ms in top]}
+
+
+def child(root: Path, calls: list, kernels: bool, prof: bool) -> None:
     """One run of the calls with the sources under ``root``; prints one
     JSON line."""
     import torch
     sys.path.insert(0, str(root / "src"))
     from repro_torch.core.distributed import make_nng_mesh
-    from repro_torch.data import synthetic_pointset
     from repro_torch.nng import build_nng
-    pts = synthetic_pointset(N, DIM, seed=SEED)
+    pts, _ = points("euclidean")
     mesh = make_nng_mesh(NRANKS)
     out = {}
     for label in calls:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        l1 = CALLS[label].get("metric") == "manhattan"
+        pts_, eps_ = points(CALLS[label].get("metric", "euclidean"))
         t0 = time.perf_counter()
-        g = build_nng(pts[:L1_N] if l1 else pts, L1_EPS if l1 else EPS,
-                      mesh=mesh, k_cap=K_CAP, **CALLS[label])
+        kw = {"k_cap": K_CAP, **CALLS[label]}
+        g = build_nng(pts_, eps_, mesh=mesh, **kw)
         wall = time.perf_counter() - t0
         st = g.stats
         out[label] = {
@@ -170,6 +228,9 @@ def child(root: Path, calls: list, kernels: bool) -> None:
                          float(st.dists_evaluated), float(st.nodes_pruned)],
             "comm_bytes": st.comm_bytes}
         del g
+        if prof:
+            out[label]["profile"] = profiled(torch, lambda: build_nng(
+                pts_, eps_, mesh=mesh, **kw))
     if kernels:
         from repro_torch.kernels.eps_count import eps_count_cuda
         from repro_torch.kernels.nng_tile import nng_tile_cuda
@@ -186,10 +247,12 @@ def child(root: Path, calls: list, kernels: bool) -> None:
                                                                  EPS))}
         del p, x, y, ones
         torch.cuda.empty_cache()
-        for name, metric, eps, n in (("tree_frontier", "euclidean", EPS, N),
-                                     ("tree_frontier_l1", "manhattan",
-                                      L1_EPS, L1_N)):
-            total, launches, busiest = frontier_ms(torch, pts, eps, metric, n)
+        for name, metric in (("tree_frontier", "euclidean"),
+                             ("tree_frontier_l1", "manhattan"),
+                             ("tree_frontier_hamming", "hamming")):
+            pts_, eps_ = points(metric)
+            total, launches, busiest = frontier_ms(torch, pts_, eps_, metric,
+                                                   len(pts_))
             out["kernels"][name] = total
             out["kernels"][name + " launches"] = launches
             out["kernels"][name + " busiest"] = busiest
@@ -207,20 +270,22 @@ def ratios(device: str, n: int | None, metric: str, eps: float | None,
                                               tree_traverse)
     from repro_torch.core.distributed import device as tdev
     from repro_torch.core.flat_tree import build_block_forests
-    from repro_torch.data import synthetic_pointset
+    from repro_torch.core.metrics import get_metric
     from repro_torch.kernels.nng_tile import PIPE_TILE
     from repro_torch.kernels.tree_frontier import TN, TQ, frontier_tile_plan
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("tree_ab: no CUDA device (use --device cpu)")
-    n = n or (N if dev.type == "cuda" else 1 << 17)
-    eps = eps or (L1_EPS if metric == "manhattan" else EPS)
-    pts = synthetic_pointset(N, DIM, seed=SEED)[:n]
-    P = torch.from_numpy(pts).to(dev)
+    pts, eps_m = points(metric)
+    cpu_n = 1 << 16 if metric == "hamming" else 1 << 17
+    n = n or (len(pts) if dev.type == "cuda" else cpu_n)
+    eps = eps or eps_m
+    pts = pts[:n]
+    P = get_metric(metric).as_device(pts, dev)
     t0 = time.perf_counter()
     F = DeviceForest.from_tables(build_block_forests(P, NRANKS, metric,
                                                      backend="device"))
-    print(f"forest of the first {n} smoke points, {NRANKS} ranks, {metric},"
+    print(f"forest of the first {n} points, {NRANKS} ranks, {metric},"
           f" eps {eps}: levels {F.radius.shape[1]}, N {F.radius.shape[2]} "
           f"slots, built in {time.perf_counter() - t0:.1f} s on {dev}",
           flush=True)
@@ -288,11 +353,12 @@ def main() -> int:
     ap.add_argument("--calls", default=",".join(CALLS),
                     help="comma-separated calls: " + ", ".join(CALLS))
     ap.add_argument("--kernels", action="store_true")
+    ap.add_argument("--profile", action="store_true")
     ap.add_argument("--ratios", action="store_true")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--n", type=int)
     ap.add_argument("--metric", default="euclidean",
-                    choices=("euclidean", "manhattan"))
+                    choices=("euclidean", "manhattan", "hamming"))
     ap.add_argument("--eps", type=float)
     ap.add_argument("--q-chunk", type=int)
     ap.add_argument("--child", type=Path, help=argparse.SUPPRESS)
@@ -305,7 +371,7 @@ def main() -> int:
     if any(c not in CALLS for c in calls):
         ap.error(f"--calls: not among {', '.join(CALLS)}: {args.calls}")
     if args.child is not None:
-        child(args.child, calls, args.kernels)
+        child(args.child, calls, args.kernels, args.profile)
         return 0
     import torch
     if not torch.cuda.is_available():
@@ -320,7 +386,8 @@ def main() -> int:
             r = subprocess.run([sys.executable, str(HERE / "tree_ab.py"),
                                 "--child", str(roots[side]), "--calls",
                                 ",".join(calls)]
-                               + (["--kernels"] if args.kernels else []),
+                               + (["--kernels"] if args.kernels else [])
+                               + (["--profile"] if args.profile else []),
                                capture_output=True, text=True, cwd=roots[side])
             if r.returncode != 0:
                 print(r.stdout + r.stderr, file=sys.stderr)
@@ -329,7 +396,9 @@ def main() -> int:
             runs[side].append(res)
             print(f"round {rnd} {side}: " + "; ".join(
                 f"{k} elapsed_s {res[k]['elapsed_s']:.3f} wall "
-                f"{res[k]['wall_s']:.3f} peak {res[k]['peak_B']} B"
+                f"{res[k]['wall_s']:.3f} peak {res[k]['peak_B']} B" + (
+                    f" profile {json.dumps(res[k]['profile'])}"
+                    if "profile" in res[k] else "")
                 for k in calls) + "".join(
                 f"; {k} {ms:.3f} ms" for k, ms in res.get(
                     "kernels", {}).items()), flush=True)
