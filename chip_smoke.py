@@ -11,13 +11,14 @@ each printed as it runs; any failed check raises and exits non-zero:
      (nvcc for sm_90a into build/repro_torch/, timed);
   2. each CUDA kernel against its plain PyTorch version on the card:
      ``nng_tile`` at 8192x8192x128 and two ragged shapes (bits equal except
-     at pairs whose float64 d² lies within 1e-4·eps² of eps²); ``nng_tile``,
-     ``eps_count`` and ``pairwise_sqdist <= eps²`` (the pipelined core,
-     ``csrc/l2_pipe.cuh``) bit for bit against the hits of
-     ``nng_tile_grouped`` with one group and disjoint ids (still on the
-     core they replaced, ``csrc/l2_tile.cuh``) at an eps exactly on a
-     pair's fp32 d², on ragged shapes, grids of fewer and of more tiles
-     than resident blocks, and rows that are not 16-byte aligned;
+     at pairs whose float64 d² lies within 1e-4·eps² of eps²); the kernels
+     on the pipelined core (``csrc/l2_pipe.cuh``) bit for bit against the
+     plain fp32 chain anchor (``l2_chain_d2_cuda``, ``csrc/l2_chain.cu``)
+     at an eps exactly on a pair's fp32 d²: ``nng_tile``'s words and
+     counts, ``nng_tile_grouped``'s under random groups with shared ids and
+     under one group, ``eps_count``'s counts and ``pairwise_sqdist``'s d²
+     clamped at 0, on ragged shapes, grids of fewer and of more tiles than
+     resident blocks, and rows that are not 16-byte aligned;
      ``bits_to_cols`` bit-identical on random and real words at several k;
   3. the main path: ``build_nng`` at the ``nng-sift-1m`` shape (n = 2^20,
      d = 128, euclidean; synthetic stand-in from seed 0) on 8 logical ranks,
@@ -28,11 +29,12 @@ each printed as it runs; any failed check raises and exits non-zero:
      points, computed on the card (inside the fp32 band), and against the
      plain fp32 expansion on the card (off the knife edge, below);
   5. each kernel at the main path's inputs: its output against its plain
-     version's (``nng_tile`` off the knife edge, and bit for bit against
-     the hits of ``pairwise_sqdist`` and of ``nng_tile_grouped``;
-     ``bits_to_cols`` bit-identical), and
+     version's (``nng_tile`` off the knife edge, and bit for bit equal to
+     ``nng_tile_grouped``'s with one group and to the chain anchor's hits,
+     ``pairwise_sqdist`` to its d² clamped at 0; ``bits_to_cols``
+     bit-identical), and
      its time (CUDA events, median) beside its bound, its plain version's
-     time and a library yardstick;
+     time and a library yardstick (the anchor's too);
   6. the tree path on the same points: the forest built on the card, one
      traversal (block 0's points, in their forest's DFS order as the ring
      hands them, against block 1's tree; its live 64 x 256 tiles and
@@ -79,11 +81,15 @@ each printed as it runs; any failed check raises and exits non-zero:
   9. the spatial engine (``partition="spatial"``, Algorithms 5+6, the
      collective ghost exchange, the grouped tiles): the plan on the [3]
      points (cells, capacities, ghost copies, W and G rows a rank) and the
-     three grouped kernels against their plain versions on ragged and
-     all-disjoint inputs and on rank 0's W x W and G x W [9a]; the call at
-     n = 2^20 with its launches, and one profiled engine run [9b]; its
-     graph against [3]'s off the knife and the sampled rows against
-     float64 [9c]; the grouped L2 kernel's times beside its bound [9d];
+     three grouped kernels against their plain versions on ragged,
+     all-disjoint and all-padding inputs, one live 64 x 256 tile, rows off
+     16-byte alignment (the L2 kernel's 4-byte copies) and on rank 0's
+     W x W and G x W [9a]; the call at n = 2^20 with its launches, and one
+     profiled engine run [9b]; its graph against [3]'s off the knife and
+     the sampled rows against float64 [9c]; the grouped L2 kernel's times
+     beside its bound, its live 64 x 256 tiles' pairs beside the 128 x 128
+     blocks', and its call's parts (the tile list, the zeroed outputs, the
+     launch) timed apart [9d];
      Hamming (the [7] stand-in, a depth cut printed with its reason: the
      ghost fanout) and L1 (the [8] points and eps) through the engine,
      their graphs against the point partition's, their kernels against
@@ -97,12 +103,13 @@ each printed as it runs; any failed check raises and exits non-zero:
      blocks and on exactly one live tile; the L2 and L1 kernels (ghost row
      order, live-tile list) bit for bit, in the caller's row order,
      against their plain versions (L2 at a gap-safe eps, L1 at any) and
-     against the old cores' hits under the ghost test
-     (``nng_tile_grouped``'s d², ``nng_tile_l1``'s d) [10a]; the ring call at n = 2^20 with its launches and counters
+     against the anchors' hits under the ghost test (the chain anchor's
+     d², ``nng_tile_l1``'s d) [10a]; the ring call at n = 2^20 with its
+     launches and counters
      (equal to those printed before the ghost row order), the live pairs
      of the L2 kernel's tiles beside the old 128 x 128 blocks', the ghost
-     kernel against its plain version (off the knife) and against
-     ``nng_tile_grouped``'s hits (bit for bit) at rank 0's round-1 launch
+     kernel against its plain version (off the knife) and against the
+     chain anchor's hits (bit for bit) at rank 0's round-1 launch
      of that call (captured from it), a profiled engine run, its graph
      against [3]'s off the knife and the sampled rows against float64
      [10b];
@@ -128,15 +135,15 @@ each printed as it runs; any failed check raises and exits non-zero:
      ``pairwise_sqdist``, ``pairwise_hamming``, ``eps_count``; no engine
      calls it): the three kernels against their plain versions and
      float64 on ragged shapes (d up to 700, w in 1, 3, 25, 26, q or p = 1),
-     and ``eps_count``, ``nng_tile`` and ``pairwise_sqdist`` bit for bit
-     against the hits of ``nng_tile_grouped`` at an eps on a pair's fp32
-     d² [11a]; at the
+     and ``eps_count``, ``nng_tile``, ``nng_tile_grouped`` and
+     ``pairwise_sqdist`` bit for bit against the chain anchor at an eps on
+     a pair's fp32 d² [11a]; at the
      reference micro-bench's 2048² shapes, timed [11b]; at full width
      through the public calls, with the launches read from those calls
      alone: 8192 of [3]'s points against one rank's block, 8192 of [7]'s
      word rows against all of them (an output past 2^31 elements, bit for
      bit), and [5]'s 131072² block counted (equal to ``nng_tile``'s cnt
-     and to the row sums of ``nng_tile_grouped``'s hits bit for bit, to
+     and to the row sums of the chain anchor's hits bit for bit, to
      the plain version off the knife) [11c]; their times beside their bounds,
      plain versions and library yardsticks [11d].
 
@@ -198,9 +205,18 @@ TABLE_BUDGET = 32 << 30  # [9e], [10c]: all ranks' id tables on the card
 RING_COUNTERS = ("6083616", "2968997", "4.08239e+11")
 # [7b], [10d], [10e]: each call's edges, work counters and comm_bytes as the
 # tree before the L1 ghost tile and the Hamming frontier moved onto the
-# pipelined cores (commit d884014) printed them (stats_line's format); no
-# kernel of this tree may move them
+# pipelined cores (commit d884014) printed them (stats_line's format); [9b]
+# and [10b]: as the tree before the grouped L2 tile moved onto the pipelined
+# core (commit eff1109) printed them; no kernel of this tree may move them
 PARENT_STATS = {
+    '[9b] spatial':
+        '35759614 edges; tiles_scheduled 2703360 tiles_skipped 1855401 '
+        'dists_evaluated 1.11144e+11 nodes_pruned 0; comm_bytes '
+        '{"coalesce": 560235520.0, "ghost": 801149440.0}',
+    '[10b] ring':
+        '35759614 edges; tiles_scheduled 6083616 tiles_skipped 2968997 '
+        'dists_evaluated 4.08239e+11 nodes_pruned 0; comm_bytes '
+        '{"coalesce": 560235520.0, "ghost_ring": 2225184000.0}',
     '[7b] tiles':
         '19770044 edges; tiles_scheduled 36 tiles_skipped 0 '
         'dists_evaluated 8.97122e+10 nodes_pruned 0; comm_bytes '
@@ -350,7 +366,9 @@ def main() -> int:
                                                    leaf_range_pack_ref)
     from repro_torch.kernels.nng_tile import (PIPE_TILE, eps2_f32, eps_int,
                                               ghost_hit, ghost_launch,
-                                              ghost_tile_plan,
+                                              ghost_tile_plan, grouped_hit,
+                                              grouped_launch,
+                                              grouped_tile_plan,
                                               hamming_dist, l1_dist,
                                               nng_tile_cuda,
                                               nng_tile_ghost_cuda,
@@ -376,7 +394,8 @@ def main() -> int:
                                          ghost_block_active,
                                          grouped_block_active)
     from repro_torch.kernels.pairwise_hamming import pairwise_hamming_cuda
-    from repro_torch.kernels.pairwise_l2 import pairwise_sqdist_cuda
+    from repro_torch.kernels.pairwise_l2 import (l2_chain_d2_cuda,
+                                                 pairwise_sqdist_cuda)
     from repro_torch.kernels.tree_frontier import (
         TN, TQ, frontier_tile_plan, tree_frontier_cuda, tree_frontier_hamming_cuda,
         tree_frontier_hamming_ref, tree_frontier_l1_cuda,
@@ -435,42 +454,53 @@ def main() -> int:
                     return float(cand)
         return None
 
-    def anchor_hits(x, y, eps, yv=None):
-        """(cnt, bits) of nng_tile_grouped (l2_tile.cuh, the core the
-        pipelined one replaced) with every row in group 0 and disjoint x
-        and y ids: the d² <= eps2_f32(eps) hits of the old core, y rows
-        whose y_valid flag is 0 in group -1 (no hits)."""
-        q, p = x.shape[0], y.shape[0]
-        i32 = dict(dtype=torch.int32, device=dev)
-        yg_ = (torch.zeros(p, **i32) if yv is None
-               else torch.where(yv != 0, 0, -1).to(torch.int32))
-        return nng_tile_grouped_cuda(
-            x, y, torch.zeros(q, **i32), yg_, torch.arange(q, **i32),
-            torch.arange(q, q + p, **i32), eps)
+    gen_c = torch.Generator(device=dev).manual_seed(SEED + 1)
 
-    def old_core_check(label, x, y, yv, eps):
-        """nng_tile, eps_count and pairwise_sqdist (the pipelined core,
-        l2_pipe.cuh) against the old core's hits (``anchor_hits``), bit
-        for bit: nng_tile's cnt and words equal the anchor's with y_valid
-        applied; eps_count, and the row sums and hits of
-        ``pairwise_sqdist_cuda(x, y) <= eps2_f32(eps)``, equal its
-        all-valid ones. Returns the pairs exactly on eps2_f32(eps)."""
-        p = y.shape[0]
-        cnt_v, bits_v = anchor_hits(x, y, eps, yv)
-        cnt_a, bits_a = anchor_hits(x, y, eps)
-        cnt_k, bits_k = nng_tile_cuda(x, y, yv, eps)
-        cnt_e = eps_count_cuda(x, y, eps)
-        d2 = pairwise_sqdist_cuda(x, y)
+    def packed(hit):
+        """(q, p) bool -> (q, ceil(p/32)) words, the kernels' layout."""
+        return pack_words(torch.nn.functional.pad(hit, (0, -hit.shape[1]
+                                                        % 32)))
+
+    def chain_check(label, x, y, yv, eps):
+        """The kernels on the pipelined core (l2_pipe.cuh) against the
+        plain chain anchor's d² (``l2_chain_d2_cuda``), bit for bit at
+        ``eps2_f32(eps)``: nng_tile's cnt and words equal its hits with
+        y_valid applied; nng_tile_grouped's its hits under the group and
+        id test (random groups with padding, shared ids) and, with one
+        group and disjoint ids, its hits; eps_count its row sums;
+        ``pairwise_sqdist_cuda(x, y)`` its d² clamped at 0. Returns the
+        pairs exactly on eps2_f32(eps)."""
+        q, p = x.shape[0], y.shape[0]
         e2 = eps2_f32(eps)
+        d2 = l2_chain_d2_cuda(x, y)
         hit = d2 <= e2
-        check(torch.equal(cnt_k, cnt_v) and torch.equal(bits_k, bits_v),
-              f"{label}: nng_tile differs from nng_tile_grouped's hits")
-        check(torch.equal(cnt_e, cnt_a),
-              f"{label}: eps_count differs from nng_tile_grouped's hits")
-        check(torch.equal(hit, unpack_words(bits_a)[:, :p])
-              and torch.equal(hit.sum(1, dtype=torch.int32), cnt_a),
-              f"{label}: pairwise_sqdist's hits differ from "
-              "nng_tile_grouped's")
+        i32 = dict(dtype=torch.int32, device=dev)
+        xg, yg = (torch.randint(-1, 3, (n_,), generator=gen_c, device=dev)
+                  .to(torch.int32) for n_ in (q, p))
+        xid, yid = torch.arange(q, **i32), torch.arange(p, **i32)
+        cnt_k, bits_k = nng_tile_cuda(x, y, yv, eps)
+        valid = hit & (yv != 0)[None, :]
+        check(torch.equal(cnt_k, valid.sum(1, dtype=torch.int32))
+              and torch.equal(bits_k, packed(valid)),
+              f"{label}: nng_tile differs from the chain anchor's hits")
+        cnt_g, bits_g = nng_tile_grouped_cuda(x, y, xg, yg, xid, yid, eps)
+        ghit = grouped_hit(hit, xg, yg, xid, yid)
+        check(torch.equal(cnt_g, ghit.sum(1, dtype=torch.int32))
+              and torch.equal(bits_g, packed(ghit)),
+              f"{label}: nng_tile_grouped differs from the chain anchor's "
+              "hits under the group test")
+        cnt_o, bits_o = nng_tile_grouped_cuda(
+            x, y, torch.zeros(q, **i32), torch.zeros(p, **i32), xid,
+            yid + q, eps)
+        check(torch.equal(cnt_o, hit.sum(1, dtype=torch.int32))
+              and torch.equal(bits_o, packed(hit)),
+              f"{label}: nng_tile_grouped (one group) differs from the "
+              "chain anchor's hits")
+        check(torch.equal(eps_count_cuda(x, y, eps), cnt_o),
+              f"{label}: eps_count differs from the chain anchor's hits")
+        check(torch.equal(pairwise_sqdist_cuda(x, y), d2.clamp_min(0)),
+              f"{label}: pairwise_sqdist differs from the chain anchor's "
+              "d² clamped at 0")
         return int((d2 == e2).sum())
 
     def profiled_run(label, fn, what="engine run"):
@@ -806,10 +836,10 @@ def main() -> int:
         if real_bits is None:
             real_bits = bits_k
         del d2_64, knife, differ
-    # the pipelined core against the one it replaced, bit for bit, at an
-    # eps exactly on a pair's fp32 d²: ragged shapes (fewer tiles than
-    # resident blocks), grids of more tiles than resident blocks, and rows
-    # that are not 16-byte aligned (the 4-byte copy path)
+    # the pipelined core's kernels against the plain chain anchor, bit for
+    # bit, at an eps exactly on a pair's fp32 d²: ragged shapes (fewer
+    # tiles than resident blocks), grids of more tiles than resident
+    # blocks, and rows that are not 16-byte aligned (the 4-byte copy path)
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     gen2 = torch.Generator(device=dev).manual_seed(SEED)
     pipe_cases = ([(q, p, d, None) for q, p in ((1, 1), (1, 300), (127, 129),
@@ -831,15 +861,15 @@ def main() -> int:
             a = a[d:] if shift == "row" else a[1:] if shift == "elem" else a
             b = b[d:] if shift == "row" else b[1:] if shift == "elem" else b
             a, b = a.view(q, d), b.view(p, d)
-            eps = eps_on_pair(pairwise_sqdist_cuda(a, b), 0.02)
+            eps = eps_on_pair(l2_chain_d2_cuda(a, b), 0.02)
         check(shift is None or (a.data_ptr() % 16 and b.data_ptr() % 16),
               f"[2] the {shift} case is 16-byte aligned")
         yv = (torch.rand(p, generator=gen2, device=dev) > 0.2).to(torch.int32)
-        on_knife += old_core_check(f"[2] ({q},{p},{d}, {shift})", a, b, yv,
-                                   eps)
-    print(f"[2] nng_tile, eps_count and pairwise_sqdist <= eps² "
-          f"(l2_pipe.cuh) bit-identical to the hits of nng_tile_grouped "
-          f"(l2_tile.cuh, one group) on {len(pipe_cases)} "
+        on_knife += chain_check(f"[2] ({q},{p},{d}, {shift})", a, b, yv,
+                                eps)
+    print(f"[2] nng_tile, nng_tile_grouped (random groups, and one group), "
+          f"eps_count and pairwise_sqdist (l2_pipe.cuh) bit-identical to the "
+          f"plain chain anchor l2_chain's d² and hits on {len(pipe_cases)} "
           f"shapes (q, p in 1, 127, 129, 300, d in 1, 17, 700; 1 to 4096 "
           f"tiles against at most {2 * n_sm} resident blocks; rows off "
           f"16-byte alignment), eps on a pair's fp32 d² in each: "
@@ -868,13 +898,15 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     API_KERNELS = (pairwise_sqdist_cuda, pairwise_hamming_cuda,
                    eps_count_cuda)
-    for fn in (nng_tile_cuda, bits_to_cols_cuda) + API_KERNELS:
+    for fn in (nng_tile_cuda, bits_to_cols_cuda, l2_chain_d2_cuda) + \
+            API_KERNELS:
         fn.launches = 0
     t0 = time.perf_counter()
     g = build_nng(pts, EPS, mesh=mesh, k_cap=K_CAP)
     wall = time.perf_counter() - t0
     launches = {"nng_tile": nng_tile_cuda.launches,
                 "bits_to_cols": bits_to_cols_cuda.launches}
+    chain_on_path = l2_chain_d2_cuda.launches
     api_on_path = {fn.__name__[:-5]: fn.launches for fn in API_KERNELS}
     st = g.stats
     print(f"[3] build_nng(n={N}, d={DIM}, eps={EPS}, nranks={NRANKS}, "
@@ -892,6 +924,8 @@ def main() -> int:
           f"a kernel of the main path never launched: {launches}")
     check(not any(api_on_path.values()),
           f"build_nng launched a distance-API kernel: {api_on_path}")
+    check(chain_on_path == 0, f"build_nng launched the chain anchor "
+                              f"{chain_on_path} times")
     check(st.replans <= 1, f"{st.replans} grows (expected at most one)")
     check(g.num_edges > 0, "the main path found no edges")
 
@@ -962,27 +996,56 @@ def main() -> int:
     knife_check("[5] nng_tile vs plain", x, y, torch.cat(tile_i),
                 torch.cat(tile_j), eps2)
     del x64, y64
-    # the pipelined core against the one it replaced on the main path's
-    # tile, bit for bit: the hits of nng_tile_grouped (l2_tile.cuh, one
-    # group), and those of pairwise_sqdist (the pipelined core's dense
-    # store) in row chunks; the row sums are [11c]'s for eps_count on the
-    # same inputs
-    old_cnt5, old_bits5 = anchor_hits(x, y, EPS)
-    check(torch.equal(cnt, old_cnt5) and torch.equal(bits, old_bits5),
-          "[5] nng_tile differs from nng_tile_grouped's hits")
-    del old_bits5
+    # the pipelined core's kernels against the plain chain anchor on the
+    # main path's tile, bit for bit: nng_tile_grouped (one group, disjoint
+    # ids) equal to nng_tile; then, in row chunks, nng_tile's words and
+    # counts equal to the chain's hits and pairwise_sqdist (the pipelined
+    # core's dense store) to its d² clamped at 0; the chain within the
+    # expansion bound of its plain version (timed). The row sums are
+    # [11c]'s for eps_count on the same inputs.
+    i32_5 = dict(dtype=torch.int32, device=dev)
+    cnt_g5, bits_g5 = nng_tile_grouped_cuda(
+        x, y, torch.zeros(n_loc, **i32_5), torch.zeros(n_loc, **i32_5),
+        torch.arange(n_loc, **i32_5), torch.arange(n_loc, 2 * n_loc,
+                                                   **i32_5), EPS)
+    check(torch.equal(cnt, cnt_g5) and torch.equal(bits, bits_g5),
+          "[5] nng_tile_grouped (one group) differs from nng_tile")
+    del cnt_g5, bits_g5
+    chain_cnt5 = torch.empty(n_loc, dtype=torch.int32, device=dev)
+    chain_ms = chain_plain_ms = chain_err = 0.0
+    xn5, yn5 = (x * x).sum(1), (y * y).sum(1)
     for r0 in range(0, n_loc, 8192):
         sl = slice(r0, r0 + 8192)
-        hit = pairwise_sqdist_cuda(x[sl], y) <= eps2
+        d2c, ms_ = events_ms(torch, lambda: l2_chain_d2_cuda(x[sl], y))
+        chain_ms += ms_
+        hit = d2c <= eps2
+        chain_cnt5[sl] = hit.sum(1, dtype=torch.int32)
         check(torch.equal(bits[sl], pack_words(hit))
-              and torch.equal(old_cnt5[sl], hit.sum(1, dtype=torch.int32)),
-              f"[5] pairwise_sqdist's hits differ from nng_tile's words in "
-              f"rows {r0}..{r0 + 8191}")
+              and torch.equal(cnt[sl], chain_cnt5[sl]),
+              f"[5] nng_tile differs from the chain anchor's hits in rows "
+              f"{r0}..{r0 + 8191}")
         del hit
-    print(f"[5] nng_tile (l2_pipe.cuh) bit-identical to the hits of "
-          f"nng_tile_grouped (l2_tile.cuh, one group) and of "
-          f"pairwise_sqdist (l2_pipe.cuh) on the main path's tile: all "
-          f"{n_loc}x{w} words and {n_loc} counts")
+        check(torch.equal(pairwise_sqdist_cuda(x[sl], y), d2c.clamp_min(0)),
+              f"[5] pairwise_sqdist differs from the chain anchor's d² in "
+              f"rows {r0}..{r0 + 8191}")
+        plain, ms_ = events_ms(torch, lambda: (
+            xn5[sl, None] + yn5[None, :]) - 2.0 * x[sl] @ y.T)
+        chain_plain_ms += ms_
+        diff = plain.sub_(d2c).abs_()
+        del d2c
+        bound = (xn5[sl, None] + yn5[None, :]).mul_(2 * (DIM + 2) * U32)
+        check(bool((diff <= bound).all()), f"[5] the chain anchor leaves "
+              f"the expansion bound of its plain version in rows "
+              f"{r0}..{r0 + 8191}")
+        chain_err = max(chain_err, float(diff.max()))
+        del plain, diff, bound
+    print(f"[5] nng_tile and nng_tile_grouped (one group) bit-identical to "
+          f"the plain chain anchor l2_chain's hits, and pairwise_sqdist to "
+          f"its d² clamped at 0, on the main path's tile: all {n_loc}x{w} "
+          f"words, {n_loc} counts and {n_loc * n_loc} distances; l2_chain "
+          f"{chain_ms:.3f} ms over the tile in 8192-row chunks, within "
+          f"2·(d+2)·u·(‖x‖²+‖y‖²) of its plain version (max |diff| "
+          f"{chain_err:.4g}, plain {chain_plain_ms:.3f} ms)")
     for r0 in range(0, n_loc, 4096):
         check(torch.equal(cols[r0:r0 + 4096],
                           bits_to_cols_ref(bits[r0:r0 + 4096], k_path)),
@@ -1006,6 +1069,11 @@ def main() -> int:
     tile_bytes = 4 * 2 * n_loc * DIM + 4 * n_loc * 2 + 4 * n_loc * w
     tile_bound_ops = tile_flops / PEAK_FP32 * 1e3
     tile_bound_bytes = tile_bytes / PEAK_BYTES * 1e3
+    # the chain anchor on the same tile: the same operations, the (q, p)
+    # fp32 d² out
+    chain_b_bytes = (4 * 2 * n_loc * DIM + 4 * n_loc * n_loc) / PEAK_BYTES * 1e3
+    chain_bound = max(tile_bound_ops, chain_b_bytes)
+    chain_by = "operations" if tile_bound_ops >= chain_b_bytes else "bytes"
     del cnt, bits, cols
     torch.cuda.empty_cache()
     # yardstick, product only: the same fp32 product by one torch.mm call
@@ -1022,6 +1090,11 @@ def main() -> int:
           f"{tile_plain_ms:.3f} ms ({n_loc // 8192} row chunks); torch.mm "
           f"product only "
           f"{lib_ms:.3f} ms; launches on the path {launches['nng_tile']}")
+    print(f"[5] l2_chain, the anchor ({n_loc}x{n_loc}x{DIM} in 8192-row "
+          f"chunks): {chain_ms:.3f} ms; bound {chain_bound:.3f} ms "
+          f"({chain_by}); plain version {chain_plain_ms:.3f} ms; torch.mm "
+          f"product only {lib_ms:.3f} ms; launches on the path "
+          f"{chain_on_path}")
     print(f"[5] bits_to_cols ({n_loc}x{w} words, k={k_path}): {b2c_ms:.3f} ms "
           f"median; bound {b2c_bound:.3f} ms (bytes: {b2c_bytes} at "
           f"{PEAK_BYTES / 1e12:g} TB/s); plain version {b2c_plain_ms:.3f} ms "
@@ -1553,7 +1626,7 @@ def main() -> int:
         check(got == want, f"{label}: the graph or the counters moved: "
                            f"{got}, the parent's {want}")
         print(f"{label} edges, counters and comm_bytes equal the parent's "
-              f"(commit d884014): {got}")
+              f"(PARENT_STATS): {got}")
 
     def graph_call(label, pts_, eps, metric, traversal):
         """``build_nng`` on the 8 logical ranks under torch.profiler, with
@@ -2160,17 +2233,57 @@ def main() -> int:
         ``pair_ops`` operations each at ``rate``) and from its bytes (x, y,
         four int32 vectors in; cnt and the words out), the plain version's
         time (measured by the caller), and the library call on the same
-        operands in rows of 8192. Returns (ms, bound ms, bound_by, library
-        ms)."""
+        operands in rows of 8192. The live blocks are the kernel's own:
+        the L2 one's ``grouped_tile_plan`` 64 x 256 tiles (the 128 x 128
+        blocks' counts printed beside), the others' 128 x 128 blocks.
+        Returns (ms, bound ms, bound_by, library ms)."""
         kern = GROUPED[metric][0]
         q_, p_ = x.shape[0], y.shape[0]
         ms = cuda_ms(torch, lambda: kern(x, y, xg, yg, xid, yid, eps), 5)
+        need = same_cell_pairs(xg, yg)
         pairs, blocks = live_pairs(xg, yg, q_, p_)
+        tile = (128, 128)
+        if metric == "euclidean":
+            tile = PIPE_TILE
+            print(f"{label}: the live 128x128 blocks ({blocks}) hold "
+                  f"{pairs} pairs, {pairs / max(need, 1):.4f}x the needed")
+            pairs, blocks = live_pairs_of(grouped_block_active(
+                _pad_rows(xg, tile[0], -1)[0], _pad_rows(yg, tile[1], -1)[0],
+                *tile), q_, p_, *tile)
+            check(int(grouped_tile_plan(xg, yg)[1][0]) == blocks,
+                  f"{label}: grouped_tile_plan's count is not the live "
+                  f"tiles'")
         nbytes = 4 * ((q_ + p_) * feat + 2 * (q_ + p_) + q_
                       + q_ * -(-p_ // 32))
-        return fused_times(label, ms, x, y, feat, same_cell_pairs(xg, yg),
-                           "same-cell", pairs, blocks, nbytes, pair_ops,
-                           rate, library, plain_ms, prep)
+        return fused_times(label, ms, x, y, feat, need, "same-cell", pairs,
+                           blocks, nbytes, pair_ops, rate, library, plain_ms,
+                           prep, tile=tile)
+
+    def grouped_parts(label, x, y, xg, yg, xid, yid, eps, call):
+        """The grouped L2 call's parts, each a CUDA-event median:
+        ``grouped_tile_plan``, the zeroed outputs and the launch alone,
+        beside the whole call's time and bound (``call``: grouped_times'
+        return)."""
+        q_, p_ = x.shape[0], y.shape[0]
+        plan_ms = cuda_ms(torch, lambda: grouped_tile_plan(xg, yg), 10)
+        zero_ms = cuda_ms(torch, lambda: (
+            torch.zeros(q_, dtype=torch.int32, device=dev),
+            torch.zeros((q_, -(-p_ // 32)), dtype=torch.int32, device=dev)),
+            10)
+        tiles_, count_ = grouped_tile_plan(xg, yg)
+        cnt_ = torch.zeros(q_, dtype=torch.int32, device=dev)
+        bits_ = torch.zeros((q_, -(-p_ // 32)), dtype=torch.int32,
+                            device=dev)
+        launch_ms = cuda_ms(torch, lambda: grouped_launch(
+            x, y, xg, yg, xid, yid, tiles_, count_, eps, cnt_, bits_), 5)
+        print(f"{label}: grouped_tile_plan {plan_ms:.3f} ms, zeroed outputs "
+              f"{zero_ms:.3f} ms ({4 * q_ * -(-p_ // 32)} bytes of words), "
+              f"the launch alone {launch_ms:.3f} ms (bound/time "
+              f"{call[1] / launch_ms:.1%}); the whole call {call[0]:.3f} ms "
+              f"against its bound {call[1]:.3f} ms (bound/time "
+              f"{call[1] / call[0]:.1%})")
+        del cnt_, bits_
+        return plan_ms, zero_ms, launch_ms
 
     def fused_times(label, ms, x, y, feat, need, what, pairs, blocks,
                     nbytes, pair_ops, rate, library, plain_ms, prep,
@@ -2261,12 +2374,31 @@ def main() -> int:
                                        SP_K_CAP)
     W0, Wids0, Wgrp0, G0, Gids0, Ggrp0 = bufs9[0]
     del bufs9
+
+    def shifted(t, shift):
+        """t's copy on the card, contiguous, at an aligned base (None), in
+        rows 1.. of a (rows + 1, d) matrix ("row") or one element past the
+        base ("elem"): neither 16-byte aligned, so the L2 kernels on the
+        pipelined core take their 4-byte copies."""
+        if shift is None:
+            return t
+        r_, d_ = t.shape
+        out = (torch.empty((r_ + 1, d_), dtype=t.dtype, device=dev)[1:]
+               if shift == "row" else torch.empty(
+                   r_ * d_ + 1, dtype=t.dtype, device=dev)[1:].view(r_, d_))
+        check(out.data_ptr() % 16 != 0, f"the {shift} copy is aligned")
+        return out.copy_(t)
+
     grp_err = {"euclidean": 0, "hamming": 0, "manhattan": 0}
     for metric in ("euclidean", "hamming", "manhattan"):
-        for q, p, d, pattern in ((37, 64, 3, "random"),
-                                 (1000, 777, 25, "random"),
-                                 (600, 1200, 9, "sorted"),
-                                 (300, 515, 40, "disjoint")):
+        for q, p, d, pattern, shift in ((37, 64, 3, "random", None),
+                                        (1000, 777, 25, "random", None),
+                                        (600, 1200, 9, "sorted", None),
+                                        (300, 515, 40, "disjoint", None),
+                                        (300, 600, 16, "one", None),
+                                        (300, 600, 16, "none", None),
+                                        (600, 1200, 17, "sorted", "row"),
+                                        (512, 1024, 128, "random", "elem")):
             if metric == "hamming":
                 x, y = (torch.from_numpy(rng.integers(
                     -2**31, 2**31, size=(m_, d)).astype(np.int32)).to(dev)
@@ -2288,6 +2420,14 @@ def main() -> int:
                 yg = np.sort(rng.integers(0, 50, size=p))
                 xg[q - q // 15:] = -1
                 yg[p - p // 17:] = -1
+            elif pattern == "one":
+                # one group on x rows [0, 40) and y rows [0, 200), padding
+                # elsewhere: one live 64 x 256 tile
+                xg, yg = np.full(q, -1), np.full(p, -1)
+                xg[:40], yg[:200] = 0, 0
+            elif pattern == "none":
+                # every x row padding: no live tile
+                xg, yg = np.full(q, -1), rng.integers(0, 6, size=p)
             else:
                 xg = rng.integers(0, 4, size=q)
                 yg = rng.integers(10, 14, size=p)
@@ -2296,14 +2436,26 @@ def main() -> int:
             xid[:4] = yid[:4]
             xg, yg, xid, yid = (torch.from_numpy(a.astype(np.int32)).to(dev)
                                 for a in (xg, yg, xid, yid))
+            label = (f"[9a] {GROUPED[metric][0].__name__[:-5]} {pattern} "
+                     f"({q},{p},{d})" + (f" {shift}" if shift else ""))
             cnt, bits, _, e_ = grouped_vs_plain(
-                f"[9a] {GROUPED[metric][0].__name__[:-5]} {pattern} "
-                f"({q},{p},{d})", metric, x, y, xg, yg, xid, yid, eps)
+                label, metric, shifted(x, shift), shifted(y, shift), xg, yg,
+                xid, yid, eps)
             grp_err[metric] = max(grp_err[metric], e_)
-            if pattern == "disjoint":
+            if pattern in ("disjoint", "none"):
                 check(not bits.any() and not cnt.any(),
-                      f"[9a] {metric}: all-disjoint groups set a word")
-    print("[9a] every all-disjoint case stored zero words")
+                      f"[9a] {metric}: {pattern} groups set a word")
+            else:
+                check(bool(cnt.any()), f"{label}: no hit")
+            if metric == "euclidean":
+                live_t = int(grouped_tile_plan(xg, yg)[1][0])
+                n_t = -(-q // PIPE_TILE[0]) * -(-p // PIPE_TILE[1])
+                print(f"    {label}: {live_t} of {n_t} "
+                      f"{PIPE_TILE[0]}x{PIPE_TILE[1]} tiles live")
+                want = {"one": 1, "none": 0, "disjoint": 0}.get(pattern)
+                check(want is None and live_t > 0 or live_t == want,
+                      f"{label}: {live_t} live tiles")
+    print("[9a] every all-disjoint and all-padding case stored zero words")
     _, _, w_plain_ms, e_ = grouped_vs_plain(
         "[9a] nng_tile_grouped rank 0 W x W", "euclidean", W0, W0, Wgrp0,
         Wgrp0, Wids0, Wids0, EPS)
@@ -2317,6 +2469,7 @@ def main() -> int:
 
     # -- 9b. the call, and where its time goes -------------------------------
     gs, sp_launches = spatial_call("[9b]", pts, EPS, "euclidean", SP_K_CAP)
+    parent_check("[9b] spatial", gs)
     plan_s = gs.meta["plan"]
     out, _ = profiled_run("[9b]", lambda: eng9.run(plan_s))
     del out
@@ -2339,10 +2492,14 @@ def main() -> int:
         "[9d] nng_tile_grouped rank 0 W x W", "euclidean", W0, W0, Wgrp0,
         Wgrp0, Wids0, Wids0, EPS, DIM, 2 * DIM, PEAK_FP32,
         lambda a, b: torch.mm(a, b.T), w_plain_ms)
-    grouped_times(
+    grouped_parts("[9d] nng_tile_grouped rank 0 W x W", W0, W0, Wgrp0, Wgrp0,
+                  Wids0, Wids0, EPS, grp_w)
+    grp_g = grouped_times(
         "[9d] nng_tile_grouped rank 0 G x W", "euclidean", G0, W0, Ggrp0,
         Wgrp0, Gids0, Wids0, EPS, DIM, 2 * DIM, PEAK_FP32,
         lambda a, b: torch.mm(a, b.T), g_plain_ms)
+    grouped_parts("[9d] nng_tile_grouped rank 0 G x W", G0, W0, Ggrp0, Wgrp0,
+                  Gids0, Wids0, EPS, grp_g)
     print(f"[9d] launches on the [9b] call: nng_tile_grouped "
           f"{sp_launches['nng_tile_grouped']}, bits_to_cols "
           f"{sp_launches['bits_to_cols']}")
@@ -2609,16 +2766,18 @@ def main() -> int:
     def ghost_anchor_check(label, x, y, gb, yg, eps, cnt, bits, rows=2048,
                            metric="euclidean"):
         """The L2 (L1) ghost kernel's (cnt, bits), in x's row order, bit for
-        bit against the old core's hits (``anchor_hits``' d²; L1:
-        ``nng_tile_l1``'s d on l1_tile.cuh), row chunks, under the plain
-        version's ghost test (``ghost_hit``)."""
+        bit against the anchor's hits (L2: the plain chain kernel's d²,
+        ``l2_chain_d2_cuda``; L1: ``nng_tile_l1``'s d on l1_tile.cuh), row
+        chunks, under the plain version's ghost test (``ghost_hit``)."""
         p_ = y.shape[0]
         ones_ = torch.ones(p_, dtype=torch.int32, device=dev)
         for r0 in range(0, x.shape[0], rows):
             sl = slice(r0, r0 + rows)
-            _, hb = (anchor_hits(x[sl], y, eps) if metric == "euclidean"
-                     else nng_tile_l1_cuda(x[sl], y, ones_, eps))
-            hit = ghost_hit(unpack_words(hb)[:, :p_], gb[sl], yg)
+            if metric == "euclidean":
+                hb = l2_chain_d2_cuda(x[sl], y) <= eps2_f32(eps)
+            else:
+                hb = unpack_words(nng_tile_l1_cuda(x[sl], y, ones_, eps)[1])
+            hit = ghost_hit(hb[:, :p_], gb[sl], yg)
             del hb
             check(torch.equal(cnt[sl], hit.sum(1, dtype=torch.int32))
                   and torch.equal(bits[sl], pack_words(
@@ -2730,7 +2889,7 @@ def main() -> int:
                                    metric=metric)
                 live_t = int(ghost_tile_plan(gb, yg)[3][0])
                 n_t = -(-q // PIPE_TILE[0]) * -(-p // PIPE_TILE[1])
-                anchor = ("nng_tile_grouped" if metric == "euclidean"
+                anchor = ("l2_chain" if metric == "euclidean"
                           else "nng_tile_l1")
                 print(f"    {label}: bit-identical to its plain version and "
                       f"to {anchor}'s hits under the ghost test; "
@@ -2751,6 +2910,7 @@ def main() -> int:
     with rank0_launch("nng_tile_bits_ghost", 1) as kept:
         gr, r_launches = spatial_call("[10b]", pts, EPS, "euclidean",
                                       SP_K_CAP, ghost_mode="ring")
+    parent_check("[10b] ring", gr)
     ring_tables("[10b]", gr.meta["plan"], SP_K_CAP)
     l2_launch = ring_launch("[10b] nng_tile_ghost", kept)
     del kept
@@ -2781,7 +2941,7 @@ def main() -> int:
     ghost_anchor_check("[10b] nng_tile_ghost at rank 0's round-1 launch",
                        *l2_launch, gc_, gbits_)
     print("[10b] nng_tile_ghost at rank 0's round-1 launch bit-identical, "
-          "in every count and word, to nng_tile_grouped's hits (one group) "
+          "in every count and word, to the chain anchor l2_chain's hits "
           "under the plain version's ghost test")
     del gc_, gbits_
     eng_r = SpatialPartitionEngine(pts, EPS, mesh, "euclidean",
@@ -3034,14 +3194,14 @@ def main() -> int:
                                                   device=dev), eps_r)
         check(torch.equal(cnt_k, cnt_t), f"[11a] eps_count ({q},{p},{d}) "
                                          "differs from nng_tile's cnt")
-        # the pipelined core against the one it replaced, at an eps on a
-        # pair's fp32 d² (a tiny draw may hold none: draw again)
+        # the pipelined core's kernels against the chain anchor, at an eps
+        # on a pair's fp32 d² (a tiny draw may hold none: draw again)
         a_k, b_k, eps_k = a, b, eps_on_pair(got, 0.05)
         while eps_k is None:
             a_k = torch.randn(q, d, generator=gen11, device=dev)
             b_k = torch.randn(p, d, generator=gen11, device=dev) + 0.5
             eps_k = eps_on_pair(pairwise_sqdist_cuda(a_k, b_k), 0.05)
-        on_k = old_core_check(f"[11a] ({q},{p},{d})", a_k, b_k, torch.ones(
+        on_k = chain_check(f"[11a] ({q},{p},{d})", a_k, b_k, torch.ones(
             p, dtype=torch.int32, device=dev), eps_k)
         count_knife_check(f"[11a] eps_count ({q},{p},{d}) vs plain", cnt_k,
                           eps_count_plain(a, b, eps_r), a, b,
@@ -3049,8 +3209,8 @@ def main() -> int:
         print(f"[11a] pairwise_sqdist ({q},{p},{d}): max |diff| {e_p:.4g} "
               f"vs plain, {e_64:.4g} vs float64, within the bound; eps_count "
               f"at eps {eps_r:.6g} equal to nng_tile's cnt; at eps {eps_k:.9g} "
-              f"nng_tile, eps_count and pairwise_sqdist equal "
-              f"nng_tile_grouped's hits (pairs on eps²: {on_k})")
+              f"nng_tile, nng_tile_grouped, eps_count and pairwise_sqdist "
+              f"equal the chain anchor's (pairs on eps²: {on_k})")
     for q, p, w in ((1, 1, 1), (1, 300, 3), (300, 1, 25), (127, 129, 26),
                     (129, 127, 1), (300, 300, 25), (1000, 777, 26)):
         a = torch.randint(-2**31, 2**31, (q, w), generator=gen11,
@@ -3169,17 +3329,17 @@ def main() -> int:
     del bits_tile
     check(torch.equal(cnt_full, cnt_tile), "[11c] eps_count differs from "
                                            "nng_tile's cnt")
-    check(torch.equal(cnt_full, old_cnt5), "[11c] eps_count differs from "
-                                           "nng_tile_grouped's hits ([5])")
+    check(torch.equal(cnt_full, chain_cnt5), "[11c] eps_count differs from "
+                                             "the chain anchor's hits ([5])")
     cnt_plain, eps_plain_ms = events_ms(
         torch, lambda: eps_count_plain(ex, ey, EPS))
     eps_err = count_knife_check("[11c] eps_count vs plain", cnt_full,
                                 cnt_plain, ex, ey, eps2)
     print(f"[11c] eps_count equal to nng_tile's cnt and to the row sums of "
-          f"nng_tile_grouped's and pairwise_sqdist's hits on all {n_loc} "
+          f"the chain anchor's and pairwise_sqdist's hits on all {n_loc} "
           f"rows "
           f"({int(cnt_full.sum())} pairs)")
-    del cnt_tile, cnt_plain, cnt_full, old_cnt5
+    del cnt_tile, cnt_plain, cnt_full, chain_cnt5
 
     # -- 11d. times at full width --------------------------------------------
     q_, p_, d_ = sx.shape[0], ey.shape[0], DIM
@@ -3359,6 +3519,14 @@ def main() -> int:
          "bound_ms": max(ec_b_ops, ec_b_bytes),
          "bound_by": "operations" if ec_b_ops >= ec_b_bytes else "bytes",
          "library_ms": lib_ms},
+        # the L2 cores' anchor, not a port: it replaces no TPU kernel and
+        # is off the main path; [5]'s tile in 8192-row chunks
+        {"name": "l2_chain", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/l2_chain.cu",
+         "replaces": None, "launches": chain_on_path,
+         "max_abs_err": chain_err, "ms": chain_ms,
+         "plain_ms": chain_plain_ms, "bound_ms": chain_bound,
+         "bound_by": chain_by, "library_ms": lib_ms},
     ]}
     print(json.dumps(record))
     print(smi)

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Time this checkout's ghost tile kernels against the same kernels built
-from another source tree, each on one launch of the ghost ring.
+from another source tree, each on one launch of the ghost ring; or its
+grouped L2 kernel, on the spatial engine's launches and in its call.
 
     python3 ghost_ab.py OTHER [--metric all] [--rounds 4] [--reps 9]
+    python3 ghost_ab.py OTHER --grouped [--rounds 4] [--reps 9]
     python3 ghost_ab.py --ratios [--device cpu] [--metric euclidean]
 
 OTHER is the root of another checkout, or of an unpacked ``git archive``
@@ -31,6 +33,20 @@ events, median of ``--reps`` after a warm-up; this checkout's L2 time is
 its wrapper's, the row order, live-tile list and zeroed outputs
 included), the card's name and power limit, and a last line of JSON.
 Needs one CUDA card.
+
+``--grouped`` builds the other tree's ``nng_tile_grouped.cu`` instead
+(its entry point may take this checkout's arguments, or the single-launch
+ones: x, y, groups, ids, cnt, bits, q, p, d, eps2, stream, every tile) and
+captures rank 0's W x W and G x W launches of chip_smoke.py [9b]'s call
+(``build_nng(partition="spatial")`` of the euclidean points above, eps
+2.98, k_cap 1024, the collective exchange). On each launch the two builds'
+outputs must be equal, and they are timed in turns as above (this
+checkout's time is its wrapper's: the tile list and zeroed outputs
+included). Then the call itself runs ``--rounds`` times in the order this,
+other, other, this, the engine's grouped kernel swapped for the other
+build through the metric (``dataclasses.replace`` of its
+``grouped_kernel``), and prints each call's ``elapsed_s``; every call's
+graph must equal the first's.
 
 ``--ratios`` builds no kernel and evaluates no distance: it plans the ring
 of ``--metric`` (euclidean: [10b]; manhattan: [10d]; the device planner,
@@ -180,6 +196,145 @@ def ratios(device: str, metric: str) -> int:
     return 0
 
 
+def grouped_ab(args) -> int:
+    """The --grouped mode (see the module's docstring)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("ghost_ab: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(HERE / "src"))
+    from repro_torch.core.distributed import device as tdev
+    from repro_torch.core.distributed import make_nng_mesh
+    from repro_torch.core.metrics import get_metric
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import nng_tile as nt
+    from repro_torch.nng import build_nng
+
+    lib, eps, k_cap = "nng_tile_grouped", 2.98, 1024
+    src = args.other.resolve() / "src/repro_torch/kernels/csrc" / f"{lib}.cu"
+    out_dir = _build.BUILD_DIR.parent / "ab"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    so = out_dir / f"other-{lib}-{os.getpid()}.so"
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
+                           str(src)], capture_output=True, text=True)
+    if proc.returncode != 0:
+        print(f"ghost_ab: nvcc failed for {lib}:\n{proc.stdout}"
+              f"{proc.stderr}", file=sys.stderr)
+        return 1
+    single = "int sms" not in src.read_text()
+    fn = getattr(ctypes.CDLL(str(so)), _build._ENTRY[lib][0])
+    fn.argtypes = ((ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 3
+                   + (ctypes.c_float, ctypes.c_void_p)) if single else \
+        _build._ENTRY[lib][1]
+    fn.restype = ctypes.c_int
+    so.unlink()
+
+    def other(x, y, xg, yg, xid, yid, eps_):
+        """The other build on checked operands -> (cnt, bits)."""
+        (q, d), p = x.shape, y.shape[0]
+        stream = torch.cuda.current_stream().cuda_stream
+        cnt = torch.zeros(q, dtype=torch.int32, device=x.device)
+        bits = (torch.empty if single else torch.zeros)(
+            (q, -(-p // 32)), dtype=torch.int32, device=x.device)
+        ptrs = [t.data_ptr() for t in (x, y, xg, yg, xid, yid)]
+        if single:
+            code = fn(*ptrs, cnt.data_ptr(), bits.data_ptr(), q, p, d,
+                      nt.eps2_f32(eps_), stream)
+        else:
+            tiles, count = nt.grouped_tile_plan(xg, yg)
+            xsq, ysq = nt.row_norm_scratch(q, p, x.device)
+            code = fn(*ptrs, tiles.data_ptr(), count.data_ptr(),
+                      cnt.data_ptr(), bits.data_ptr(), xsq.data_ptr(),
+                      ysq.data_ptr(), q, p, d, nt.eps2_f32(eps_),
+                      nt.sm_count(x.device.index), stream)
+        _build.check(f"other {lib}", code)
+        return cnt, bits
+
+    mesh = make_nng_mesh(NRANKS)
+    pts = case_points("euclidean")
+    kept = []
+    orig = tdev.nng_tile_bits_grouped
+
+    def spy(*a, **kw):
+        kept.append(a[:7])
+        return orig(*a, **kw)
+
+    def call(metric):
+        return build_nng(pts, eps, metric=metric, partition="spatial",
+                         mesh=mesh, k_cap=k_cap)
+
+    tdev.nng_tile_bits_grouped = spy
+    t0 = time.perf_counter()
+    try:
+        g0 = call("euclidean")
+    finally:
+        tdev.nng_tile_bits_grouped = orig
+    print(f"ghost_ab: euclidean build_nng spatial at {pts.shape}, eps {eps}: "
+          f"{g0.num_edges} edges in {time.perf_counter() - t0:.3f} s")
+    # the engine's first launch is rank 0's W x W, launch NRANKS its G x W
+    launches = {"W x W": kept[0], "G x W": kept[NRANKS]}
+    del kept
+    record = {}
+    for label, a in launches.items():
+        x, y = (t.to(torch.float32).contiguous() for t in a[:2])
+        ints = [torch.as_tensor(t, dtype=torch.int32, device=x.device)
+                .contiguous() for t in a[2:6]]
+        args_ = (x, y, *ints, a[6])
+        mine = nt.nng_tile_grouped_cuda
+        a_out, b_out = mine(*args_), other(*args_)
+        if not all(torch.equal(u, v) for u, v in zip(a_out, b_out)):
+            print(f"ghost_ab: {lib} {label}: the two builds' outputs differ",
+                  file=sys.stderr)
+            return 1
+        del a_out, b_out
+        runs = {"this": lambda: mine(*args_), "other": lambda: other(*args_)}
+        times = {"this": [], "other": []}
+        for _ in range(args.rounds):
+            for name in ("this", "other", "other", "this"):
+                times[name].append(median_ms(torch, runs[name], args.reps))
+        for name, ts in times.items():
+            print(f"ghost_ab: {lib} {label} ({x.shape[0]}x{y.shape[0]}x"
+                  f"{x.shape[1]}) {name} "
+                  f"({HERE if name == 'this' else args.other}): "
+                  f"{' '.join(f'{t:.4f}' for t in ts)} ms; median "
+                  f"{statistics.median(ts):.4f} ms")
+        record[f"{lib} {label}"] = {
+            name: {"median_ms": statistics.median(ts), "ms": ts}
+            for name, ts in times.items()}
+        del x, y, ints, args_, runs
+    del launches
+    torch.cuda.empty_cache()
+    met = get_metric("euclidean")
+    metrics = {"this": met,
+               "other": dataclasses.replace(met, grouped_kernel=other)}
+    elapsed = {"this": [], "other": []}
+    for _ in range(args.rounds):
+        for name in ("this", "other", "other", "this"):
+            g = call(metrics[name])
+            if not (np.array_equal(g.row_ptr, g0.row_ptr)
+                    and np.array_equal(g.col_ids, g0.col_ids)):
+                print(f"ghost_ab: the {name} call's graph differs",
+                      file=sys.stderr)
+                return 1
+            elapsed[name].append(g.stats.elapsed_s)
+            del g
+    for name, ts in elapsed.items():
+        print(f"ghost_ab: spatial-sift elapsed_s {name}: "
+              f"{' '.join(f'{t:.4f}' for t in ts)} s; median "
+              f"{statistics.median(ts):.4f} s")
+    record["elapsed_s"] = {name: {"median_s": statistics.median(ts), "s": ts}
+                           for name, ts in elapsed.items()}
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip().splitlines()
+    print(smi[0] if smi else "nvidia-smi: no output")
+    print(json.dumps(record))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("other", type=Path, nargs="?")
@@ -189,12 +344,15 @@ def main() -> int:
     ap.add_argument("--rounds", type=int, default=4)
     ap.add_argument("--reps", type=int, default=9)
     ap.add_argument("--ratios", action="store_true")
+    ap.add_argument("--grouped", action="store_true")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
     if args.ratios:
         return ratios(args.device, args.metric or "euclidean")
     if args.other is None:
         ap.error("OTHER is required without --ratios")
+    if args.grouped:
+        return grouped_ab(args)
     import torch
     if not torch.cuda.is_available():
         print("ghost_ab: no CUDA device", file=sys.stderr)

@@ -43,11 +43,26 @@ seed=0)`` against rows 131072..262143); the other's entry point may take
 the single-launch arguments (x, y, out, q, p, d, stream). At full width
 both are timed in turns beside ``torch.mm``.
 
+With OTHER it also holds the other tree's ``nng_tile_grouped.cu`` (every
+row in group 0, disjoint ids: its hits are d2 <= eps2) to this checkout's
+plain chain kernel (``l2_chain.cu``, the L2 cores' anchor), bit for bit in
+every count and word: on the GPU tests' ``L2_PIPE_CASES`` (ragged shapes,
+more tiles than resident blocks, rows off 16-byte alignment) at an eps on
+a pair's fp32 d2, and on chip_smoke.py [5]'s tile (rows 0..131071 of the
+points above against rows 131072..262143, eps 2.98) with the chain in
+8192-row chunks, timed. The other's entry point may take this checkout's
+arguments or the single-launch ones (x, y, groups, ids, cnt, bits, q, p,
+d, eps2, stream: every tile).
+
 For every library built it prints ptxas's registers and spills and, from
-``cuobjdump -sass``, its main loop (the backward branch holding the most
-FFMA) as counts of instructions, FFMA and shared loads, and the distance in
+``cuobjdump -sass``, its main loop (the shortest backward branch holding
+the most FFMA, or FADD where none holds an FFMA) as counts of
+instructions, FFMA, FADD and shared loads, and the distance in
 instructions from each shared load to the first instruction that reads
-what it loaded (mean and minimum). Needs one CUDA card.
+what it loaded (mean and minimum); besides the two timed kernels, that
+is also done for both trees' ``nng_tile_grouped``, ``nng_tile_ghost`` and
+``nng_tile_ghost_l1`` (the instances of the walk that share its main
+loop) and this checkout's ``l2_chain``. Needs one CUDA card.
 """
 from __future__ import annotations
 
@@ -61,6 +76,8 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+
+import numpy as np
 
 HERE = Path(__file__).resolve().parent
 N, DIM, EPS, SEED = 131072, 128, 13.0, 0
@@ -129,7 +146,20 @@ LDS_MODES = ("LDS.128 broadcast", "LDS.128 a lane", "LDS.32 broadcast")
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SINGLE = {"nng_tile": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
           "eps_count": (_P, _P, _P, _I, _I, _I, _F, _P),
-          "pairwise_sqdist": (_P, _P, _P, _I, _I, _I, _P)}
+          "pairwise_sqdist": (_P, _P, _P, _I, _I, _I, _P),
+          "nng_tile_grouped": (_P,) * 8 + (_I, _I, _I, _F, _P)}
+# libraries built for their ptxas and SASS lines only (and the anchor check)
+SASS_ONLY = {"base": ("l2_chain", "nng_tile_grouped", "nng_tile_ghost",
+                      "nng_tile_ghost_l1"),
+             "other": ("nng_tile_grouped", "nng_tile_ghost",
+                       "nng_tile_ghost_l1")}
+# the GPU tests' L2_PIPE_CASES: (q, p, d, shift)
+RAGGED_QP = ((1, 1), (1, 300), (127, 129), (129, 127), (300, 1), (300, 300))
+PIPE_CASES = ([(q, p, d, None) for q, p in RAGGED_QP for d in (1, 17, 700)]
+              + [(2100, 4100, 17, None), (4096, 4096, 128, None),
+                 (300, 300, 17, "row"), (1000, 777, 17, "row"),
+                 (300, 257, 128, "elem")])
+SMOKE_EPS = 2.98        # chip_smoke.py's eps on its [5] tile
 # chip_smoke.py [11a]'s ragged shapes and [11d]'s full width
 SQ_SHAPES = ((1, 1, 1), (1, 300, 17), (300, 1, 700), (127, 129, 700),
              (129, 127, 1), (300, 300, 17), (1000, 777, 700))
@@ -161,7 +191,8 @@ def sources(txt: str) -> str:
 
 def sass_loop(so: Path) -> dict:
     """The main loop of the library's first TMA (or only) kernel: the
-    backward branch whose body holds the most FFMA."""
+    shortest backward branch whose body holds the most FFMA (the most
+    FADD where none holds an FFMA: the L1 body's loop)."""
     cuobjdump = Path(shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
                      ).parent / "cuobjdump"
     if not cuobjdump.exists():
@@ -173,20 +204,24 @@ def sass_loop(so: Path) -> dict:
 def loop_stats(text: str) -> dict:
     """sass_loop's statistics of ``cuobjdump -sass`` output ``text``."""
     funcs = re.split(r"\n\s*Function : ", text)[1:]
-    func = next((f for f in funcs if "ILb1E" in f.split("\n", 1)[0]),
-                funcs[0] if funcs else "")
+    func = next((f for f in funcs if re.search(
+        r"ILb1E|ELb1ELb1E", f.split("\n", 1)[0])), funcs[0] if funcs else "")
     ins = [(int(m.group(1), 16), m.group(2).strip()) for m in re.finditer(
         r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", func)]
-    best = (0, [])
+    loops = []
     for addr, txt in ins:
         m = re.search(r"BRA (0x[0-9a-f]+)", txt)
         if m and int(m.group(1), 16) < addr:
             body = [t for a, t in ins if int(m.group(1), 16) <= a <= addr]
-            nf = sum(t.split()[0 if not t.startswith("@") else 1]
-                     .startswith("FFMA") for t in body)
-            if nf > best[0]:
-                best = (nf, body)
-    body = best[1]
+            head = [t.split()[1 if t.startswith("@") else 0] for t in body]
+            loops.append((sum(o.startswith("FFMA") for o in head),
+                          sum(o.startswith("FADD") for o in head), body))
+    # the most FFMA (FADD where no loop has one), then the shortest loop:
+    # the innermost, not a loop around it
+    fma = any(f for f, _, _ in loops)
+    nf, na, body = max(loops, key=lambda t: ((t[0] if fma else t[1]),
+                                             -len(t[2])),
+                       default=(0, 0, []))
     ops = [t.split()[1 if t.startswith("@") else 0] for t in body]
     dists = []
     for i, (op, txt) in enumerate(zip(ops, body)):
@@ -201,7 +236,7 @@ def loop_stats(text: str) -> dict:
             if any(re.search(rf"\b{r}\b", sources(body[k])) for r in regs):
                 dists.append(k - i)
                 break
-    return {"instructions": len(body), "ffma": best[0],
+    return {"instructions": len(body), "ffma": nf, "fadd": na,
             "lds": sum(o.startswith("LDS") for o in ops),
             "lds_to_use_mean": statistics.mean(dists) if dists else None,
             "lds_to_use_min": min(dists) if dists else None}
@@ -266,6 +301,127 @@ def pairwise_vs_other(torch, fns, record, dev, sms, reps):
     torch.cuda.empty_cache()
 
 
+def eps_on_pair(d2, quantile):
+    """An eps whose eps2_f32(eps) is exactly one pair's fp32 d2 (that pair
+    on the knife edge): the first positive d2 at or above ``quantile`` of
+    them that is the fp32 square of an fp32, or None."""
+    from repro_torch.kernels.nng_tile import eps2_f32
+    v = np.unique(d2.cpu().numpy().ravel())
+    v = v[v > 0]
+    for val in v[int(quantile * max(len(v) - 1, 0)):][:4096]:
+        e = np.float32(np.sqrt(np.float64(val)))
+        for cand in (e, np.nextafter(e, np.float32(np.inf)),
+                     np.nextafter(e, np.float32(0))):
+            if eps2_f32(float(cand)) == float(val):
+                return float(cand)
+    return None
+
+
+def anchor_vs_other(torch, fns, record, dev, sms, reps):
+    """The other tree's nng_tile_grouped (one group, disjoint ids) against
+    this checkout's chain kernel, bit for bit, at PIPE_CASES and on
+    chip_smoke.py [5]'s tile (see the module's docstring)."""
+    from repro_torch.data import synthetic_pointset
+    from repro_torch.kernels import nng_tile as nt
+
+    chain, grouped = fns[("base", "l2_chain")], fns[("other",
+                                                     "nng_tile_grouped")]
+    single = tuple(grouped.argtypes) == SINGLE["nng_tile_grouped"]
+
+    def chain_d2(x, y):
+        (q, d), p = x.shape, y.shape[0]
+        out = torch.empty((q, p), device=dev)
+        xn, yn = torch.empty(q, device=dev), torch.empty(p, device=dev)
+        code = chain(x.data_ptr(), y.data_ptr(), out.data_ptr(),
+                     xn.data_ptr(), yn.data_ptr(), q, p, d,
+                     torch.cuda.current_stream().cuda_stream)
+        if code != 0:
+            raise RuntimeError(f"l2_chain: CUDA error {code}")
+        return out
+
+    def other_hits(x, y, e2):
+        """(cnt, bits) of the other tree's grouped kernel, one group."""
+        (q, d), p = x.shape, y.shape[0]
+        i32 = dict(dtype=torch.int32, device=dev)
+        xg, yg = torch.zeros(q, **i32), torch.zeros(p, **i32)
+        xid, yid = torch.arange(q, **i32), torch.arange(q, q + p, **i32)
+        cnt = torch.zeros(q, **i32)
+        bits = torch.zeros((q, -(-p // 32)), **i32)
+        ptrs = [t.data_ptr() for t in (x, y, xg, yg, xid, yid)]
+        stream = torch.cuda.current_stream().cuda_stream
+        if single:
+            code = grouped(*ptrs, cnt.data_ptr(), bits.data_ptr(), q, p, d,
+                           e2, stream)
+        else:
+            tiles, count = nt.grouped_tile_plan(xg, yg)
+            xsq, ysq = torch.empty(q, device=dev), torch.empty(p, device=dev)
+            code = grouped(*ptrs, tiles.data_ptr(), count.data_ptr(),
+                           cnt.data_ptr(), bits.data_ptr(), xsq.data_ptr(),
+                           ysq.data_ptr(), q, p, d, e2, sms, stream)
+        if code != 0:
+            raise RuntimeError(f"other nng_tile_grouped: CUDA error {code}")
+        return cnt, bits
+
+    def same(label, x, y, e2, d2=None, rows=8192):
+        cnt, bits = other_hits(x, y, e2)
+        on = 0
+        for r0 in range(0, x.shape[0], rows):
+            sl = slice(r0, r0 + rows)
+            hit = (chain_d2(x[sl], y) if d2 is None else d2[sl]) <= e2
+            pad = torch.nn.functional.pad(hit, (0, -y.shape[0] % 32))
+            if not (torch.equal(bits[sl], nt.pack_words(pad)) and torch.equal(
+                    cnt[sl], hit.sum(1, dtype=torch.int32))):
+                raise RuntimeError(f"anchor {label}: the other tree's "
+                                   "nng_tile_grouped differs from the chain "
+                                   f"kernel's hits in rows {r0}..")
+            del hit, pad
+        if d2 is not None:
+            on = int((d2 == e2).sum())
+        return int(cnt.sum()), on
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    on_total = hits = 0
+    for q, p, d, shift in PIPE_CASES:
+        eps = None
+        while eps is None:          # a tiny draw may hold no such pair
+            rows = (q + 1, p + 1) if shift == "row" else (q, p)
+            a, b = (torch.randn(r * d + (shift == "elem"), generator=gen,
+                                device=dev) for r in rows)
+            a, b = ((t[d:] if shift == "row" else t[1:] if shift == "elem"
+                     else t).view(r, d) for t, r in ((a, q), (b, p)))
+            d2 = chain_d2(a, b)
+            eps = eps_on_pair(d2, 0.02)
+        h, on = same(f"({q},{p},{d},{shift})", a, b, nt.eps2_f32(eps), d2)
+        hits += h
+        on_total += on
+    print(f"anchor: the other tree's nng_tile_grouped (one group) "
+          f"bit-identical to this tree's l2_chain hits on "
+          f"{len(PIPE_CASES)} PIPE_CASES shapes at an eps on a pair's fp32 "
+          f"d2 in each ({hits} hits, {on_total} pairs exactly on eps2)")
+    pts = torch.from_numpy(synthetic_pointset(1 << 20, DIM, seed=SEED))
+    x = pts[:SQ_BLOCK].to(dev)
+    y = pts[SQ_BLOCK:2 * SQ_BLOCK].to(dev)
+    del pts
+    e2 = nt.eps2_f32(SMOKE_EPS)
+    h5, _ = same("[5]'s tile", x, y, e2)
+
+    def chain_tile():
+        for r0 in range(0, SQ_BLOCK, 8192):
+            chain_d2(x[r0:r0 + 8192], y)
+    chain_ms = median_ms(torch, chain_tile, max(1, reps // 2))
+    print(f"anchor: the other tree's nng_tile_grouped (one group) "
+          f"bit-identical to this tree's l2_chain hits on chip_smoke.py "
+          f"[5]'s tile ({SQ_BLOCK}x{SQ_BLOCK}x{DIM}, eps {SMOKE_EPS}): all "
+          f"{SQ_BLOCK} counts and {SQ_BLOCK * SQ_BLOCK // 32} words, {h5} "
+          f"hits; l2_chain {chain_ms:.3f} ms over the tile in 8192-row "
+          f"chunks")
+    record["anchor"] = {"cases": len(PIPE_CASES), "hits": hits,
+                        "on_eps2": on_total, "tile_hits": h5,
+                        "chain_ms": chain_ms}
+    del x, y
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("other", type=Path, nargs="?")
@@ -316,7 +472,8 @@ def main() -> int:
         stderr=subprocess.STDOUT, text=True)
     procs = {}
     for name, d in trees.items():
-        extra = ("pairwise_sqdist",) if name in ("base", "other") else ()
+        extra = (("pairwise_sqdist",) + SASS_ONLY[name]
+                 if name in ("base", "other") and "other" in trees else ())
         for lib in LIBS + extra:
             so = out / f"{name}-{lib}.so"
             procs[(name, lib)] = (subprocess.Popen(
@@ -343,7 +500,7 @@ def main() -> int:
         # the single-launch core's (no norm scratch, no SM count)
         if name.startswith("other") and "int sms" not in (
                 trees[name] / f"{lib}.cu").read_text():
-            argtypes = SINGLE[lib]
+            argtypes = SINGLE.get(lib, argtypes)
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
         fns[(name, lib)] = fn
 
@@ -377,6 +534,7 @@ def main() -> int:
 
     if "other" in trees:
         pairwise_vs_other(torch, fns, record, dev, sms, args.reps)
+        anchor_vs_other(torch, fns, record, dev, sms, args.reps)
     ref = launch("base", "eps_count")
     for lib in LIBS:
         # (no_* variants and other_no_epi compute wrong counts: timed only)

@@ -41,8 +41,8 @@ _ENTRY = {
     "nng_tile_l1": ("nng_tile_l1_launch",
                     (_P, _P, _P, _P, _P, _I, _I, _I, _F, _P)),
     "nng_tile_grouped": ("nng_tile_grouped_launch",
-                         (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
-                          _P)),
+                         (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                          _I, _I, _F, _I, _P)),
     "nng_tile_grouped_hamming": ("nng_tile_grouped_hamming_launch",
                                  (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                   _I, _P)),
@@ -76,6 +76,7 @@ _ENTRY = {
                          (_P, _P, _P, _I, _I, _I, _P)),
     "eps_count": ("eps_count_launch",
                   (_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P)),
+    "l2_chain": ("l2_chain_launch", (_P, _P, _P, _P, _P, _I, _I, _I, _P)),
 }
 
 _loaded: dict = {}                     # library -> loaded entry point

@@ -3,8 +3,8 @@
 //
 // One 256-thread block owns a 128 x 128 tile (tile_io.cuh). x and y are
 // staged through shared memory in chunks of 16 features, transposed (padded
-// rows against bank conflicts), as in l2_tile.cuh; each thread keeps a
-// 16 x 4 register tile of fp32 distances.
+// rows against bank conflicts); each thread keeps a 16 x 4 register tile of
+// fp32 distances.
 //
 // The summation order is the reference's (_l1_tile_d, cchunk = 8) and the
 // plain version's (nng_tile.l1_dist): within each chunk of 8 features a

@@ -1,19 +1,21 @@
 // The pipelined fp32 L2 product core of nng_tile.cu, eps_count.cu,
-// pairwise_sqdist.cu, nng_tile_ghost.cu and tree_frontier.cu, and the walk
+// pairwise_sqdist.cu, nng_tile_grouped.cu, nng_tile_ghost.cu and
+// tree_frontier.cu, and the walk
 // and staging that l1_pipe.cuh's L1 body (tree_frontier_l1.cu,
 // nng_tile_ghost_l1.cu) and hamming_pipe.cuh's Hamming body
 // (tree_frontier_hamming.cu) share.
 //
-// Same function and same arithmetic as l2_tile.cuh's products and d2, so a
-// pair's d2 here is bit-identical to the one that the kernel still on
-// l2_tile.cuh computes (nng_tile_grouped):
+// The per-pair arithmetic is a contract, which l2_chain.cu (a plain fp32
+// kernel, a thread a pair) also keeps, so a pair's d2 here is
+// bit-identical to that anchor's, and the tests and chip_smoke.py hold
+// every kernel on this core to it:
 //   - each pair's product is one fmaf chain over k = 0, 1, ..., d - 1 in
 //     ascending order from 0.f (no split-K, no second accumulator);
 //   - each row norm is one fmaf(v, v, .) chain in the same order;
-//   - d2 is l2tile::d2, (xn + yn) - 2 dot;
+//   - d2 is l2tile::d2 (l2_tile.cuh), (xn + yn) - 2 dot;
 //   - IEEE fp32 on the CUDA cores: no TF32, no tensor cores.
-// Features past d load as 0 and add exactly 0 to every chain (an extra
-// fmaf(0, 0, acc) can only turn -0 into +0, which no d2 or test sees).
+// Features past d load as 0 and add exactly 0 to every chain (a chain from
+// +0.f never holds -0, and fmaf(0, 0, acc) leaves any other acc as it is).
 //
 // What is redesigned is the staging, the pipelining, the register tile and
 // the grid (each measured on an H100; PERF.md has the numbers):
@@ -27,8 +29,9 @@
 //     + gridDim.x, ... of the output row after row, or of a list of tile
 //     indices in the same numbering whose length the block reads from
 //     device memory (a launch whose live tiles are found on the card, with
-//     no host sync: the ghost tiles (ghost_pipe.cuh) and the tree
-//     frontiers (frontier_pipe.cuh); blocks past the count exit);
+//     no host sync: the grouped tiles (nng_tile_grouped.cu), the ghost
+//     tiles (ghost_pipe.cuh) and the tree frontiers (frontier_pipe.cuh);
+//     blocks past the count exit);
 //   - the block's (tile, 32-feature chunk) pairs form one stream, loaded
 //     STAGES - 1 chunks ahead into a ring of stages in dynamic shared
 //     memory, so the next tile's first chunk loads while this tile ends
@@ -53,6 +56,7 @@
 #include <cuda.h>
 
 #include "l2_tile.cuh"
+#include "tile_io.cuh"
 
 namespace l2pipe {
 

@@ -25,7 +25,7 @@
 // two-stage ring, the next tile's first chunk loading during this tile's
 // epilogue; the row norms are summed once before the tiles and arrive
 // with each tile's first chunk, y_valid folded into them (NaN: never a
-// hit). The per-pair arithmetic is l2_tile.cuh's, bit for bit. The
+// hit). The per-pair arithmetic is l2_chain.cu's, bit for bit. The
 // epilogue keeps tile_io.cuh's layout: each warp's __ballot_sync packs a
 // row's word, lane j keeps word j, and a row's eight words go out in one
 // store with one atomicAdd of their popcounts to cnt. Out-of-range columns

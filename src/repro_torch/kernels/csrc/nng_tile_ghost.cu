@@ -33,7 +33,7 @@
 // bit against its row's key (one register when mw == 1) before
 // tile_io.cuh's __ballot_sync packing, and stores each word and count at
 // the row's place in the caller's order (rows[i]). Dead tiles store
-// nothing: their words stay zero. The per-pair arithmetic is l2_tile.cuh's,
+// nothing: their words stay zero. The per-pair arithmetic is l2_chain.cu's,
 // bit for bit. The engine's tiles_scheduled /
 // tiles_skipped counters come from ops.ghost_block_active at the
 // reference's own tile geometry and row order, not from this launch.

@@ -17,8 +17,8 @@
 // persistent grid of two 128-thread blocks an SM over 64 x 256 tiles, 16 x 8
 // register tiles, TMA copies into a two-stage ring, the row norms summed
 // once by row_norms_kernel), so each element is l2tile::d2 over the same
-// product and norm chains as before, bit for bit, and the one that
-// nng_tile.cu tests against eps2. The epilogue stores straight from the
+// product and norm chains as l2_chain.cu's anchor, bit for bit, and the
+// one that nng_tile.cu tests against eps2. The epilogue stores straight from the
 // registers: lane l writes columns n0 + l + 32 j, so each store of a warp
 // is one coalesced 128-byte run of a row; a 64 x 256 staging tile (64 KiB)
 // would not fit beside two blocks' rings on an SM. The stores of one

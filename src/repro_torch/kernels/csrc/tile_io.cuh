@@ -1,7 +1,7 @@
 // Block geometry and the packed-bitmask epilogues shared by the distance
-// tiles (l2_tile.cuh, hamming_tile.cuh, l1_tile.cuh), the fused ε-tile
-// kernels and their grouped and ghost variants; the pipelined cores
-// (l2_pipe.cuh) keep its warp layout and its constants.
+// tiles (hamming_tile.cuh, l1_tile.cuh), the fused ε-tile kernels on them
+// and their grouped and ghost variants; the pipelined cores (l2_pipe.cuh)
+// keep its warp layout and its constants.
 //
 // One 256-thread block owns a 128 x 128 (query row x candidate column)
 // tile. Warp w owns rows [16w, 16w + 16) and lane l owns columns l, l + 32,
@@ -44,16 +44,6 @@ __device__ __forceinline__ void store_hits(const bool (&hit)[TN], int row,
     rc += __popc(word);
   }
   if (lane == 0 && row < q && rc != 0) atomicAdd(&cnt[row], rc);
-}
-
-// store_hits without the words: lane 0 adds the row's hits to cnt[row].
-// The counts are integer atomics, so their order does not change them.
-__device__ __forceinline__ void count_hits(const bool (&hit)[TN], int row,
-                                           int q, int32_t* __restrict__ cnt) {
-  int rc = 0;
-#pragma unroll
-  for (int j = 0; j < TN; ++j) rc += __popc(__ballot_sync(FULL, hit[j]));
-  if ((threadIdx.x & 31) == 0 && row < q && rc != 0) atomicAdd(&cnt[row], rc);
 }
 
 // Zero the block's BM x WPB words of a (nq, nw) mask (rows past nq and

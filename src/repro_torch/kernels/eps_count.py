@@ -8,8 +8,7 @@ distances out. It is ``nng_tile``'s L2 tile with no words stored, on the
 same pipelined core (``csrc/l2_pipe.cuh``), so its counts equal
 ``nng_tile_cuda(x, y, ones, eps)``'s ``cnt`` bit for bit, the row sums of
 ``pairwise_sqdist_cuda(x, y) <= eps2_f32(eps)`` (the same core) and those
-of ``nng_tile_grouped_cuda``'s hits (``csrc/l2_tile.cuh``) with one group
-and disjoint ids.
+of the plain chain anchor's ``l2_chain_d2_cuda(x, y) <= eps2_f32(eps)``.
 
 Its plain version, ``eps_count_plain``, is the same expansion
 (``nng_tile_ref``'s arithmetic, counts only). The direct-form oracle

@@ -28,7 +28,8 @@ and ``nng_tile_grouped{,_hamming,_l1}_ref``. Rows carry a group (the
 Voronoi cell, < 0 for padding) and a global id, and a pair hits only when
 its distance passes the threshold, its groups are equal and valid, and its
 ids differ (``grouped_hit``). The kernels skip the distances of a block
-whose groups cannot meet and store zero words there.
+whose groups cannot meet and store zero words there; the L2 one walks a
+list of the live tiles only (``grouped_tile_plan``).
 
 And a ghost variant for the landmark engine's ghost ring:
 ``nng_tile_ghost{,_hamming,_l1}_cuda`` (``csrc/nng_tile_ghost*.cu``) and
@@ -313,17 +314,11 @@ def sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _launch_tile(lib: str, x, y, ints, dtype, thr, gbits=None,
-                 persistent=False):
-    """Check the operands of tile kernel ``lib`` and launch it with
-    threshold ``thr`` -> (cnt, bits, launched). ``ints`` are its int32
-    operands as (name, tensor, "q" or "p": the rows of x or of y), in the
-    order its C entry point takes them after x and y. A ghost kernel also
-    takes ``gbits`` (q, mw) int32 right after y, and mw after d; a
-    ``persistent`` one (``csrc/l2_pipe.cuh``) fp32 scratch for the rows'
-    norms, (q,) and (p,), after bits, and the device's SM count after the
-    threshold."""
-    fn = f"{lib}_cuda"
+def _check_tile(fn: str, x, y, ints, dtype, gbits=None):
+    """Raise unless x and y are (q, d) and (p, d) contiguous ``dtype``
+    CUDA tensors, each of ``ints`` ((name, tensor, "q" or "p")) an int32
+    vector of q or p rows and ``gbits`` (if given) (q, mw) int32, all on
+    one device -> (q, d, p)."""
     extra = () if gbits is None else (("x_gbits", gbits, torch.int32, 2),)
     check_operands(fn, ("x", x, dtype, 2), ("y", y, dtype, 2), *extra,
                    *((name, t, torch.int32, 1) for name, t, _ in ints))
@@ -336,6 +331,20 @@ def _launch_tile(lib: str, x, y, ints, dtype, thr, gbits=None,
                          f"{tuple(y.shape)}, " + ", ".join(
                              f"{name} {tuple(t.shape)}"
                              for name, t, *_ in extra + tuple(ints)))
+    return q, d, p
+
+
+def _launch_tile(lib: str, x, y, ints, dtype, thr, gbits=None,
+                 persistent=False):
+    """Check the operands of tile kernel ``lib`` and launch it with
+    threshold ``thr`` -> (cnt, bits, launched). ``ints`` are its int32
+    operands as (name, tensor, "q" or "p": the rows of x or of y), in the
+    order its C entry point takes them after x and y. A ghost kernel also
+    takes ``gbits`` (q, mw) int32 right after y, and mw after d; a
+    ``persistent`` one (``csrc/l2_pipe.cuh``) fp32 scratch for the rows'
+    norms, (q,) and (p,), after bits, and the device's SM count after the
+    threshold."""
+    q, d, p = _check_tile(f"{lib}_cuda", x, y, ints, dtype, gbits)
     nw = -(-p // 32)
     cnt = torch.zeros(q, dtype=torch.int32, device=x.device)
     # every kernel stores every word of its (q, nw) mask
@@ -365,8 +374,8 @@ def nng_tile_cuda(x, y, y_valid, eps: float):
     int32). Any q, p and d, and any 4-byte aligned x and y (a row slice
     too): the kernel masks ragged edges, and bits past column p - 1 are
     zero. One launch of a persistent grid (``csrc/l2_pipe.cuh``), whose
-    d² are those of the kernels on ``csrc/l2_tile.cuh`` (the grouped
-    ones) bit for bit."""
+    d² are those of the plain chain anchor (``l2_chain_d2_cuda``) bit for
+    bit."""
     cnt, bits, launched = _launch_tile("nng_tile", x, y,
                                        (("y_valid", y_valid, "p"),),
                                        torch.float32, eps2_f32(eps),
@@ -395,11 +404,15 @@ def nng_tile_l1_cuda(x, y, y_valid, eps: float):
     return cnt, bits
 
 
+def _grouped_ints(xg, yg, xid, yid):
+    """The grouped kernels' int32 operands, as ``_check_tile`` takes them."""
+    return (("x_group", xg, "q"), ("y_group", yg, "p"), ("x_ids", xid, "q"),
+            ("y_ids", yid, "p"))
+
+
 def _launch_grouped(lib, x, y, xg, yg, xid, yid, dtype, thr):
-    return _launch_tile(lib, x, y, (("x_group", xg, "q"),
-                                    ("y_group", yg, "p"),
-                                    ("x_ids", xid, "q"),
-                                    ("y_ids", yid, "p")), dtype, thr)
+    return _launch_tile(lib, x, y, _grouped_ints(xg, yg, xid, yid), dtype,
+                        thr)
 
 
 def nng_tile_grouped_cuda(x, y, xg, yg, xid, yid, eps: float):
@@ -407,12 +420,40 @@ def nng_tile_grouped_cuda(x, y, xg, yg, xid, yid, eps: float):
     (q,) / (p,) int32, all contiguous on one CUDA device -> (cnt (q,) int32,
     bits (q, ceil(p/32)) int32), the function of ``nng_tile_grouped_ref``.
     Any q, p and d: the kernel masks ragged edges, and bits past column
-    p - 1 are zero."""
-    cnt, bits, launched = _launch_grouped("nng_tile_grouped", x, y, xg, yg,
-                                          xid, yid, torch.float32,
-                                          eps2_f32(eps))
-    nng_tile_grouped_cuda.launches += launched
+    p - 1 are zero.
+
+    One launch of a persistent grid (``csrc/l2_pipe.cuh``) over the live
+    tiles of ``grouped_tile_plan``; the words of dead tiles stay zero. Its
+    d² are those of ``nng_tile_cuda`` bit for bit."""
+    q, _, p = _check_tile("nng_tile_grouped_cuda", x, y,
+                          _grouped_ints(xg, yg, xid, yid), torch.float32)
+    cnt = torch.zeros(q, dtype=torch.int32, device=x.device)
+    bits = torch.zeros((q, -(-p // 32)), dtype=torch.int32, device=x.device)
+    if q == 0 or p == 0:
+        return cnt, bits
+    grouped_launch(x, y, xg, yg, xid, yid, *grouped_tile_plan(xg, yg), eps,
+                   cnt, bits)
     return cnt, bits
+
+
+def grouped_launch(x, y, xg, yg, xid, yid, tiles, count, eps: float, cnt,
+                   bits) -> None:
+    """The launch alone of the grouped L2 kernel on checked operands and
+    ``grouped_tile_plan``'s tile list and count: adds the live tiles' hits
+    to cnt and stores their words in bits (zero where no live tile
+    stores)."""
+    (q, d), p = x.shape, y.shape[0]
+    xsq, ysq = row_norm_scratch(q, p, x.device)
+    launch = _build.entry("nng_tile_grouped")
+    with torch.cuda.device(x.device):
+        code = launch(x.data_ptr(), y.data_ptr(), xg.data_ptr(),
+                      yg.data_ptr(), xid.data_ptr(), yid.data_ptr(),
+                      tiles.data_ptr(), count.data_ptr(), cnt.data_ptr(),
+                      bits.data_ptr(), xsq.data_ptr(), ysq.data_ptr(), q, p,
+                      d, eps2_f32(eps), sm_count(x.device.index),
+                      torch.cuda.current_stream().cuda_stream)
+    _build.check("nng_tile_grouped", code)
+    nng_tile_grouped_cuda.launches += 1
 
 
 def nng_tile_grouped_hamming_cuda(x, y, xg, yg, xid, yid, eps: float):
@@ -437,6 +478,23 @@ def nng_tile_grouped_l1_cuda(x, y, xg, yg, xid, yid, eps: float):
 # the tile of the pipelined L2 core (csrc/l2_pipe.cuh): query rows x
 # candidate columns
 PIPE_TILE = (64, 256)
+
+
+def grouped_tile_plan(x_group, y_group):
+    """The grouped L2 kernel's tile list for one launch, on the groups'
+    device and without a host sync: (tiles (T,) int32, the ``PIPE_TILE``
+    tiles of the (q, p) output numbered row after row, the live ones
+    first; count (1,) int32, the live ones). A tile is live where the
+    valid-group [min, max] ranges of its rows and columns intersect
+    (``ops.grouped_block_active`` at that geometry on the tile-padded
+    groups, -1 as padding): every pair of the same valid group lies in
+    one. The rows stay in the caller's order, which the callers sort by
+    cell."""
+    from .ops import _pad_rows, grouped_block_active   # ops imports this
+    tq, tp = PIPE_TILE
+    live = grouped_block_active(_pad_rows(x_group, tq, -1)[0],
+                                _pad_rows(y_group, tp, -1)[0], tq, tp)
+    return live_tiles_first(live.reshape(-1))
 
 
 def ghost_local_keys(x_gbits, y_group):
@@ -530,17 +588,8 @@ def _ghost_pipe(lib: str, x, y, x_gbits, y_group, eps: float):
     """Check the operands of pipelined ghost kernel ``lib`` (fp32 x and y)
     and launch it once on ``ghost_tile_plan``'s order and live tiles ->
     (cnt, bits) in x's row order."""
-    fn = f"{lib}_cuda"
-    check_operands(fn, ("x", x, torch.float32, 2),
-                   ("y", y, torch.float32, 2),
-                   ("x_gbits", x_gbits, torch.int32, 2),
-                   ("y_group", y_group, torch.int32, 1))
-    (q, d), p = x.shape, y.shape[0]
-    if y.shape[1] != d or x_gbits.shape[0] != q or y_group.shape[0] != p:
-        raise ValueError(f"{fn}: shapes x {tuple(x.shape)}, y "
-                         f"{tuple(y.shape)}, x_gbits "
-                         f"{tuple(x_gbits.shape)}, y_group "
-                         f"{tuple(y_group.shape)}")
+    q, _, p = _check_tile(f"{lib}_cuda", x, y, (("y_group", y_group, "p"),),
+                          torch.float32, x_gbits)
     cnt = torch.zeros(q, dtype=torch.int32, device=x.device)
     bits = torch.zeros((q, -(-p // 32)), dtype=torch.int32, device=x.device)
     if q == 0 or p == 0:

@@ -14,6 +14,12 @@ product, are not carried over: for d <= 512 the two agree up to the order
 of the product's and the norms' sums, and past 512 the partial norms
 round differently too. Either way two evaluations of an element differ by
 at most about 2·(d + 2)·u·(‖x‖² + ‖y‖²), u = 2⁻²⁴.
+
+``l2_chain_d2_cuda`` (``csrc/l2_chain.cu``) is the anchor the tests and
+``chip_smoke.py`` hold the L2 cores to: a plain kernel that computes each
+pair's d² as one fp32 ``fmaf`` chain, the arithmetic that
+``csrc/l2_pipe.cuh`` promises, so every kernel on that core must agree
+with it bit for bit. No engine or public call runs it.
 """
 from __future__ import annotations
 
@@ -49,4 +55,32 @@ def pairwise_sqdist_cuda(x, y) -> torch.Tensor:
     return out
 
 
+def l2_chain_d2_cuda(x, y) -> torch.Tensor:
+    """The plain fp32 chain kernel, a test and smoke anchor (no engine or
+    public API calls it): x (q, d), y (p, d) contiguous fp32 on one CUDA
+    device -> (q, p) fp32 d², unclamped: each row norm one ``fmaf(v, v,
+    .)`` chain and each product one ``fmaf`` chain over k = 0 .. d - 1
+    ascending from 0, d² = (‖x‖² + ‖y‖²) − 2x·y (``l2tile::d2``). The
+    kernels on ``csrc/l2_pipe.cuh`` compute the same d² bit for bit."""
+    check_operands("l2_chain_d2_cuda", ("x", x, torch.float32, 2),
+                   ("y", y, torch.float32, 2))
+    (q, d), p = x.shape, y.shape[0]
+    if y.shape[1] != d:
+        raise ValueError(f"l2_chain_d2_cuda: shapes x {tuple(x.shape)}, "
+                         f"y {tuple(y.shape)}")
+    out = torch.empty((q, p), dtype=torch.float32, device=x.device)
+    if q == 0 or p == 0:
+        return out
+    launch = _build.entry("l2_chain")
+    xn, yn = row_norm_scratch(q, p, x.device)
+    with torch.cuda.device(x.device):
+        code = launch(x.data_ptr(), y.data_ptr(), out.data_ptr(),
+                      xn.data_ptr(), yn.data_ptr(), q, p, d,
+                      torch.cuda.current_stream().cuda_stream)
+    _build.check("l2_chain", code)
+    l2_chain_d2_cuda.launches += 1
+    return out
+
+
 pairwise_sqdist_cuda.launches = 0
+l2_chain_d2_cuda.launches = 0

@@ -35,7 +35,8 @@ from repro_torch.kernels import ref as tref
 from repro_torch.kernels import tree_frontier as ttf
 from repro_torch.kernels.eps_count import eps_count_cuda, eps_count_plain
 from repro_torch.kernels.pairwise_hamming import pairwise_hamming_cuda
-from repro_torch.kernels.pairwise_l2 import pairwise_sqdist_cuda
+from repro_torch.kernels.pairwise_l2 import (l2_chain_d2_cuda,
+                                             pairwise_sqdist_cuda)
 from repro_torch.nng import build_nng
 
 SENTINEL = 2**31 - 1
@@ -453,8 +454,11 @@ def grouped_case(metric, q, p, d, seed, pattern="random"):
     ``pattern``: "random" groups in [-1, 6) (-1 is padding); "sorted"
     groups in [0, 50), ascending, with trailing padding rows, as the
     engine's cell-sorted buffers; "disjoint" x groups in [0, 4) and y
-    groups in [10, 14), so no pair may hit. The first 4 x ids equal the
-    first 4 y ids (the self-pair exclusion must fire). Points as
+    groups in [10, 14), so no pair may hit; "one" group 0 on x rows
+    [0, 40) and y rows [0, 200) and padding elsewhere, so one 64 x 256
+    tile is live; "none" every x row padding; "single" every row of both
+    sides in group 0. The first 4 x ids equal the first 4 y ids (the
+    self-pair exclusion must fire). Points as
     and eps as ``tile_case``, but on a small float tile eps higher in the
     distance distribution (only one pair in several shares a group)."""
     x, y, _, eps = tile_case(metric, q, p, d, seed)
@@ -469,6 +473,13 @@ def grouped_case(metric, q, p, d, seed, pattern="random"):
         yg = np.sort(rng.integers(0, 50, size=p))
         xg[q - q // 15:] = -1
         yg[p - p // 17:] = -1
+    elif pattern == "one":
+        xg, yg = np.full(q, -1), np.full(p, -1)
+        xg[:40], yg[:200] = 0, 0
+    elif pattern == "none":
+        xg, yg = np.full(q, -1), rng.integers(0, 6, size=p)
+    elif pattern == "single":
+        xg, yg = np.zeros(q, np.int32), np.zeros(p, np.int32)
     else:
         xg = rng.integers(0, 4, size=q)
         yg = rng.integers(10, 14, size=p)
@@ -483,30 +494,60 @@ GROUPED_KERNELS = {"euclidean": tnt.nng_tile_grouped_cuda,
                    "manhattan": tnt.nng_tile_grouped_l1_cuda}
 
 
+def on_card(t, dev, shift=None):
+    """A CPU tensor's copy on the card, contiguous: at an aligned base
+    (``shift`` None), in rows 1.. of a (rows + 1, d) matrix ("row": not
+    16-byte aligned unless d % 4 == 0) or one element past the base
+    ("elem"): both take the L2 pipelined kernels' 4-byte copies."""
+    if shift is None:
+        return t.to(dev)
+    r, d = t.shape
+    if shift == "row":
+        out = torch.empty((r + 1, d), dtype=t.dtype, device=dev)[1:]
+    else:
+        out = torch.empty(r * d + 1, dtype=t.dtype, device=dev)[1:].view(r, d)
+    assert out.is_contiguous() and out.data_ptr() % 16
+    return out.copy_(t)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("metric", ["euclidean", "hamming", "manhattan"])
-@pytest.mark.parametrize("q,p,d,pattern", [
-    (37, 64, 3, "random"), (1000, 777, 25, "random"),
-    (512, 1024, 128, "random"), (600, 1200, 9, "sorted"),
-    (300, 515, 40, "disjoint")])
+@pytest.mark.parametrize("q,p,d,pattern,shift", [
+    (37, 64, 3, "random", None), (1000, 777, 25, "random", None),
+    (512, 1024, 128, "random", None), (600, 1200, 9, "sorted", None),
+    (300, 515, 40, "disjoint", None), (300, 600, 16, "one", None),
+    (300, 600, 16, "none", None), (2100, 4100, 3, "single", None),
+    (600, 1200, 17, "sorted", "row"), (512, 1024, 128, "random", "elem")])
 def test_grouped_tile_cuda_matches_plain(cuda_device, metric, q, p, d,
-                                         pattern):
+                                         pattern, shift):
     """Hamming bit for bit; L2 and L1 off the knife (gap-safe eps). The
-    all-disjoint pattern stores zero words everywhere."""
+    all-disjoint and all-padding patterns store zero words everywhere. The
+    L2 kernel's live-tile list (``grouped_tile_plan``) holds one tile for
+    "one", none for "disjoint" and "none", and more than the resident
+    blocks for "single"; "row" and "elem" operands take its 4-byte copies,
+    aligned ones at d % 4 == 0 its TMA copies."""
     case = grouped_case(metric, q, p, d, q + d, pattern)
     args = [as_words(a) for a in case[:6]]
     eps = case[6]
     kern = GROUPED_KERNELS[metric]
     before = kern.launches
-    cnt, bits = kern(*(t.to(cuda_device) for t in args), eps)
+    cnt, bits = kern(on_card(args[0], cuda_device, shift),
+                     on_card(args[1], cuda_device, shift),
+                     *(t.to(cuda_device) for t in args[2:]), eps)
     assert kern.launches == before + 1
     rc, rb, _, _ = tops.nng_tile_bits_grouped(*args, eps, metric=metric)
     assert torch.equal(cnt.cpu(), rc)
     assert torch.equal(bits.cpu(), rb)
-    if pattern == "disjoint":
+    if pattern in ("disjoint", "none"):
         assert not bits.any() and not cnt.any()
     else:
         assert int(rc.sum()) > 0
+    if metric == "euclidean":
+        live = int(tnt.grouped_tile_plan(args[2].to(cuda_device),
+                                         args[3].to(cuda_device))[1][0])
+        resident = 2 * tnt.sm_count(cuda_device.index or 0)
+        assert {"one": live == 1, "disjoint": live == 0, "none": live == 0,
+                "single": live > resident}.get(pattern, live > 0)
 
 
 # ---------------------------------------------------------------------------
@@ -812,12 +853,14 @@ L2_PIPE_CASES = ([(q, p, d, None) for q, p in RAGGED_QP for d in (1, 17, 700)]
 @pytest.mark.gpu
 @pytest.mark.parametrize("q,p,d,shift", L2_PIPE_CASES)
 def test_l2_pipe_kernels_equal_old_core(cuda_device, q, p, d, shift):
-    """nng_tile, eps_count and ``pairwise_sqdist_cuda(x, y) <=
-    eps2_f32(eps)`` (``csrc/l2_pipe.cuh``) equal, bit for bit, the hits of
-    ``nng_tile_grouped_cuda`` with every row in group 0 and disjoint ids
-    (still on ``csrc/l2_tile.cuh``) at an eps exactly on one pair's fp32
-    d², nng_tile's with y_valid applied (rows with y_valid 0 in group
-    -1): the two cores' per-pair arithmetic is the same."""
+    """The kernels on ``csrc/l2_pipe.cuh`` equal, bit for bit, the plain
+    fp32 chain kernel that anchors them (``l2_chain_d2_cuda``, in the
+    place of the old core they replaced) at an eps exactly on one pair's
+    fp32 d²: nng_tile's cnt and words its hits with y_valid applied;
+    nng_tile_grouped's its hits under the group and id test (random
+    groups with padding, shared ids; and one group with disjoint ids);
+    eps_count its row sums; ``pairwise_sqdist_cuda(x, y)`` its d² after
+    the clamp at 0, and so its hits."""
     g = torch.Generator(device=cuda_device).manual_seed(7 * q + p + d)
 
     def operand(rows):
@@ -832,7 +875,9 @@ def test_l2_pipe_kernels_equal_old_core(cuda_device, q, p, d, shift):
     eps = None
     while eps is None:          # a tiny draw may hold no such pair
         x, y = operand(q), operand(p)
-        d2 = pairwise_sqdist_cuda(x, y)
+        before = l2_chain_d2_cuda.launches
+        d2 = l2_chain_d2_cuda(x, y)
+        assert l2_chain_d2_cuda.launches == before + 1
         eps = eps_on_pair(d2, 0.02)
     assert x.is_contiguous() and y.is_contiguous()
     if shift is not None:
@@ -840,23 +885,62 @@ def test_l2_pipe_kernels_equal_old_core(cuda_device, q, p, d, shift):
     yv = (torch.rand(p, generator=g, device=cuda_device) > 0.2).to(
         torch.int32)
     e2 = tnt.eps2_f32(eps)
+    hit = d2 <= e2
     assert bool((d2 == e2).any())
     i32 = dict(dtype=torch.int32, device=cuda_device)
-    xg, xid = torch.zeros(q, **i32), torch.arange(q, **i32)
-    yid = torch.arange(q, q + p, **i32)
-    cnt_a, bits_a = tnt.nng_tile_grouped_cuda(
-        x, y, xg, torch.zeros(p, **i32), xid, yid, eps)
-    cnt_v, bits_v = tnt.nng_tile_grouped_cuda(
-        x, y, xg, torch.where(yv != 0, 0, -1).to(torch.int32), xid, yid, eps)
-    before = (tnt.nng_tile_cuda.launches, eps_count_cuda.launches)
+    xg = torch.randint(-1, 3, (q,), generator=g, device=cuda_device).to(
+        torch.int32)
+    yg = torch.randint(-1, 3, (p,), generator=g, device=cuda_device).to(
+        torch.int32)
+    xid, yid = torch.arange(q, **i32), torch.arange(p, **i32)
+
+    def words(h):
+        return tnt.pack_words(torch.nn.functional.pad(h, (0, -p % 32)))
+
+    before = (tnt.nng_tile_cuda.launches, eps_count_cuda.launches,
+              tnt.nng_tile_grouped_cuda.launches)
     cnt, bits = tnt.nng_tile_cuda(x, y, yv, eps)
     got = eps_count_cuda(x, y, eps)
-    assert (tnt.nng_tile_cuda.launches, eps_count_cuda.launches) == tuple(
-        c + 1 for c in before)
-    assert torch.equal(cnt, cnt_v) and torch.equal(bits, bits_v)
-    assert not tnt.unpack_words(bits)[:, p:].any()
-    assert torch.equal(got, cnt_a)
-    assert torch.equal(d2 <= e2, tnt.unpack_words(bits_a)[:, :p])
+    gcnt, gbits = tnt.nng_tile_grouped_cuda(x, y, xg, yg, xid, yid, eps)
+    ocnt, obits = tnt.nng_tile_grouped_cuda(
+        x, y, torch.zeros(q, **i32), torch.zeros(p, **i32), xid, yid + q,
+        eps)
+    assert (tnt.nng_tile_cuda.launches, eps_count_cuda.launches,
+            tnt.nng_tile_grouped_cuda.launches) == (
+                before[0] + 1, before[1] + 1, before[2] + 2)
+    valid = hit & (yv != 0)[None, :]
+    assert torch.equal(cnt, valid.sum(1, dtype=torch.int32))
+    assert torch.equal(bits, words(valid))
+    assert torch.equal(got, hit.sum(1, dtype=torch.int32))
+    ghit = tnt.grouped_hit(hit, xg, yg, xid, yid)
+    assert torch.equal(gcnt, ghit.sum(1, dtype=torch.int32))
+    assert torch.equal(gbits, words(ghit))
+    assert torch.equal(ocnt, got) and torch.equal(obits, words(hit))
+    sq = pairwise_sqdist_cuda(x, y)
+    assert torch.equal(sq, d2.clamp_min(0))
+    assert torch.equal(sq <= e2, hit)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [1, 17, 700])
+@pytest.mark.parametrize("q,p", RAGGED_QP)
+def test_l2_chain_cuda_within_fp32_bound(cuda_device, q, p, d):
+    """The chain anchor's d² lies within the expansion bound
+    2·(d + 2)·u·(‖x‖² + ‖y‖²) of float64 (unclamped: it may dip below 0
+    by no more than that), and its norms are the fp32 chains: a pair of
+    equal rows has d² exactly 0."""
+    rng = np.random.default_rng(q + p + d + 1)
+    x = rng.normal(size=(q, d)).astype(np.float32)
+    y = (rng.normal(size=(p, d)) + 0.5).astype(np.float32)
+    y[0] = x[0]
+    got = l2_chain_d2_cuda(torch.from_numpy(x).to(cuda_device),
+                           torch.from_numpy(y).to(cuda_device))
+    assert got.shape == (q, p) and got.dtype == torch.float32
+    got64 = got.cpu().double().numpy()
+    x64, y64 = x.astype(np.float64), y.astype(np.float64)
+    exact = ((x64[:, None, :] - y64[None, :, :]) ** 2).sum(-1)
+    assert (np.abs(got64 - exact) <= sqdist_bound(x, y)).all()
+    assert got64[0, 0] == 0.0
 
 
 @pytest.mark.gpu

@@ -147,10 +147,11 @@ WRAPPERS = {
     "pairwise_hamming": lambda: tph.pairwise_hamming_cuda(_i32(Q, W),
                                                           _i32(P, W)),
     "eps_count": lambda: tec.eps_count_cuda(_f32(Q, D), _f32(P, D), 1.5),
+    "l2_chain": lambda: tpl.l2_chain_d2_cuda(_f32(Q, D), _f32(P, D)),
 }
 PERSISTENT = {"nng_tile", "eps_count", "pairwise_sqdist", "nng_tile_ghost",
-              "nng_tile_ghost_l1", "tree_frontier", "tree_frontier_hamming",
-              "tree_frontier_l1"}
+              "nng_tile_ghost_l1", "nng_tile_grouped", "tree_frontier",
+              "tree_frontier_hamming", "tree_frontier_l1"}
 
 
 def test_every_entry_has_a_wrapper_case():
@@ -171,12 +172,14 @@ def test_wrapper_passes_its_entry_argtypes(fake_card, lib):
 
 @pytest.mark.parametrize("q,d", [(1, 17), (300, 17), (129, 128)])
 def test_persistent_wrappers_launch_once_for_any_rows(fake_card, q, d):
-    """nng_tile, eps_count and pairwise_sqdist launch one persistent grid
-    for the whole of x (no row chunks) with x's own pointer, rows, width
-    and the threshold eps2_f32(eps); the L2 and L1 ghost kernels one grid
-    over x gathered in its row order, with the order, the keys and the
-    live-tile list of ``ghost_tile_plan`` (L2: norm scratch and eps2_f32;
-    L1: no norm scratch and eps in fp32)."""
+    """nng_tile, eps_count, pairwise_sqdist and nng_tile_grouped launch one
+    persistent grid for the whole of x (no row chunks) with x's own
+    pointer, rows, width and the threshold eps2_f32(eps) (the grouped one
+    with its groups' and ids' own pointers and ``grouped_tile_plan``'s
+    live-tile list); the L2 and L1 ghost kernels one grid over x gathered
+    in its row order, with the order, the keys and the live-tile list of
+    ``ghost_tile_plan`` (L2: norm scratch and eps2_f32; L1: no norm
+    scratch and eps in fp32)."""
     x, y = _f32(q + 1, d)[1:], _f32(P, d)
     tec.eps_count_cuda(x, y, 2.5)
     tnt.nng_tile_cuda(x, y, _i32(P), 2.5)
@@ -186,10 +189,14 @@ def test_persistent_wrappers_launch_once_for_any_rows(fake_card, q, d):
     yg = torch.arange(P, dtype=torch.int32) % 40 - 1
     tnt.nng_tile_ghost_cuda(x, y, gb, yg, 2.5)
     tnt.nng_tile_ghost_l1_cuda(x, y, gb, yg, 2.5)
+    xg, xid = torch.arange(q, dtype=torch.int32) // 50, _i32(q)
+    yid = torch.arange(P, dtype=torch.int32)
+    tnt.nng_tile_grouped_cuda(x, y, xg, yg, xid, yid, 2.5)
     assert [c[0] for c in fake_card] == ["eps_count", "nng_tile",
                                          "pairwise_sqdist", "nng_tile_ghost",
-                                         "nng_tile_ghost_l1"]
-    (_, ea), (_, ta), (_, pa), (_, ga), (_, la) = fake_card
+                                         "nng_tile_ghost_l1",
+                                         "nng_tile_grouped"]
+    (_, ea), (_, ta), (_, pa), (_, ga), (_, la), (_, gra) = fake_card
     assert ea[:2] == (x.data_ptr(), y.data_ptr())
     assert ea[5:10] == (q, P, d, tnt.eps2_f32(2.5), SMS)
     assert ta[:2] == (x.data_ptr(), y.data_ptr())
@@ -202,6 +209,11 @@ def test_persistent_wrappers_launch_once_for_any_rows(fake_card, q, d):
     assert la[9:15] == (q, P, d, 2, float(np.float32(2.5)), SMS)
     # x gathered in the plan's order: a copy, not x itself
     assert ga[0] != x.data_ptr() and la[0] != x.data_ptr()
+    # the grouped kernel: its operands' own pointers, the plan's list and
+    # count, the outputs and the norm scratch, all distinct
+    assert gra[:6] == tuple(t.data_ptr() for t in (x, y, xg, yg, xid, yid))
+    assert len(set(gra[6:12])) == 6
+    assert gra[12:18] == (q, P, d, tnt.eps2_f32(2.5), SMS, 12345)
 
 
 def test_frontier_wrappers_launch_once_with_plan_scratch(fake_card):
