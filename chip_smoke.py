@@ -145,7 +145,24 @@ each printed as it runs; any failed check raises and exits non-zero:
      bit), and [5]'s 131072² block counted (equal to ``nng_tile``'s cnt
      and to the row sums of the chain anchor's hits bit for bit, to
      the plain version off the knife) [11c]; their times beside their bounds,
-     plain versions and library yardsticks [11d].
+     plain versions and library yardsticks [11d];
+ 12. the front end and online maintenance: the ``nng_run`` CLI in process
+     at 16384 x 128 on 8 logical ranks, systolic, landmark and a systolic
+     ``--updates`` replay, each reporting an exact graph [12a];
+     ``OnlineNNG`` on the first 2^17 points of [3] (a printed depth cut:
+     its forests are built on the host in float64), 12 operations of 1024
+     points (every third a delete) with ``insert_backend="device"`` and
+     then on a copy of the same initial state with ``"host"``: each
+     operation's update_s, the delta traversal's elapsed_s and counters,
+     the kernels' launches and the merged view's time, inserts per second,
+     ``_restack``'s time, and the first insert's dists_evaluated at least
+     10x below a full rebuild's [12b]; each backend's merged view against
+     ``build_nng`` on the live points off the knife, 64 sampled rows
+     against float64 inside ``HostEuclidean.band_slack``, and an explicit
+     ``compact()`` leaving the edge keys unchanged [12c];
+     ``tree_frontier`` (off the knife), ``leaf_range_pack`` and
+     ``bits_to_cols`` (bit for bit) against their plain versions at every
+     launch of the last device-backend insert [12d].
 
 Hamming distances are exact integers: no knife. Two fp32 L1 sums in
 different orders are each within d·u·D of the float64 sum D (u = 2^-24),
@@ -164,6 +181,8 @@ The last lines are the kernels' JSON record, the nvidia-smi line, and
 from __future__ import annotations
 
 import contextlib
+import copy
+import io
 import json
 import os
 import statistics
@@ -197,6 +216,13 @@ SP_CENTERS = 32        # [9]: the engine's default m for 8 ranks
 SP_K_CAP = 1024        # [9]: above [3]'s max degree 966, so no grow (a
                        # grow doubles every capacity of the plan too)
 HAM_SP_N = 131072      # [9e]: the Hamming depth cut (first rows of [7])
+CLI_N = 16384          # [12a]: nng_run's points (synthetic, d = 128)
+CLI_UPDATES = 6        # [12a]: the --updates replay's operations
+CLI_BATCH = 256        # [12a]: and their batch
+ON_N = 1 << 17         # [12b]: OnlineNNG's corpus (first rows of [3]), a cut
+ON_B = 1024            # [12b]: points an insert or delete
+ON_OPS = 12            # [12b]: operations (every third a delete)
+PHASE12_S = 90         # [12]'s time budget on an H100
 TABLE_BUDGET = 32 << 30  # [9e], [10c]: all ranks' id tables on the card
 # [10b]: tiles_scheduled, tiles_skipped, dists_evaluated of the ring call as
 # the tree before the ghost kernel's row order (commit 5e86e38) printed
@@ -422,18 +448,24 @@ def main() -> int:
         m, bit = unpack_words(dw[r, w][:, None]).nonzero(as_tuple=True)
         return r[m], w[m] * 32 + bit
 
-    def knife_check(label, xa, yb, i, j, thr):
-        """Fail unless every pair (xa[i], yb[j]) lies on the knife edge of
-        ``thr``, measured in float64; print how far the farthest lies."""
+    def knife_far(xa, yb, i, j, thr):
+        """The pairs (xa[i], yb[j]) against the knife edge of ``thr`` in
+        float64: (pairs, outside the knife, beyond 1e-4·thr, the farthest
+        |d²-thr| in units of thr and in fp32 units of ‖x‖²+‖y‖²)."""
         a, b = xa[i].double(), yb[j].double()
         dev_ = (((a - b) ** 2).sum(1) - thr).abs()
         scale = (a * a).sum(1) + (b * b).sum(1)
         knife = (KNIFE_ULPS * U32 * scale).clamp_min(KNIFE_REL * thr)
-        outside = int((dev_ > knife).sum())
-        past_rel = int((dev_ > KNIFE_REL * thr).sum())
-        far_rel = float((dev_ / thr).max()) if len(dev_) else 0.0
-        far_u = float((dev_ / (U32 * scale)).max()) if len(dev_) else 0.0
-        print(f"    {label}: {len(dev_)} pairs differ, {past_rel} of them "
+        return (len(dev_), int((dev_ > knife).sum()),
+                int((dev_ > KNIFE_REL * thr).sum()),
+                float((dev_ / thr).max()) if len(dev_) else 0.0,
+                float((dev_ / (U32 * scale)).max()) if len(dev_) else 0.0)
+
+    def knife_check(label, xa, yb, i, j, thr):
+        """Fail unless every pair (xa[i], yb[j]) lies on the knife edge of
+        ``thr``, measured in float64; print how far the farthest lies."""
+        n_, outside, past_rel, far_rel, far_u = knife_far(xa, yb, i, j, thr)
+        print(f"    {label}: {n_} pairs differ, {past_rel} of them "
               f"beyond 1e-4·eps²; the farthest at |d²-eps²| = "
               f"{far_rel:.4g}·eps² = {far_u:.4g} fp32 units of ‖x‖²+‖y‖²")
         check(outside == 0, f"{label}: {outside} pairs differ off the knife "
@@ -1169,10 +1201,11 @@ def main() -> int:
           "planned under")
     del ship, dense
 
-    def frontier_vs_plain(label, q, c, rad, leaf, act):
-        """tree_frontier against its plain version: emit and expand equal
-        off the knife edge of the decision each differing pair flips.
-        Returns the largest per-row difference in emitted nodes."""
+    def frontier_diff(q, c, rad, leaf, act):
+        """tree_frontier against its plain version: (the largest per-row
+        difference in emitted nodes, the (row, node) pairs whose emit or
+        expand bit differs, and the threshold in d² units of the decision
+        each flips)."""
         e1, x1 = tree_frontier_cuda(q, c, rad, leaf, act, EPS)
         # the plain version takes whole words of nodes: pad nodes inactive
         cp, radp, leafp = (_pad_rows(t, 32)[0] for t in (c, rad, leaf))
@@ -1199,6 +1232,13 @@ def main() -> int:
         near = torch.where((d * d - t_in).abs() <= (d * d - t_ex).abs(),
                            t_in, t_ex)
         thr = torch.where(leaf[j] != 0, torch.full_like(near, eps2), near)
+        return err, i, j, thr
+
+    def frontier_vs_plain(label, q, c, rad, leaf, act):
+        """tree_frontier against its plain version: emit and expand equal
+        off the knife edge of the decision each differing pair flips.
+        Returns the largest per-row difference in emitted nodes."""
+        err, i, j, thr = frontier_diff(q, c, rad, leaf, act)
         knife_check(label, q, c, i, j, thr)
         return err
 
@@ -3394,6 +3434,285 @@ def main() -> int:
     del sx, ex, ey, HX, hx8, ones11
     torch.cuda.empty_cache()
     print(f"[11d] script wall {time.perf_counter() - t_start:.1f} s")
+
+    # -- 12. the front end and online maintenance ----------------------------
+    t12 = time.perf_counter()
+    from repro_torch.core.graph import _sorted_unique
+    from repro_torch.core.metrics_host import HostEuclidean
+    from repro_torch.launch import nng_run
+    from repro_torch.stream import OnlineNNG
+    print(f"[12] the front end (nng_run) and online maintenance (OnlineNNG); "
+          f"script wall {t12 - t_start:.1f} s")
+
+    # -- 12a. the CLI on the card, in process ---------------------------------
+    for extra in (["--algo", "systolic"], ["--algo", "landmark"],
+                  ["--algo", "systolic", "--updates", str(CLI_UPDATES),
+                   "--update-batch", str(CLI_BATCH)]):
+        argv = ["--n", str(CLI_N), "--dim", str(DIM), "--eps", repr(EPS),
+                "--ranks", str(NRANKS), "--verify", *extra]
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                nng_run.main(argv)
+        except SystemExit as e:
+            raise SmokeFailure(f"[12a] nng_run {' '.join(argv)} exited "
+                               f"{e.code}:\n{buf.getvalue()}") from None
+        out = buf.getvalue()
+        for line in out.splitlines():
+            print(f"[12a]   {line}")
+        print(f"[12a] python -m repro_torch.launch.nng_run {' '.join(argv)}: "
+              f"{time.perf_counter() - t0:.3f} s")
+        check("EXACT MATCH" in out or "EXACT up to fp32 boundary" in out,
+              f"[12a] nng_run {' '.join(extra)} did not report an exact graph")
+
+    # -- 12b. OnlineNNG at full width -----------------------------------------
+    @contextlib.contextmanager
+    def delta_spies(on):
+        """While the body runs (and ``on``), keep the inputs of every
+        tree_frontier, leaf_range_pack and bits_to_cols launch of the
+        traversal glue: {"frontier": [(q, c, rad, leaf, act)], "pack":
+        [(delta, leaf_ids, qids)], "cols": [(bits, ids_row, k)]}."""
+        kept = {"frontier": [], "pack": [], "cols": []}
+        if not on:
+            yield kept
+            return
+        orig = (tdev.tree_frontier_step, tdev._leaf_range_pack,
+                tdev._bits_to_gathered_ids)
+
+        def step(*a, **kw):
+            kept["frontier"].append(a[:5])
+            return orig[0](*a, **kw)
+
+        def pack(*a):
+            kept["pack"].append(a)
+            return orig[1](*a)
+
+        def cols(*a):
+            kept["cols"].append(a)
+            return orig[2](*a)
+
+        (tdev.tree_frontier_step, tdev._leaf_range_pack,
+         tdev._bits_to_gathered_ids) = step, pack, cols
+        try:
+            yield kept
+        finally:
+            (tdev.tree_frontier_step, tdev._leaf_range_pack,
+             tdev._bits_to_gathered_ids) = orig
+
+    print(f"[12b] depth cut: OnlineNNG on the first {ON_N} rows of [3]'s "
+          f"points, not {N}: it builds its per-rank forests on the host in "
+          f"float64 (build_covertree), as the reference does, seconds per "
+          f"{ON_N // NRANKS}-point block at d = {DIM} (timed below), so the "
+          f"full set would take minutes; then {ON_OPS} operations of "
+          f"{ON_B} points, every third deleting {ON_B} random live ids")
+    delta_kernels = (tree_frontier_cuda, leaf_range_pack_cuda,
+                     bits_to_cols_cuda)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    o_dev = OnlineNNG(pts[:ON_N], EPS, mesh=mesh, k_cap=K_CAP,
+                      insert_backend="device", seed=SEED)
+    torch.cuda.synchronize()
+    L_, W_ = (int(v) for v in o_dev._stacked["cell"].shape[1:])
+    print(f"[12b] OnlineNNG(n={ON_N}, eps={EPS}, nranks={NRANKS}, "
+          f"insert_backend='device') {time.perf_counter() - t0:.3f} s "
+          f"(build_nng elapsed_s {o_dev.stats.elapsed_s:.3f}, the rest the "
+          f"host forests): {o_dev.graph.num_edges} edges; forests {L_} "
+          f"levels x {W_} slots a rank")
+    t0 = time.perf_counter()
+    o_host = copy.deepcopy(o_dev, {id(o_dev.metric): o_dev.metric,
+                                   id(mesh): mesh})
+    o_host.insert_backend = "host"
+    o_host.graph.meta["online"]["insert_backend"] = "host"
+    print(f"[12b] insert_backend='host': a deep copy of that initial state "
+          f"({time.perf_counter() - t0:.3f} s; one forest build serves both)")
+
+    def online_run(backend, o):
+        """The schedule on one insert backend -> (the first insert's
+        dists_evaluated, the kernel inputs of the last insert)."""
+        restack, merged = [], []
+        if backend == "host":
+            orig = o._restack
+
+            def timed_restack():
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                orig()
+                torch.cuda.synchronize()
+                restack.append(time.perf_counter() - t)
+            o._restack = timed_restack
+        orig_m = o.graph._merged
+
+        def timed_merged():
+            t = time.perf_counter()
+            out_ = orig_m()
+            merged.append(time.perf_counter() - t)
+            return out_
+        o.graph._merged = timed_merged
+        rng12 = np.random.default_rng(SEED + 12)
+        cursor, first, kept = ON_N, None, None
+        ins_s = ins_n = 0
+        last_insert = max(s_ for s_ in range(ON_OPS) if s_ % 3 != 2)
+        for step in range(ON_OPS):
+            for fn in delta_kernels:
+                fn.launches = 0
+            u0, m0, r0 = o.stats.update_s, len(merged), len(restack)
+            if step % 3 == 2:
+                o.delete(rng12.choice(np.flatnonzero(o.live), ON_B,
+                                      replace=False))
+                kind, st = "delete", None
+            else:
+                with delta_spies(backend == "device"
+                                 and step == last_insert) as k_:
+                    o.insert(pts[cursor:cursor + ON_B])
+                cursor += ON_B
+                kind, st = "insert", o.last_update_stats
+                if step == last_insert:
+                    kept = k_
+            torch.cuda.synchronize()
+            lc = [fn.launches for fn in delta_kernels]
+            upd = o.stats.update_s - u0
+            line = (f"[12b] {backend} [{step}] {kind}: update_s {upd:.4f}, "
+                    f"live {o.num_live}, delta_edges {o.graph.delta_edges}, "
+                    f"compactions {o.graph.meta.get('compactions', 0)}, "
+                    f"_merged {sum(merged[m0:]):.4f} s "
+                    f"({len(merged) - m0} calls)")
+            if st is not None:
+                ins_s += upd
+                ins_n += ON_B
+                first = st.dists_evaluated if first is None else first
+                line += (f"; delta elapsed_s {st.elapsed_s:.4f}, "
+                         f"dists_evaluated {st.dists_evaluated:.0f}, "
+                         f"nodes_pruned {st.nodes_pruned:.0f}, replans "
+                         f"{st.replans}; launches tree_frontier {lc[0]}, "
+                         f"leaf_range_pack {lc[1]}, bits_to_cols {lc[2]}")
+                check(min(lc) > 0, f"[12b] {backend} insert {step}: a "
+                                   f"kernel of the delta path did not run")
+            if len(restack) > r0:
+                line += f"; _restack {sum(restack[r0:]):.4f} s"
+            print(line)
+        del o.graph._merged
+        print(f"[12b] {backend}: {ins_n / ins_s:.1f} inserts/s ({ins_n} "
+              f"points in {ins_s:.3f} s of update_s); update_s total "
+              f"{o.stats.update_s:.3f}, edges_added "
+              f"{o.stats.edges_added:.0f}, edges_removed "
+              f"{o.stats.edges_removed:.0f}; _merged {np.mean(merged):.4f} s "
+              f"a call" + (f"; _restack {np.mean(restack):.4f} s a call"
+                           if restack else ""))
+        return first, kept
+
+    online = {"device": o_dev, "host": o_host}
+    del o_dev, o_host
+    first_dev, kept12 = online_run("device", online["device"])
+    first_host, _ = online_run("host", online["host"])
+    # the merged view's dedup: numpy's hashing unique against one sort
+    g12 = online["device"].graph
+    rp12, col12 = g12._merged()
+    keys12 = np.random.default_rng(SEED).permutation(
+        np.repeat(np.arange(g12.n, dtype=np.int64), np.diff(rp12)) * g12.n
+        + col12)
+    t0 = time.perf_counter()
+    u_np = np.unique(keys12)
+    np_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    u_sort = _sorted_unique(keys12)
+    sort_s = time.perf_counter() - t0
+    check(np.array_equal(u_np, u_sort), "[12b] _sorted_unique != np.unique")
+    print(f"[12b] the merged view's {len(keys12)} directed keys, shuffled: "
+          f"np.unique {np_s:.4f} s, _sorted_unique (one sort) {sort_s:.4f} s "
+          f"(numpy {np.__version__})")
+    del keys12, u_np, u_sort
+    g_full = build_nng(pts[:ON_N + ON_B], EPS, mesh=mesh, k_cap=K_CAP)
+    full_d = g_full.stats.dists_evaluated
+    print(f"[12b] a full build_nng rebuild on the first insert's corpus "
+          f"({ON_N + ON_B} points): dists_evaluated {full_d:.6g}; the first "
+          f"insert's {first_dev:.6g} (device), {first_host:.6g} (host): "
+          f"{full_d / first_dev:.1f}x, {full_d / first_host:.1f}x fewer")
+    check(10 * max(first_dev, first_host) <= full_d,
+          "[12b] the first insert's delta traversal evaluated more than a "
+          "tenth of a rebuild's distances")
+    del g_full
+
+    # -- 12c. exactness on the card ------------------------------------------
+    rng12 = np.random.default_rng(SEED + 13)
+    for backend, o in online.items():
+        live = np.flatnonzero(o.live)
+        gl = build_nng(o.points[live], EPS, mesh=mesh, k_cap=K_CAP)
+        s_, d_ = np.divmod(gl.edge_key(), len(live))
+        bkey = np.sort(live[s_] * o.graph.n + live[d_])
+        key = o.graph.edge_key()
+        i, j = np.divmod(np.setxor1d(key, bkey), o.graph.n)
+        X = torch.from_numpy(o.points).to(dev)
+        knife_check(f"[12c] {backend} merged view ({len(key)} edges) vs "
+                    f"build_nng tiles on the {len(live)} live points "
+                    f"({len(bkey)} edges)", X, X, torch.from_numpy(i).to(dev),
+                    torch.from_numpy(j).to(dev), eps2)
+        rows = np.sort(rng12.choice(live, 64, replace=False))
+        XL = X[torch.from_numpy(live).to(dev)].double()
+        d2 = torch.cdist(X[torch.from_numpy(rows).to(dev)].double(),
+                         XL) ** 2
+        slack = HostEuclidean().band_slack(o.points[rows], o.points[live],
+                                           EPS ** 2)
+        truth = (d2 <= EPS ** 2).cpu().numpy()
+        differ = band = 0
+        for r, row in enumerate(rows):
+            t_ = set(live[truth[r]].tolist()) - {int(row)}
+            g_ = set(o.graph.neighbors(int(row)).tolist())
+            off = np.searchsorted(live, np.array(sorted(t_ ^ g_), np.int64))
+            differ += len(off)
+            band += int(((d2[r, torch.from_numpy(off).to(dev)] - EPS ** 2)
+                         .abs() <= slack).sum()) if len(off) else 0
+        print(f"[12c] {backend}: 64 sampled live rows vs float64 over the "
+              f"{len(live)} live points: {differ} pairs differ, {band} of "
+              f"them inside HostEuclidean.band_slack ({slack:.4g})")
+        check(differ == band, f"[12c] {backend}: a sampled pair differs "
+                              "from float64 outside the fp32 band")
+        o.compact()
+        check(np.array_equal(o.graph.edge_key(), key) and
+              not o.graph.has_delta,
+              f"[12c] {backend}: compact() moved the merged view")
+        print(f"[12c] {backend}: compact() leaves edge_key() unchanged "
+              f"({o.graph.meta['compactions']} compactions)")
+    del online, X, XL, d2
+
+    # -- 12d. the delta path's kernels against their plain versions ----------
+    fr_n = fr_diff = fr_out = 0
+    act_pairs = 0
+    for q, c, rad, leaf, act in kept12["frontier"]:
+        _, i, j, thr = frontier_diff(q, c, rad, leaf, act)
+        n_, outside, _, _, _ = knife_far(q, c, i, j, thr)
+        fr_n += 1
+        fr_diff += n_
+        fr_out += outside
+        act_pairs += int(tdev._popcount(act))
+    print(f"[12d] tree_frontier at the last device insert's {fr_n} launches "
+          f"({kept12['frontier'][0][0].shape[0]} query rows, "
+          f"{act_pairs} active pairs, all-ones cell words): {fr_diff} "
+          f"(row, node) pairs differ from the plain version, {fr_out} off "
+          f"the knife")
+    check(fr_n > 0 and fr_out == 0, "[12d] tree_frontier differs from its "
+                                    "plain version off the knife")
+    holes = 0
+    for delta, lid, qids in kept12["pack"]:
+        nl = lid.shape[0]
+        holes += int((lid == SENTINEL).sum())
+        c1, b1 = leaf_range_pack_cuda(delta, lid, qids)
+        c0, b0 = leaf_range_pack_ref(delta[:, :nl], lid, qids)
+        check(torch.equal(c1, c0) and torch.equal(b1, b0),
+              "[12d] leaf_range_pack differs from its plain version")
+    print(f"[12d] leaf_range_pack at its {len(kept12['pack'])} launches "
+          f"(leaf tables with {holes} SENTINEL slots in all: tombstones "
+          f"and padding): bit-identical")
+    for bits, _, k in kept12["cols"]:
+        check(torch.equal(bits_to_cols_cuda(bits, k), bits_to_cols_ref(bits, k)),
+              "[12d] bits_to_cols differs from its plain version")
+    print(f"[12d] bits_to_cols at its {len(kept12['cols'])} launches: "
+          f"bit-identical")
+    del kept12
+    torch.cuda.empty_cache()
+    print(f"[12] {time.perf_counter() - t12:.1f} s (budget {PHASE12_S} s); "
+          f"script wall {time.perf_counter() - t_start:.1f} s")
 
     record = {"kernels": [
         {"name": "nng_tile", "route": "cuda",

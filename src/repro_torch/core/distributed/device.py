@@ -233,23 +233,29 @@ def _words_from_pairs(rows, cols, keep, m: int, nw: int):
 
 def _child_ranges(cell, parent):
     """Per level l < L - 1 of one rank's (L, N) cell and parent tables, the
-    slot range [lo, hi) of each node's children in level l + 1: the
-    builders emit a level's valid slots as a prefix, in parent order, so a
-    node's children (the valid slots whose parent it is) are contiguous.
-    Raises on a forest laid out otherwise. -> (lo, hi) (L, N) int32."""
+    slot range [lo, hi) of each node's valid children in level l + 1: the
+    builders emit a level's slots in parent order, so a node's valid
+    children (the valid slots whose parent it is) lie in one range. Online
+    deletes may leave invalid slots (cell PAD) inside it, so users of the
+    ranges test validity; a node without valid children gets [0, 0).
+    Raises on a forest whose valid slots are out of parent order.
+    -> (lo, hi) (L, N) int32."""
     L, N = cell.shape
     lo = torch.zeros((L, N), dtype=torch.int32, device=cell.device)
     hi = torch.zeros_like(lo)
     for lvl in range(1, L):
-        v = cell[lvl] >= 0
-        nv = int(v.sum())
-        par = parent[lvl][:nv].long()
-        if not bool(v[:nv].all()) or bool((par[1:] < par[:-1]).any()):
-            raise ValueError(f"forest level {lvl}: valid slots are not a "
-                             "prefix in parent order")
-        cnt = torch.bincount(par, minlength=N)[:N]
-        hi[lvl - 1] = torch.cumsum(cnt, 0)
-        lo[lvl - 1] = hi[lvl - 1] - cnt
+        slots = (cell[lvl] >= 0).nonzero()[:, 0]
+        par = parent[lvl][slots].long()
+        if bool((par[1:] < par[:-1]).any()):
+            raise ValueError(f"forest level {lvl}: valid slots are not in "
+                             "parent order")
+        first = torch.full((N,), N, dtype=torch.long, device=cell.device)
+        last = torch.full((N,), -1, dtype=torch.long, device=cell.device)
+        first.scatter_reduce_(0, par, slots, reduce="amin")
+        last.scatter_reduce_(0, par, slots, reduce="amax")
+        has = last >= 0
+        lo[lvl - 1] = torch.where(has, first, 0).to(torch.int32)
+        hi[lvl - 1] = torch.where(has, last + 1, 0).to(torch.int32)
     return lo, hi
 
 
@@ -398,7 +404,7 @@ def tree_traverse(qp, qids, qcells, forest: DeviceForest, eps, k_cap: int,
                 else:
                     rows, node, n_exp = pairs
                     outs += n_exp
-                    keep = pair_scope(lvl, rows, node)   # children: valid
+                    keep = valid[lvl][node] & pair_scope(lvl, rows, node)
                     acts += keep.sum()
                     act = _words_from_pairs(rows, node, keep, m, nw)
             if act is None:
@@ -878,6 +884,67 @@ def systolic_run(points, eps: float, mesh: RingMesh, *, metric="euclidean",
                                            prune=prune)
     return _systolic_local_tree_split(xs, forests,
                                       ring_modes=tuple(ring_schedule), **kw)
+
+
+# ---------------------------------------------------------------------------
+# delta traversal — the online-maintenance entry point (repro_torch.stream)
+# ---------------------------------------------------------------------------
+
+def _delta_local(qp, qids, qbits, forest_r: DeviceForest, *, eps, metric,
+                 k_cap):
+    """One rank's delta body: the (replicated) inserted batch traverses
+    this rank's forest once. ``qbits`` are all-ones cell words, so every
+    tree of every cell is in scope: an inserted point is checked against
+    the whole local forest, whichever cell it lands in (the batch is
+    small, so the wider scope costs frontier work at the roots only).
+    Returns (nbrs, cnt, dists_evaluated, nodes_pruned), the counters as
+    fp32 0-d tensors."""
+    nbrs, cnt, dists, pruned = tree_traverse(
+        qp, qids, None, forest_r, eps, k_cap, metric, qghost_bits=qbits)
+    return nbrs, cnt, dists.to(torch.float32), pruned.to(torch.float32)
+
+
+def delta_traverse_run(qp, qids, forest, eps: float, mesh: RingMesh, *,
+                       metric="euclidean", k_cap: int = 64):
+    """Query ONLY the batch ``qp`` against every rank's forest: the online
+    insert path. Instead of a full ring or landmark schedule, the inserted
+    points go to every rank once (``delta_bcast_bytes`` models that
+    broadcast; there is no collective here) and each rank runs one
+    level-synchronous traversal of its local forest, rank after rank on
+    the mesh's device as ``landmark_run`` loops them. The union of the
+    ranks' hits is the new-edge set (the forests partition the corpus).
+
+    ``forest`` holds the rank-stacked tables (a dict or a
+    ``DeviceForest``). Returns (nbrs (nranks·nq, k_cap) SENTINEL-padded,
+    cnt (nranks·nq,), dists (nranks,) fp32, pruned (nranks,) fp32): row
+    r·nq + i holds rank r's neighbours of query i, so pairing with
+    ``qids`` repeated nranks times recovers directed (src, dst) pairs.
+    Self pairs are excluded by global id inside ``tree_traverse``."""
+    met = get_metric(metric)
+    nranks = mesh.size
+    qp = met.as_device(qp, mesh.device)
+    qids = torch.as_tensor(qids, device=mesh.device).to(torch.int32)
+    if not isinstance(forest, DeviceForest):
+        forest = DeviceForest.from_tables(forest, device=mesh.device)
+    if forest.cell.shape[0] != nranks:
+        raise ValueError(f"the forest has {forest.cell.shape[0]} ranks, the "
+                         f"mesh {nranks}")
+    # all-ones cell words, wide enough for every cell id present
+    max_cell = max(int(forest.cell.max()), 0)
+    qbits = torch.full((qp.shape[0], max_cell // 32 + 1), -1,
+                       dtype=torch.int32, device=mesh.device)
+    outs = [_delta_local(qp, qids, qbits, forest.rank(r), eps=float(eps),
+                         metric=met, k_cap=int(k_cap))
+            for r in range(nranks)]
+    nbrs, cnt, dists, pruned = zip(*outs)
+    return (torch.cat(nbrs), torch.cat(cnt), torch.stack(dists),
+            torch.stack(pruned))
+
+
+def delta_bcast_bytes(nranks: int, nq: int, dim: int, itemsize: int) -> int:
+    """Comm model of the delta broadcast: every other rank receives the
+    batch's coordinates and int32 ids once."""
+    return (nranks - 1) * nq * (dim * itemsize + 4)
 
 
 # ---------------------------------------------------------------------------

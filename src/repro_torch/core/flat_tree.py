@@ -28,9 +28,12 @@ Consumers:
   int32/fp32 tables consumed by the level-synchronous traversal on the card
   (``repro_torch.kernels.tree_frontier`` + ``device.tree_traverse``).
 
-This is the port's own copy of the reference's host module, without the
-online-maintenance paths (``insert_host`` / ``tombstone_host``, ROADMAP
-item 8).
+- online maintenance: ``insert_host`` descends each new point to its
+  covering node and appends it into the padded slot ranges, and
+  ``tombstone_host`` masks deleted points in place (float64, as the
+  reference's; ``repro_torch.stream.OnlineNNG`` drives both).
+
+This is the port's own copy of the reference's host module.
 
 Counters: every query reports ``dists_evaluated`` (frontier pairs whose
 distance was computed) and ``nodes_pruned`` (frontier pairs whose subtree
@@ -90,11 +93,20 @@ class FlatCoverTree:
     def num_levels(self) -> int:
         return self.node_gid.shape[0]
 
+    @property
+    def level_width(self) -> int:
+        return self.node_gid.shape[1]
+
     def __post_init__(self) -> None:
         # packed-bitmask consumers rely on these paddings; check once here
         # instead of per kernel call
         assert self.node_gid.shape[1] % 32 == 0, self.node_gid.shape
         assert self.leaf_ids.shape[0] % 32 == 0, self.leaf_ids.shape
+        self._n_leaf = int(np.sum(self.leaf_ids != SENTINEL_ID))
+
+    @property
+    def num_leaves(self) -> int:        # true leaf count (un-padded)
+        return self._n_leaf
 
     # -- host query (Alg. 3 over the flat tables) --------------------------
     def query_host(
@@ -175,6 +187,225 @@ class FlatCoverTree:
         if not q_hits:
             return empty
         return np.concatenate(q_hits), np.concatenate(p_hits)
+
+    # -- online maintenance (incremental insert / tombstone delete) ---------
+    #
+    # The padded tables are append-friendly: occupied slots are a prefix of
+    # every level row (flatten emits them contiguously and the insert paths
+    # below preserve that), so "free space" is just the padded suffix, and
+    # regrow-on-overflow is the same doubling the device builder uses.
+    #
+    # Child ranges keep SUPERSET semantics under slot insertion: a parent
+    # range straddling the insertion point absorbs the new (foreign) slot.
+    # No child is ever lost, so queries stay exact — a host traversal may
+    # visit a stray sibling, costing one extra distance. Structural truth
+    # is ``parent_pos`` (what the device traversal propagates on), and the
+    # insert descent follows true children only.
+
+    def _occ(self, lvl: int) -> int:
+        return int(np.count_nonzero(self.node_gid[lvl] != PAD))
+
+    def _leaf_used(self) -> int:
+        """Allocated leaf positions (tombstoned entries keep their slot)."""
+        occ = self.node_gid != PAD
+        return int(self.leaf_hi[occ].max()) if occ.any() else 0
+
+    def _node_tables(self):
+        return (self.node_gid, self.node_radius, self.node_cell,
+                self.node_leaf, self.parent_pos, self.child_lo,
+                self.child_hi, self.leaf_lo, self.leaf_hi)
+
+    _TABLE_FILL = (PAD, 0.0, PAD, 0, 0, 0, 0, 0, 0)
+    _TABLE_KEYS = ("node_gid", "node_radius", "node_cell", "node_leaf",
+                   "parent_pos", "child_lo", "child_hi", "leaf_lo",
+                   "leaf_hi")
+
+    def _grow_width(self) -> None:
+        L, N = self.node_gid.shape
+        for key, fill in zip(self._TABLE_KEYS, self._TABLE_FILL):
+            a = getattr(self, key)
+            out = np.full((L, 2 * N), fill, a.dtype)
+            out[:, :N] = a
+            setattr(self, key, out)
+
+    def _grow_levels(self) -> None:
+        N = self.level_width
+        for key, fill in zip(self._TABLE_KEYS, self._TABLE_FILL):
+            a = getattr(self, key)
+            setattr(self, key, np.concatenate(
+                [a, np.full((1, N), fill, a.dtype)]))
+
+    def _grow_leaf_ids(self) -> None:
+        old = self.leaf_ids
+        self.leaf_ids = np.full(2 * len(old), SENTINEL_ID, old.dtype)
+        self.leaf_ids[:len(old)] = old
+
+    def _insert_slot(self, lvl: int, pos: int, vp: int) -> None:
+        """Open a node slot at (lvl, pos >= 1 level), shifting the occupied
+        suffix right and fixing every reference into / out of the level.
+        ``vp`` is the new slot's parent in lvl-1, exempt from the child_lo
+        bump so its empty range [pos, pos) opens to [pos, pos+1) instead of
+        sliding whole to [pos+1, pos+1)."""
+        used = self._occ(lvl)
+        if used == self.level_width:
+            self._grow_width()
+        for a in self._node_tables():
+            a[lvl, pos + 1:used + 1] = a[lvl, pos:used]
+        occ = self.node_gid[lvl - 1] != PAD
+        bump = occ & (self.child_lo[lvl - 1] >= pos)
+        bump[vp] = False
+        self.child_lo[lvl - 1][bump] += 1
+        self.child_hi[lvl - 1][occ & (self.child_hi[lvl - 1] >= pos)] += 1
+        if lvl + 1 < self.num_levels:
+            occ2 = self.node_gid[lvl + 1] != PAD
+            self.parent_pos[lvl + 1][
+                occ2 & (self.parent_pos[lvl + 1] >= pos)] += 1
+
+    def _insert_leaf(self, P: int, gid: int, anc: list) -> None:
+        """Insert leaf entry ``gid`` at position ``P``, shifting the used
+        suffix right. Generic range fixup plus an explicit extension of the
+        ancestor chain ``anc`` (the ranges ending exactly at P that must
+        absorb the new entry)."""
+        A = self._leaf_used()
+        if A == len(self.leaf_ids):
+            self._grow_leaf_ids()
+        self.leaf_ids[P + 1:A + 1] = self.leaf_ids[P:A]
+        self.leaf_ids[P] = gid
+        occ = self.node_gid != PAD
+        self.leaf_lo[occ & (self.leaf_lo >= P)] += 1
+        self.leaf_hi[occ & (self.leaf_hi > P)] += 1
+        for lvl, v in anc:
+            if self.leaf_hi[lvl, v] == P:
+                self.leaf_hi[lvl, v] += 1
+        self._n_leaf += 1
+
+    def _placeholder_child_ptr(self, lvl: int, pos: int) -> int:
+        """An empty child range value for a new leaf at (lvl, pos): any slot
+        of lvl+1 consistent with its neighbors (leaves never expand)."""
+        if pos < self._occ(lvl):
+            return int(self.child_lo[lvl, pos])
+        return int(self.child_hi[lvl, pos - 1]) if pos > 0 else 0
+
+    def _write_leaf_slot(self, lvl, pos, gid, rad, cell, parent, cptr,
+                         llo, lhi):
+        self.node_gid[lvl, pos] = gid
+        self.node_radius[lvl, pos] = rad
+        self.node_cell[lvl, pos] = cell
+        self.node_leaf[lvl, pos] = 1
+        self.parent_pos[lvl, pos] = parent
+        self.child_lo[lvl, pos] = cptr
+        self.child_hi[lvl, pos] = cptr
+        self.leaf_lo[lvl, pos] = llo
+        self.leaf_hi[lvl, pos] = lhi
+
+    def _leaf_to_internal(self, lvl: int, v: int) -> None:
+        """Nesting invariant on conversion: the leaf becomes internal and a
+        self-copy leaf child keeps its point + leaf range. A tombstoned
+        self-copy stays tombstoned (cell PAD); the caller revives v."""
+        if lvl + 1 == self.num_levels:
+            self._grow_levels()
+        pos = int(self.child_lo[lvl, v])
+        cptr = self._placeholder_child_ptr(lvl + 1, pos)
+        self._insert_slot(lvl + 1, pos, vp=v)
+        self._write_leaf_slot(
+            lvl + 1, pos, int(self.node_gid[lvl, v]), 0.0,
+            int(self.node_cell[lvl, v]), v, cptr,
+            int(self.leaf_lo[lvl, v]), int(self.leaf_hi[lvl, v]))
+        self.node_leaf[lvl, v] = 0
+
+    def _attach(self, lvl: int, v: int, g: int, cell: int,
+                anc: list) -> None:
+        """Append point ``g`` as a new leaf child of internal (lvl, v)."""
+        pos = int(self.child_hi[lvl, v])
+        P = int(self.leaf_hi[lvl, v])
+        cptr = self._placeholder_child_ptr(lvl + 1, pos)
+        self._insert_leaf(P, g, anc)
+        self._insert_slot(lvl + 1, pos, vp=v)
+        self._write_leaf_slot(lvl + 1, pos, g, 0.0, cell, v, cptr, P, P + 1)
+
+    def _append_root(self, g: int, cell: int) -> None:
+        slot = self._occ(0)
+        if slot == self.level_width:
+            self._grow_width()
+        P = self._leaf_used()
+        if P == len(self.leaf_ids):
+            self._grow_leaf_ids()
+        self.leaf_ids[P] = g
+        self._n_leaf += 1
+        cptr = int(self.child_hi[0, slot - 1]) if slot > 0 else 0
+        self._write_leaf_slot(0, slot, g, 0.0, cell, 0, cptr, P, P + 1)
+
+    def _true_dist(self, g: int, gid_other) -> np.ndarray:
+        met = self.metric
+        q = self.points[g][None]
+        other = self.points[np.asarray(gid_other, np.int64)]
+        return np.asarray(
+            met.true(met.rowwise(other, np.broadcast_to(q, other.shape))),
+            np.float64)
+
+    def insert_host(self, gids, cells=None, points=None) -> None:
+        """Incremental insert: one top-down descent per point.
+
+        Each point descends from its cell's root along TRUE children
+        (nearest by float64 distance), max-updating every visited node's
+        radius with its own distance — which keeps the covering bound exact
+        (separation quality is only an efficiency concern). The point is
+        attached as a new single-point leaf child of the deepest internal
+        node reached (leaves convert via the nesting self-copy first); a
+        point whose cell has no live root starts a new singleton root.
+
+        ``points`` rebinds the global coordinate table (it must contain the
+        new rows); ``cells`` defaults to 0 (the block-forest convention).
+        """
+        if points is not None:
+            self.points = np.asarray(points)
+        gids = np.asarray(gids, np.int64).ravel()
+        cells_arr = np.broadcast_to(
+            np.asarray(0 if cells is None else cells, np.int64), gids.shape)
+        for g, c in zip(gids, cells_arr):
+            self._insert_one(int(g), int(c))
+
+    def _insert_one(self, g: int, cell: int) -> None:
+        roots = np.flatnonzero(self.node_gid[0] != PAD)
+        roots = roots[self.node_cell[0][roots] == cell]
+        if len(roots) == 0:
+            self._append_root(g, cell)
+            return
+        v = int(roots[np.argmin(self._true_dist(g, self.node_gid[0][roots]))])
+        lvl = 0
+        anc: list[tuple[int, int]] = []
+        while True:
+            anc.append((lvl, v))
+            d = float(self._true_dist(g, [self.node_gid[lvl, v]])[0])
+            if d > self.node_radius[lvl, v]:
+                self.node_radius[lvl, v] = d
+            if self.node_leaf[lvl, v]:
+                self._leaf_to_internal(lvl, v)
+                self.node_cell[lvl, v] = cell    # revive if tombstoned
+                self._attach(lvl, v, g, cell, anc)
+                return
+            ch = np.arange(self.child_lo[lvl, v], self.child_hi[lvl, v])
+            ch = ch[self.parent_pos[lvl + 1][ch] == v]   # true children only
+            w = int(ch[np.argmin(
+                self._true_dist(g, self.node_gid[lvl + 1][ch]))])
+            if self.node_leaf[lvl + 1, w]:
+                self._attach(lvl, v, g, cell, anc)
+                return
+            lvl, v = lvl + 1, w
+
+    def tombstone_host(self, gids) -> None:
+        """Mask deleted points. Their ``leaf_ids`` entries become
+        ``SENTINEL_ID`` (range emission — host and device — drops them) and
+        their leaf slots' cell goes PAD (the host leaf-hit path drops
+        them). Slots stay occupied — ``node_gid`` keeps marking them — so
+        no range anywhere moves."""
+        gids = np.asarray(gids, np.int64).ravel()
+        hit = np.isin(self.leaf_ids, gids) & (self.leaf_ids != SENTINEL_ID)
+        self.leaf_ids[hit] = SENTINEL_ID
+        self._n_leaf -= int(np.count_nonzero(hit))
+        dead = ((self.node_leaf != 0) & (self.node_gid != PAD)
+                & np.isin(self.node_gid, gids))
+        self.node_cell[dead] = PAD
 
     # -- device export ------------------------------------------------------
     def to_device_tables(self) -> dict[str, np.ndarray]:

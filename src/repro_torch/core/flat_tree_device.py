@@ -37,6 +37,13 @@ Levels are produced until no point is left in a hub. The level tables
 start at ``max_levels`` (``estimate_max_levels``) and regrow by doubling
 when the build needs more, capped at 512; then they are trimmed to the
 levels and width in use.
+
+Online maintenance works on the stacked tables in place of the
+reference's jit + vmap scatter: ``insert_stacked_device`` appends each new
+point as a singleton root of its rank's forest (torch scatters on the
+tables' device; on overflow the padding doubles, ``_grow_stacked``, and
+the insert retries) and ``tombstone_stacked_device`` masks deleted ids out
+of ``leaf_ids``.
 """
 from __future__ import annotations
 
@@ -418,3 +425,106 @@ def build_cell_forests_device(points, cell, f, nranks: int,
     tslotb[empty, 0] = 0
     return _build_stacked(ptsb, cellsb, gidsb, tslotb, met, int(leaf_size),
                           int(max_levels), include_child_ranges)
+
+
+# ---------------------------------------------------------------------------
+# online maintenance on the stacked tables (repro_torch.stream's device
+# insert backend)
+# ---------------------------------------------------------------------------
+
+def _grow_stacked(tabs: dict) -> dict:
+    """Double both the level width and the leaf capacity of stacked tables
+    (the builder's regrow-on-overflow doubling): PAD cells, SENTINEL leaf
+    ids, zeros elsewhere, on the tables' device."""
+    out = {}
+    for k, a in tabs.items():
+        a = torch.as_tensor(a)
+        if k == "leaf_ids":
+            out[k] = torch.cat([a, torch.full_like(a, SENTINEL_ID)], dim=1)
+        else:
+            pad = torch.full_like(a, PAD if k == "cell" else 0)
+            out[k] = torch.cat([a, pad], dim=2)
+    return out
+
+
+def _insert_roots(tabs: dict, newp, newg, newc, newr):
+    """Scatter each batch point as a singleton root of its owning rank:
+    level-0 slot ``used0 + k`` (the rank's k-th new point), leaf position
+    ``usedl + k``. Returns the new tables, or None when a rank's level 0 or
+    leaf table has no room (nothing is written then)."""
+    cell = tabs["cell"]
+    R, _, N = cell.shape
+    nl = tabs["leaf_ids"].shape[1]
+    used0 = (cell[:, 0] != PAD).sum(1)                       # (R,)
+    usedl = tabs["leaf_hi"].reshape(R, -1).amax(1).long()     # (R,)
+    onehot = torch.nn.functional.one_hot(newr, R)             # (b, R)
+    cnt = onehot.sum(0)
+    if bool(((used0 + cnt > N) | (usedl + cnt > nl)).any()):
+        return None
+    k = (torch.cumsum(onehot, 0) - 1).gather(1, newr[:, None])[:, 0]
+    sl = used0[newr] + k
+    lp = usedl[newr] + k
+    zero = torch.zeros_like(newr)
+    at = (newr, zero, sl)
+    out = {key: a.clone() for key, a in tabs.items()}
+    out["coords"][at] = newp
+    out["radius"][at] = 0
+    out["cell"][at] = newc.to(out["cell"].dtype)
+    out["leaf"][at] = 1
+    out["parent"][at] = 0
+    out["leaf_lo"][at] = lp.to(out["leaf_lo"].dtype)
+    out["leaf_hi"][at] = (lp + 1).to(out["leaf_hi"].dtype)
+    out["leaf_ids"][newr, lp] = newg.to(out["leaf_ids"].dtype)
+    return out
+
+
+def insert_stacked_device(tabs: dict, new_points, new_gids, new_ranks,
+                          new_cells=None) -> dict:
+    """Batched incremental insert into stacked forest tables, as torch ops
+    on the tables' device.
+
+    Each new point is appended as a singleton ROOT of its owning rank's
+    forest (cell ``new_cells``, default 0): exact by construction (roots
+    are always on the traversal frontier), at the cost of one more root
+    per insert until the next full rebuild; the host descent path
+    (``FlatCoverTree.insert_host``) is the structure-preserving variant.
+    When a rank's padded width or leaf table overflows, both double
+    (``_grow_stacked``) and the insert retries. Returns new tables; the
+    input tables are left as they were."""
+    dev = torch.as_tensor(tabs["cell"]).device
+    tabs = {k: torch.as_tensor(v, device=dev) for k, v in tabs.items()}
+    # uint32 word rows (numpy tables of the Hamming metric) are scattered
+    # as their int32 bit view, which torch can index, and returned as given
+    words = tabs["coords"].dtype == torch.uint32
+    if words:
+        tabs["coords"] = tabs["coords"].view(torch.int32)
+    newp = torch.as_tensor(np.asarray(new_points) if not
+                           torch.is_tensor(new_points) else new_points)
+    if newp.dtype == torch.uint32:
+        newp = newp.view(torch.int32)
+    newp = newp.to(device=dev, dtype=tabs["coords"].dtype)
+    newg = torch.as_tensor(np.asarray(new_gids, np.int64), device=dev)
+    newr = torch.as_tensor(np.asarray(new_ranks, np.int64), device=dev)
+    newc = (torch.zeros_like(newg) if new_cells is None else
+            torch.as_tensor(np.asarray(new_cells, np.int64), device=dev))
+    while True:
+        out = _insert_roots(tabs, newp, newg, newc, newr)
+        if out is not None:
+            if words:
+                out["coords"] = out["coords"].view(torch.uint32)
+            return out
+        tabs = _grow_stacked(tabs)
+
+
+def tombstone_stacked_device(tabs: dict, dead_ids) -> dict:
+    """Mask deleted points in stacked tables: every emission on the card
+    flows through leaf ranges (``leaf_range_pack`` drops SENTINEL entries),
+    so rewriting ``leaf_ids`` alone hides them; dead singleton roots' and
+    leaves' coordinates stay as harmless routing pivots. Returns new
+    tables."""
+    lid = torch.as_tensor(tabs["leaf_ids"])
+    dead = torch.as_tensor(np.asarray(dead_ids, np.int64), device=lid.device)
+    out = dict(tabs)
+    out["leaf_ids"] = torch.where(torch.isin(lid.long(), dead),
+                                  torch.full_like(lid, SENTINEL_ID), lid)
+    return out

@@ -207,6 +207,12 @@ def get_metric(metric: str | Metric) -> Metric:
                      f"{sorted(_REGISTRY)}")
 
 
+def registered_metrics() -> tuple[str, ...]:
+    """The registered metric names, sorted (the CLI's ``--metric``
+    choices)."""
+    return tuple(sorted(_REGISTRY))
+
+
 # ---------------------------------------------------------------------------
 # euclidean
 # ---------------------------------------------------------------------------

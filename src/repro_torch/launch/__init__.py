@@ -1,0 +1,2 @@
+"""Command-line front ends of the port (``python -m
+repro_torch.launch.nng_run``)."""

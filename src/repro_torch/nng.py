@@ -26,8 +26,10 @@ with only ``cdist`` runs the generic path.
 Both engines run under ONE plan → run → grow-on-overflow driver
 (``drive``) behind the small ``Engine`` interface: the point engine grows
 ``k_cap``, the spatial engine doubles every ``LandmarkPlan`` capacity
-(``grow_plan``). The result is a CSR ``NNGraph`` (symmetric adjacency +
-``RunStats`` + provenance ``meta``).
+(``grow_plan``). A third engine, ``DeltaEngine`` (``delta_run``), runs an
+inserted batch against the per-rank forests for online maintenance
+(``repro_torch.stream.OnlineNNG``). The result is a CSR ``NNGraph``
+(symmetric adjacency + ``RunStats`` + provenance ``meta``).
 
 Point counts that do not divide the ring are handled by duplicate-padding:
 the first ``(-n) % nranks`` points are appended again. A duplicate row
@@ -45,6 +47,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.distributed import (DeviceForest, LandmarkPlan,
+                                          delta_bcast_bytes,
+                                          delta_traverse_run,
                                           ghost_coll_bytes, ghost_ring_bytes,
                                           landmark_run, make_nng_mesh,
                                           plan_landmark_device,
@@ -53,15 +57,15 @@ from repro_torch.core.distributed import (DeviceForest, LandmarkPlan,
 from repro_torch.core.flat_tree import (build_block_forests,
                                         build_cell_forests,
                                         stack_device_forests)
-from repro_torch.core.graph import NNGraph, RunStats
+from repro_torch.core.graph import SENTINEL, NNGraph, RunStats
 from repro_torch.core.landmark import (ghost_membership, lpt_assignment,
                                        select_centers)
 from repro_torch.core.metrics import (Metric, get_metric,  # noqa: F401 (re-export)
                                       ieee_fp32, register_metric)
 
-__all__ = ["build_nng", "drive", "Engine", "PointPartitionEngine",
-           "SpatialPartitionEngine", "grow_plan", "Metric", "get_metric",
-           "register_metric"]
+__all__ = ["build_nng", "delta_run", "drive", "DeltaEngine", "Engine",
+           "PointPartitionEngine", "SpatialPartitionEngine", "grow_plan",
+           "Metric", "get_metric", "register_metric"]
 
 
 # ---------------------------------------------------------------------------
@@ -133,15 +137,20 @@ def _timed_forest(engine: Engine, build, backend: str, *args) -> dict:
     return tabs
 
 
-def drive(engine: Engine, max_grows: int = 8):
+def drive(engine: Engine, max_grows: int = 8, *, steady_state: bool = True):
     """THE plan → run → grow-on-overflow loop.
 
     Returns (out, plan, replans, elapsed_s): the first non-overflowing
     outputs, the plan that produced them, how many grows it took, and the
-    STEADY-STATE wall clock of that final configuration: the winner runs
-    a second time and THAT wall clock is reported, so
-    ``RunStats.elapsed_s`` never includes first-call costs (the kernels'
-    build, allocator warm-up)."""
+    wall clock of that final configuration. With ``steady_state`` (the
+    default) the winner runs a second time and THAT wall clock is
+    reported, so ``RunStats.elapsed_s`` never includes first-call costs
+    (the kernels' build, allocator warm-up).
+
+    ``steady_state=False`` skips the timing re-run and reports the first
+    non-overflowing run's own wall clock: for callers that consume only
+    the tables, or that report update latency (``delta_run``), where a
+    second run buys nothing."""
     plan = engine.initial_plan()
     for attempt in range(max_grows):
         t0 = time.perf_counter()
@@ -149,11 +158,13 @@ def drive(engine: Engine, max_grows: int = 8):
         _wait(engine.device)
         elapsed = time.perf_counter() - t0
         if not engine.overflowed(out):
-            del out                # free the first run's tables before the re-run
-            t0 = time.perf_counter()
-            out = engine.run(plan)
-            _wait(engine.device)
-            return out, plan, attempt, time.perf_counter() - t0
+            if steady_state:
+                del out      # free the first run's tables before the re-run
+                t0 = time.perf_counter()
+                out = engine.run(plan)
+                _wait(engine.device)
+                elapsed = time.perf_counter() - t0
+            return out, plan, attempt, elapsed
         plan = engine.grow(plan, out)
     raise RuntimeError(
         f"{engine.name} engine: overflow persists after {max_grows} grows "
@@ -300,7 +311,8 @@ class SpatialPartitionEngine(Engine):
 
     def __init__(self, points, eps, mesh, metric, *, k_cap: int = 128,
                  planner: str = "device", m_centers: int | None = None,
-                 traversal: str = "tiles", plan: LandmarkPlan | None = None,
+                 traversal: str = "tiles", centers=None, f=None, cell=None,
+                 plan: LandmarkPlan | None = None, forest=None,
                  seed: int = 0, ghost_mode: str = "coll",
                  forest_backend: str = "device"):
         if ghost_mode not in ("coll", "ring", "auto"):
@@ -318,26 +330,34 @@ class SpatialPartitionEngine(Engine):
         self.ghost_mode = ghost_mode
         self.build_s = 0.0
         nranks = mesh.size
-        m = m_centers or max(2 * nranks, 32)
-        idx = select_centers(len(self.points), m,
-                             np.random.default_rng(seed))
-        self.centers = self.points[torch.as_tensor(idx, device=mesh.device)]
+        if centers is None:
+            m = m_centers or max(2 * nranks, 32)
+            idx = select_centers(len(self.points), m,
+                                 np.random.default_rng(seed))
+            centers = self.points[torch.as_tensor(idx, device=mesh.device)]
+        self.centers = self.metric.as_device(centers, mesh.device)
         self.m_centers = len(self.centers)
         # the host (n x m) Voronoi argmin (the host metric's cdist, as the
         # reference's) feeds the LPT assignment, the host planner and the
-        # tree flavour's cell forests
-        self.cell = np.argmin(self.metric.host.cdist(
-            self._host_points(), self.centers.cpu().numpy()), axis=1)
-        self.f = lpt_assignment(
-            np.bincount(self.cell, minlength=self.m_centers),
-            nranks).astype(np.int32)
-        self.forest = None
-        if traversal == "tree":
+        # tree flavour's cell forests; callers that give (f, plan) for the
+        # tiles flavour skip it
+        if cell is None and (f is None or traversal == "tree"
+                             or (plan is None and planner == "host")):
+            cell = np.argmin(self.metric.host.cdist(
+                self._host_points(), self.centers.cpu().numpy()), axis=1)
+        self.cell = None if cell is None else np.asarray(cell)
+        if f is None:
+            f = lpt_assignment(
+                np.bincount(self.cell, minlength=self.m_centers), nranks)
+        self.f = np.asarray(f, np.int32)
+        if traversal == "tree" and forest is None:
             # the cell forests once per engine: the grow loop changes only
             # capacities
-            self.forest = DeviceForest.from_tables(_timed_forest(
-                self, build_cell_forests, forest_backend, self.cell, self.f),
-                mesh.device)
+            forest = _timed_forest(self, build_cell_forests, forest_backend,
+                                   self.cell, self.f)
+        self.forest = (forest if forest is None
+                       or isinstance(forest, DeviceForest) else
+                       DeviceForest.from_tables(forest, mesh.device))
 
     def _host_points(self) -> np.ndarray:
         return self.points.cpu().numpy()
@@ -447,6 +467,112 @@ class SpatialPartitionEngine(Engine):
 
 
 # ---------------------------------------------------------------------------
+# delta traversal (online maintenance — repro_torch.stream's engine)
+# ---------------------------------------------------------------------------
+
+class DeltaEngine(Engine):
+    """Query ONE inserted batch against the per-rank forests.
+
+    The online-insert engine: instead of re-running a full ring or
+    landmark schedule over the corpus, the batch goes to every rank and
+    each rank traverses its local forest once, so the work scales with
+    the batch's frontier, not with n. It shares ``drive``'s
+    grow-on-overflow loop; the only plan knob is ``k_cap``.
+
+    The batch is padded to the next power of two (at least 8) with
+    copies of its first row under SENTINEL ids, as the reference pads it
+    (there, against a retrace per batch size). The padded rows are
+    traversed: they count in ``dists_evaluated`` and ``nodes_pruned``,
+    and ``delta_bcast`` is sized by the padded count, so the counters
+    equal the reference's; their hits drop with their SENTINEL ids."""
+
+    name = "delta"
+
+    def __init__(self, batch_points, batch_ids, forest, eps, mesh, metric,
+                 *, k_cap: int = 64):
+        self.metric = get_metric(metric)
+        self.mesh = mesh
+        self.device = mesh.device
+        self.eps = float(eps)
+        self.k_cap = int(k_cap)
+        self.forest = (forest if isinstance(forest, DeviceForest) else
+                       DeviceForest.from_tables(forest, mesh.device))
+        qp = self.metric.as_device(batch_points, mesh.device)
+        ids = torch.as_tensor(np.asarray(batch_ids, np.int64),
+                              device=mesh.device)
+        if len(qp) != len(ids) or len(qp) == 0:
+            raise ValueError(f"a batch of {len(qp)} points and {len(ids)} "
+                             "ids (want as many, at least one)")
+        m = 8
+        while m < len(qp):
+            m *= 2
+        pad = m - len(qp)
+        self.qp = torch.cat([qp, qp[:1].expand((pad,) + qp.shape[1:])])
+        self.qids = torch.cat([ids, torch.full((pad,), SENTINEL,
+                                               dtype=torch.int64,
+                                               device=mesh.device)])
+
+    def initial_plan(self):
+        return self.k_cap
+
+    def run(self, k_cap):
+        return delta_traverse_run(self.qp, self.qids, self.forest, self.eps,
+                                  self.mesh, metric=self.metric, k_cap=k_cap)
+
+    def overflowed(self, out):
+        # cnt is exact even on overflow (popcount of the full bitmask)
+        return bool((out[1] > out[0].shape[1]).any())
+
+    def grow(self, k_cap, out):
+        return max(2 * k_cap, int(out[1].max()))
+
+    def neighbor_tables(self, out):
+        return [(self.qids.repeat(self.mesh.size), out[0])]
+
+    def run_stats(self, out, k_cap) -> RunStats:
+        # the (nranks,) fp32 counters summed as the reference sums them
+        # (numpy, in fp32)
+        m, dim = self.qp.shape[0], self.qp.shape[1]
+        return RunStats(
+            dists_evaluated=float(out[2].cpu().numpy().sum()),
+            nodes_pruned=float(out[3].cpu().numpy().sum()),
+            comm_bytes={"delta_bcast": float(delta_bcast_bytes(
+                self.mesh.size, m, dim, self.qp.element_size()))},
+        )
+
+
+@ieee_fp32()
+def delta_run(batch_points, batch_ids, forest, eps, mesh, *,
+              metric="euclidean", k_cap: int = 64, max_grows: int = 8):
+    """Directed new-edge pairs of an inserted batch against the current
+    forests (the rank-stacked tables, a dict or a ``DeviceForest``).
+
+    Runs ``DeltaEngine`` under ``drive(..., steady_state=False)`` — the
+    update's latency is what the online path reports, so the winner runs
+    once — and flattens the rank-stacked neighbour tables to (src, dst)
+    directed id pairs (host numpy int64) plus a ``RunStats``. Symmetrize
+    downstream (``NNGraph.delta_add_edges`` canonicalizes): a pair inside
+    the batch appears from both endpoints.
+
+    The call runs with IEEE fp32 products (``ieee_fp32``): it sets the
+    process-wide float32 matmul precision and TF32 flags and restores
+    them on return, so it is not safe against threads that want other
+    settings at the same time."""
+    engine = DeltaEngine(batch_points, batch_ids, forest, eps, mesh, metric,
+                         k_cap=k_cap)
+    out, plan, replans, elapsed = drive(engine, max_grows=max_grows,
+                                        steady_state=False)
+    stats = engine.run_stats(out, plan)
+    stats.replans = replans
+    stats.elapsed_s = elapsed
+    [(ids, nbrs)] = engine.neighbor_tables(out)
+    ii, kk = torch.nonzero((nbrs != SENTINEL) & (ids != SENTINEL)[:, None],
+                           as_tuple=True)
+    return (ids[ii].cpu().numpy(), nbrs[ii, kk].long().cpu().numpy(),
+            stats)
+
+
+# ---------------------------------------------------------------------------
 # the public entry point
 # ---------------------------------------------------------------------------
 
@@ -498,7 +624,12 @@ def build_nng(
     "host"``) by the float64 numpy oracle, timed in ``RunStats.build_s``.
 
     The call runs with IEEE fp32 products whatever the process's matmul
-    precision (``ieee_fp32``), and restores that setting on return."""
+    precision (``ieee_fp32``): it sets the process-wide float32 matmul
+    precision and TF32 flags and restores them on return, so it is not
+    safe against threads that want other settings at the same time.
+
+    ``drive`` re-runs the winning plan (``steady_state=True``), so
+    ``RunStats.elapsed_s`` is a steady-state run's wall clock."""
     if partition not in ("point", "spatial"):
         raise ValueError(
             f"unknown partition {partition!r} (want 'point' or 'spatial')")

@@ -13,7 +13,7 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "ghost_ab.py", ROOT / "tree_ab.py",
-    ROOT / "l2_ablate.py"]
+    ROOT / "l2_ablate.py", ROOT / "examples" / "quickstart_torch.py"]
 
 
 def imported_modules(path):
