@@ -162,7 +162,24 @@ each printed as it runs; any failed check raises and exits non-zero:
      ``compact()`` leaving the edge keys unchanged [12c];
      ``tree_frontier`` (off the knife), ``leaf_range_pack`` and
      ``bits_to_cols`` (bit for bit) against their plain versions at every
-     launch of the last device-backend insert [12d].
+     launch of the last device-backend insert [12d];
+ 13. the engines over ``torch.distributed``: an NCCL process group of one
+     process holding the 8 ranks (``make_nng_mesh`` inside a group), the
+     point-tiles call at [3]'s shape and arguments and the spatial
+     ``coll`` call at [9b]'s, each equal to [3]'s and [9b]'s graph (edge
+     keys' sha256 and the CSR), work counters, ``comm_bytes`` and plan,
+     with the path's kernels' launches counted from that call alone, and
+     ``elapsed_s`` beside [3]'s [13a]; 4 gloo processes on this card, 2
+     ranks each (gloo moves the ranks' payloads through host memory), on
+     the first 2^17 points of [3]: point tiles (both schedules), the split
+     point tree, spatial ``coll`` and ``ring`` tiles, and one delta
+     traversal of the next 1024 points against the processes' own block
+     forests, each bit for bit the same call on ``RingMesh(8)`` in this
+     process, with every process's count of the bytes its ranks moved,
+     per channel, summing to ``comm_bytes`` a run, and each call's
+     ``elapsed_s`` and host-staging seconds printed [13b]; NCCL across
+     cards where the machine has two or more, else a line that says it did
+     not run [13c]. The kernels are built before any process starts.
 
 Hamming distances are exact integers: no knife. Two fp32 L1 sums in
 different orders are each within d·u·D of the float64 sum D (u = 2^-24),
@@ -223,6 +240,19 @@ ON_N = 1 << 17         # [12b]: OnlineNNG's corpus (first rows of [3]), a cut
 ON_B = 1024            # [12b]: points an insert or delete
 ON_OPS = 12            # [12b]: operations (every third a delete)
 PHASE12_S = 90         # [12]'s time budget on an H100
+DIST_N = 1 << 17       # [13b]: the first rows of [3]'s points (the [12] cut)
+DIST_B = 1024          # [13b]: the delta traversal's batch (the next rows)
+DIST_PROCS = 4         # [13b]: gloo processes on the card, 2 ranks each
+PHASE13_S = 90         # [13]'s time budget on an H100
+# [13b]'s calls: label, build_nng's keywords (each at eps = EPS and
+# k_cap = SP_K_CAP, above every degree: no grow, so a call makes two
+# engine runs), then the delta traversal
+DIST_CASES = (("point tiles", {}),
+              ("point tiles serial", {"overlap": False}),
+              ("point tree split", {"traversal": "tree"}),
+              ("spatial coll", {"partition": "spatial"}),
+              ("spatial ring", {"partition": "spatial",
+                                "ghost_mode": "ring"}))
 TABLE_BUDGET = 32 << 30  # [9e], [10c]: all ranks' id tables on the card
 # [10b]: tiles_scheduled, tiles_skipped, dists_evaluated of the ring call as
 # the tree before the ghost kernel's row order (commit 5e86e38) printed
@@ -360,6 +390,87 @@ def events_ms(torch, fn):
     e1.record()
     torch.cuda.synchronize()
     return out, e0.elapsed_time(e1)
+
+
+def dist_cases(mesh, pts, batch, eps, k_cap):
+    """[13b]'s calls on ``mesh`` -> {label: what [13b] compares and
+    prints}: each call's graph as the sha256 of its CSR (one array per
+    edge set), counters, ``comm_bytes``, ``meta``, ``elapsed_s``, and the
+    comm layer's counts in this process (``mesh.stats``: the bytes its
+    ranks moved per channel, the bytes that left the process and the host
+    seconds of its exchanges per channel, the host-staging seconds) and
+    the kernels' launches in this process."""
+    import hashlib
+
+    import numpy as np
+
+    from repro_torch.core.flat_tree import build_block_forests
+    from repro_torch.kernels.bits_epilogue import (bits_to_cols_cuda,
+                                                   leaf_range_pack_cuda)
+    from repro_torch.kernels.nng_tile import (nng_tile_cuda,
+                                              nng_tile_ghost_cuda,
+                                              nng_tile_grouped_cuda)
+    from repro_torch.kernels.tree_frontier import tree_frontier_cuda
+    from repro_torch.nng import build_nng, delta_run
+    kernels = (nng_tile_cuda, bits_to_cols_cuda, tree_frontier_cuda,
+               leaf_range_pack_cuda, nng_tile_grouped_cuda,
+               nng_tile_ghost_cuda)
+
+    def start():
+        for fn in kernels:
+            fn.launches = 0
+        mesh.stats.reset()
+        return time.perf_counter()
+
+    def finish(res, t0):
+        res.update(wall=time.perf_counter() - t0,
+                   moved=dict(mesh.stats.moved), sent=dict(mesh.stats.sent),
+                   seconds=dict(mesh.stats.seconds),
+                   staging_s=mesh.stats.staging_s,
+                   launches={fn.__name__[:-5]: fn.launches
+                             for fn in kernels if fn.launches})
+        return res
+
+    out = {}
+    for label, kw in DIST_CASES:
+        t0 = start()
+        g = build_nng(pts, eps, mesh=mesh, k_cap=k_cap, **kw)
+        st = g.stats
+        out[label] = finish({
+            "sha": hashlib.sha256(g.row_ptr.tobytes()
+                                  + g.col_ids.tobytes()).hexdigest(),
+            "edges": g.num_edges,
+            "counters": {k: getattr(st, k) for k in (
+                "tiles_scheduled", "tiles_skipped", "dists_evaluated",
+                "nodes_pruned", "replans")},
+            "comm_bytes": st.comm_bytes, "meta": g.meta,
+            "elapsed_s": st.elapsed_s}, t0)
+    tabs = build_block_forests(pts, mesh.size, "euclidean",
+                               backend="device", device=mesh.device,
+                               mesh=mesh)
+    ids = np.arange(len(pts), len(pts) + len(batch))
+    t0 = start()
+    src, dst, st = delta_run(batch, ids, tabs, eps, mesh, k_cap=k_cap)
+    pairs = np.unique(src * (len(pts) + len(batch)) + dst)
+    out["delta"] = finish({
+        "sha": hashlib.sha256(pairs.tobytes()).hexdigest(),
+        "edges": len(pairs),
+        "counters": {"dists_evaluated": st.dists_evaluated,
+                     "nodes_pruned": st.nodes_pruned,
+                     "replans": st.replans},
+        "comm_bytes": st.comm_bytes, "meta": {},
+        "elapsed_s": st.elapsed_s}, t0)
+    return out
+
+
+def dist_process(pts, batch, eps, k_cap, nranks, device=None):
+    """A [13b] or [13c] process's side: ``dist_cases`` on the group's mesh
+    of ``nranks`` ranks (on ``cuda:LOCAL_RANK`` unless ``device``)."""
+    from repro_torch.core.distributed import make_nng_mesh
+    mesh = make_nng_mesh(nranks, device)
+    return dict(dist_cases(mesh, pts, batch, eps, k_cap),
+                mesh=(mesh.size, mesh.world, mesh.rank, mesh.backend,
+                      str(mesh.device)))
 
 
 def main() -> int:
@@ -2149,11 +2260,12 @@ def main() -> int:
         bufs, dropped = tdev._landmark_exchange(
             xs, ids, eng.centers, torch.as_tensor(eng.f, dtype=torch.int64,
                                                   device=dev),
-            nranks=NRANKS, two_eps_c=2.0 * eps, metric=get_metric(metric),
+            mesh=eng.mesh, two_eps_c=2.0 * eps, metric=get_metric(metric),
             plan=plan)
         torch.cuda.synchronize()
         ex_s = time.perf_counter() - t0
-        check(not bool(dropped.any()), f"{label} the exact plan dropped rows")
+        check(not any(bool(d) for d in dropped),
+              f"{label} the exact plan dropped rows")
         w_rows = [int((b[2] >= 0).sum()) for b in bufs]
         g_rows = [int((b[5] >= 0).sum()) for b in bufs]
         tables = (NRANKS * (plan.cap_coal + plan.cap_ghost) * k_cap * 4)
@@ -2509,6 +2621,7 @@ def main() -> int:
 
     # -- 9b. the call, and where its time goes -------------------------------
     gs, sp_launches = spatial_call("[9b]", pts, EPS, "euclidean", SP_K_CAP)
+    coll9 = gs                      # [13a] holds its call to this graph
     parent_check("[9b] spatial", gs)
     plan_s = gs.meta["plan"]
     out, _ = profiled_run("[9b]", lambda: eng9.run(plan_s))
@@ -3712,6 +3825,172 @@ def main() -> int:
     del kept12
     torch.cuda.empty_cache()
     print(f"[12] {time.perf_counter() - t12:.1f} s (budget {PHASE12_S} s); "
+          f"script wall {time.perf_counter() - t_start:.1f} s")
+
+    # -- 13. the engines over torch.distributed -----------------------------
+    t13 = time.perf_counter()
+    import hashlib
+    import socket
+
+    import torch.distributed as tdist
+
+    from repro_torch.core.distributed import RingMesh
+    from repro_torch.launch.dist import init, spawn
+    print(f"[13] one process per GPU over torch.distributed; script wall "
+          f"{t13 - t_start:.1f} s")
+
+    def edge_sha(g_):
+        return hashlib.sha256(g_.edge_key().tobytes()).hexdigest()
+
+    def same_graph(label, g_, ref):
+        """Fail unless call ``label``'s graph, counters, comm_bytes and plan
+        are ``ref``'s."""
+        got = (edge_sha(g_), stats_line(g_), g_.meta["plan"])
+        want = (edge_sha(ref), stats_line(ref), ref.meta["plan"])
+        print(f"{label} edge-key sha256 {got[0]} ({want[0]} before); "
+              f"{got[1]}")
+        check(got == want, f"{label} differs from the one-process call: "
+                           f"{got} against {want}")
+        check(np.array_equal(g_.row_ptr, ref.row_ptr)
+              and np.array_equal(g_.col_ids, ref.col_ids),
+              f"{label}: the CSR differs")
+
+    # -- 13a. NCCL, a group of one process holding the 8 ranks ---------------
+    with socket.socket() as s_:
+        s_.bind(("127.0.0.1", 0))
+        port13 = s_.getsockname()[1]
+    env13 = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+             "LOCAL_WORLD_SIZE": "1", "MASTER_ADDR": "127.0.0.1",
+             "MASTER_PORT": str(port13)}
+    os.environ.update(env13)
+    try:
+        init("nccl")
+        mesh13 = make_nng_mesh(NRANKS)
+        check((mesh13.size, mesh13.world, mesh13.backend)
+              == (NRANKS, 1, "nccl"), f"[13a] mesh {mesh13}")
+        for label, kw, ref, need in (
+                ("[13a] point tiles", {"k_cap": K_CAP}, g,
+                 ("nng_tile", "bits_to_cols")),
+                ("[13a] spatial coll", {"k_cap": SP_K_CAP,
+                                        "partition": "spatial"}, coll9,
+                 ("nng_tile_grouped", "bits_to_cols"))):
+            for fn in KERNELS:
+                fn.launches = 0
+            t0 = time.perf_counter()
+            g13 = build_nng(pts, EPS, mesh=mesh13, **kw)
+            wall13 = time.perf_counter() - t0
+            launches13 = {fn.__name__[:-5]: fn.launches for fn in KERNELS
+                          if fn.launches}
+            print(f"{label}: build_nng on {mesh13.size} ranks of a "
+                  f"{mesh13.backend} group of {mesh13.world} process on "
+                  f"{mesh13.device}: elapsed_s {g13.stats.elapsed_s:.3f} "
+                  f"beside the one-process call's {ref.stats.elapsed_s:.3f}; "
+                  f"call wall {wall13:.3f} s; launches "
+                  f"{json.dumps(launches13)}")
+            check(all(launches13.get(k, 0) > 0 for k in need),
+                  f"{label}: a kernel of the path never launched: "
+                  f"{launches13}")
+            same_graph(label, g13, ref)
+            del g13
+    finally:
+        if tdist.is_initialized():
+            tdist.destroy_process_group()
+        for k in env13:
+            os.environ.pop(k, None)
+    del coll9
+    torch.cuda.empty_cache()
+    print(f"[13a] script wall {time.perf_counter() - t_start:.1f} s")
+
+    # -- 13b. 4 gloo processes on this card, 2 ranks each ---------------------
+    pts13, batch13 = pts[:DIST_N], pts[DIST_N:DIST_N + DIST_B]
+    t0 = time.perf_counter()
+    kids = spawn(dist_process, DIST_PROCS, backend="gloo", device="cuda",
+                 args=(pts13, batch13, EPS, SP_K_CAP, NRANKS), timeout=600)
+    spawn_s = time.perf_counter() - t0
+    for r, kid in enumerate(kids):
+        check(kid["mesh"] == (NRANKS, DIST_PROCS, r, "gloo", "cuda:0"),
+              f"[13b] process {r}'s mesh {kid['mesh']}")
+    t0 = time.perf_counter()
+    want13 = dist_cases(RingMesh(NRANKS, dev), pts13, batch13, EPS,
+                        SP_K_CAP)
+    print(f"[13b] {DIST_PROCS} gloo processes x {NRANKS // DIST_PROCS} "
+          f"ranks on {dev} (gloo moves the payloads through host memory, "
+          f"not NCCL), n={DIST_N}, eps={EPS}, k_cap={SP_K_CAP}: the "
+          f"processes took {spawn_s:.1f} s from start to exit; the same "
+          f"calls on RingMesh({NRANKS}) in this process "
+          f"{time.perf_counter() - t0:.1f} s")
+    for label, want in want13.items():
+        for r, kid in enumerate(kids):
+            got = kid[label]
+            differ = [(k, got[k], want[k]) for k in (
+                "sha", "edges", "counters", "comm_bytes", "meta")
+                if got[k] != want[k]]
+            check(not differ, f"[13b] {label}: process {r} differs from "
+                              f"RingMesh({NRANKS}): {differ}")
+        runs = want["counters"]["replans"] + (1 if label == "delta" else 2)
+        model = {k: runs * v for k, v in want["comm_bytes"].items() if v}
+        moved = {}
+        for kid in kids:
+            for k, v in kid[label]["moved"].items():
+                moved[k] = moved.get(k, 0) + v
+        check(moved == model and want["moved"] == model,
+              f"[13b] {label}: bytes moved {moved} (processes), "
+              f"{want['moved']} (RingMesh) against comm_bytes x {runs} "
+              f"runs {model}")
+        launches_b = {}
+        for kid in kids:
+            for k, v in kid[label]["launches"].items():
+                launches_b[k] = launches_b.get(k, 0) + v
+        check(launches_b == want["launches"],
+              f"[13b] {label}: launches {launches_b} in the processes, "
+              f"{want['launches']} in RingMesh({NRANKS})")
+        staging = ", ".join(f"{k_[label]['staging_s']:.3f}" for k_ in kids)
+        sent, secs = {}, {}
+        for kid in kids:
+            for k, v in kid[label]["sent"].items():
+                sent[k] = sent.get(k, 0) + v
+            for k, v in kid[label]["seconds"].items():
+                secs[k] = max(secs.get(k, 0.0), v)
+        print(f"[13b] {label}: {want['edges']} edges (sha256 "
+              f"{want['sha'][:16]}), counters and comm_bytes "
+              f"{json.dumps(want['comm_bytes'])} equal on every process; "
+              f"elapsed_s {max(k_[label]['elapsed_s'] for k_ in kids):.3f} "
+              f"(the slowest process; gloo through host memory) against "
+              f"RingMesh's {want['elapsed_s']:.3f}; call wall "
+              f"{max(k_[label]['wall'] for k_ in kids):.3f} s; host staging "
+              f"{staging} s by process; launches {json.dumps(launches_b)}")
+        print(f"[13b] {label}: bytes between processes by channel "
+              f"{json.dumps(sent)}; host seconds in the exchanges by "
+              f"channel (the slowest process) "
+              f"{json.dumps({k: round(v, 4) for k, v in secs.items()})}")
+    del kids, want13
+    torch.cuda.empty_cache()
+    print(f"[13b] script wall {time.perf_counter() - t_start:.1f} s")
+
+    # -- 13c. NCCL across cards -----------------------------------------------
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        print(f"[13c] not run: this machine has {n_cards} card; NCCL across "
+              f"cards (the multi-card ring) is unverified")
+    else:
+        world13 = min(n_cards, NRANKS)
+        nranks13 = world13 * (NRANKS // world13)
+        kids = spawn(dist_process, world13, backend="nccl",
+                     args=(pts13, batch13, EPS, SP_K_CAP, nranks13),
+                     timeout=600)
+        want13 = dist_cases(RingMesh(nranks13, dev), pts13, batch13, EPS,
+                            SP_K_CAP)
+        for label, want in want13.items():
+            for r, kid in enumerate(kids):
+                check(all(kid[label][k] == want[k] for k in (
+                    "sha", "edges", "counters", "comm_bytes", "meta")),
+                    f"[13c] {label}: process {r} differs from RingMesh")
+            print(f"[13c] {label}: {world13} NCCL processes, {nranks13} "
+                  f"ranks: equal to RingMesh({nranks13}); elapsed_s "
+                  f"{max(k_[label]['elapsed_s'] for k_ in kids):.3f} against "
+                  f"{want['elapsed_s']:.3f}")
+        del kids, want13
+    print(f"[13] {time.perf_counter() - t13:.1f} s (budget {PHASE13_S} s); "
           f"script wall {time.perf_counter() - t_start:.1f} s")
 
     record = {"kernels": [

@@ -144,9 +144,9 @@ def ratios(device: str, metric: str) -> int:
             x.shape[0], dtype=torch.int32, device=x.device).chunk(NRANKS)),
         eng.centers, torch.as_tensor(eng.f, dtype=torch.int64,
                                      device=x.device),
-        nranks=NRANKS, two_eps_c=2.0 * eps, metric=met, plan=plan,
+        mesh=mesh, two_eps_c=2.0 * eps, metric=met, plan=plan,
         ghost_mode="ring")
-    if bool(dropped.any()):
+    if any(bool(d) for d in dropped):
         print("ghost_ab: the plan dropped rows", file=sys.stderr)
         return 1
     blks = [tdev.ring_block(W, Wids, Wgrp, eng.centers, eps=eps, metric=met,

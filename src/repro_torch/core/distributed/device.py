@@ -1,15 +1,20 @@
-"""The systolic ring (the paper's Algorithm 4) on logical ranks.
+"""The systolic ring (the paper's Algorithm 4), the landmark engine and
+the delta traversal, over a mesh of ranks on one or more processes.
 
-``RingMesh(size, device)`` holds ``size`` logical ranks that all live on
-one device. ``_systolic_local`` is the per-rank body of the reference's
-shard_map program, written once over state indexed by rank; each
-``ppermute`` becomes ``_ring_permute``, which reassigns which rank holds
-which block — no copy on one device, but the same hop schedule. The rounds
-run in round-major order (every rank's round r before any rank's round
-r + 1), so the symmetric halving, the even-ring boundary round, the mirror
-accumulator riding one hop behind its block, and its final shift home are
-the reference's own. One process per GPU over NCCL (ROADMAP item 3) will
-drive the same body.
+A ``RingMesh`` (``comm``) is ``size`` ranks over the ``world`` processes of
+a ``torch.distributed`` group, each process owning a run of consecutive
+ranks (``local_ranks``) on its device; ``RingMesh(size, device)`` puts
+every rank in this process. ``_systolic_local`` is the per-rank body of
+the reference's shard_map program, written once over state indexed by
+rank (other processes' slots ``None``); the body loops over the local
+ranks, and each ``ppermute`` is a ``comm.permute``, which moves a payload
+in-process (reassigning a list slot) or to another process (NCCL on the
+card, gloo through host memory). The rounds run in round-major order
+(every local rank's round r before any rank's round r + 1), so the
+symmetric halving, the even-ring boundary round, the mirror accumulator
+riding one hop behind its block, and its final shift home are the
+reference's own; round r + 1's hop is issued before round r evaluates,
+and waited on just before its first read.
 
 Each evaluated ring round runs the fused bitmask tile
 (``repro_torch.kernels.ops.nng_tile_bits``) once forward and once for the
@@ -18,20 +23,21 @@ mirror; neighbour ids come out of the bitmask epilogue
 device memory, never the fp32 distance tile.
 
 Block-summary pruning: each rank's block is summarized as a center and a
-radius once up front; a round whose partner block satisfies
-d(c_me, c_p) > r_me + r_p + eps cannot hold an ε-pair, so it is skipped.
+radius once up front (one all-gather of the summaries); a round whose
+partner block satisfies d(c_me, c_p) > r_me + r_p + eps cannot hold an
+ε-pair, so it is skipped.
 
 The landmark engine (Algorithms 5+6, ``landmark_run``) runs on the same
-logical ranks: Voronoi cells over sampled centres, coalesced onto ranks by
-a capacity-padded all-to-all (``_all_to_all`` stands in for the tiled
-``all_to_all``), and Lemma-1 ε-ghosts either exchanged the same way as
-copies (``ghost_mode="coll"``) or found by rotating each rank's compacted
-block around the ring with its ghost test as packed cell words
-(``"ring"``, ``_ghost_ring``). The cell-sorted queries run through the
-grouped tile (``ops.nng_tile_bits_grouped``) and the ghost tile
+mesh: Voronoi cells over sampled centres, coalesced onto ranks by the
+capacity-padded tiled all-to-all (``comm.all_to_all``), and Lemma-1
+ε-ghosts either exchanged the same way as copies (``ghost_mode="coll"``)
+or found by rotating each rank's compacted block around the ring with its
+ghost test as packed cell words (``"ring"``, ``_ghost_ring``). The
+cell-sorted queries run through the grouped tile
+(``ops.nng_tile_bits_grouped``) and the ghost tile
 (``ops.nng_tile_bits_ghost``), or traverse per-cell cover forests
-(``traversal="tree"``). Its capacities come from
-``plan_landmark_device``, one counting pass over the ranks.
+(``traversal="tree"``). Its capacities come from ``plan_landmark_device``,
+one counting pass over the ranks and an all-gather of the counts.
 
 The tree flavour (``traversal="tree"``) runs the same ring with each rank's
 levelized cover tree (``DeviceForest``): a ring round runs two
@@ -44,6 +50,13 @@ either the forest tables or the raw points as ``plan_ring_schedule``
 decides. Each block travels in its own forest's DFS order
 (``dfs_row_order``), so the queries of a frontier tile share subtrees and
 most tiles hold no active pair; the outputs return in the caller's order.
+A forest travels as its builder tables; the receiver derives its child
+ranges again.
+
+Every process is handed the whole input, as the reference's single
+controller is, and slices its own ranks' blocks. The engines return the
+local ranks' neighbour rows and every rank's counters and overflow flags
+(all-gathered, so every process reads the same values).
 """
 from __future__ import annotations
 
@@ -53,6 +66,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.core.distributed import comm
+from repro_torch.core.distributed.comm import RingMesh
+from repro_torch.core.distributed.comm import \
+    local_all_to_all as _all_to_all  # noqa: F401 (the in-process forms)
+from repro_torch.core.distributed.comm import \
+    ring_permute as _ring_permute  # noqa: F401
 from repro_torch.core.metrics import get_metric
 from repro_torch.kernels.bits_epilogue import SENTINEL
 from repro_torch.kernels.nng_tile import (_BIT, pack_words, popcount32,
@@ -64,37 +83,6 @@ from repro_torch.kernels.ops import (nng_tile_bits, nng_tile_bits_ghost,
                                      nng_tile_bits_grouped,
                                      nng_tile_bits_pair, nng_tile_geometry,
                                      tree_frontier_step)
-
-
-@dataclass(frozen=True)
-class RingMesh:
-    """``size`` logical ranks on one ``device`` (a ``torch.device``)."""
-
-    size: int
-    device: torch.device
-
-
-def make_nng_mesh(nranks: int = 1, device=None) -> RingMesh:
-    """A ring of ``nranks`` logical ranks on one device. ``device=None``
-    means the CUDA card; a CUDA device on a machine without one raises
-    instead of running on the CPU."""
-    if nranks < 1:
-        raise ValueError(f"nranks must be >= 1 (got {nranks})")
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available: the port runs on the GPU by "
-            "default; pass device='cpu' to run the plain PyTorch versions")
-    return RingMesh(int(nranks), dev)
-
-
-def _ring_permute(blocks: list, perm) -> list:
-    """The one-device ``ppermute``: ``perm`` is [(src, dst), ...]; rank dst
-    now holds what rank src held."""
-    out = list(blocks)
-    for src, dst in perm:
-        out[dst] = blocks[src]
-    return out
 
 
 def _merge_ids(buf, new_ids):
@@ -452,23 +440,26 @@ def tree_traverse(qp, qids, qcells, forest: DeviceForest, eps, k_cap: int,
     return torch.cat(nbrs), torch.cat(cnt), acts, acts - outs
 
 
-def _round_skip_flags(xs, partner, eps, *, metric, prune):
+def _round_skip_flags(xs, partner, eps, *, mesh, metric, prune):
     """Per-rank, per-round prune decisions from the block summary table.
 
-    ``xs`` is every rank's block (the all-gather of the summaries is a
-    stack on one device), ``partner`` (nranks, rounds + 1) the block each
-    rank meets in each round. skip[me, r] is True when no point of my
-    block can be within eps of any point of the partner block:
-    d(c_me, c_p) > r_me + r_p + eps. Float-metric center distances are
-    fp32, so the bound carries a small relative slack — under-pruning is
-    always safe, over-pruning never is."""
+    ``xs`` holds the local ranks' blocks; the table of every rank's
+    summary is one all-gather of the local ranks' (the ``ring_summary``
+    channel). ``partner`` (nranks, rounds + 1) is the block each rank
+    meets in each round. skip[me, r] is True when no point of my block can
+    be within eps of any point of the partner block: d(c_me, c_p) > r_me +
+    r_p + eps. Float-metric center distances are fp32, so the bound
+    carries a small relative slack — under-pruning is always safe,
+    over-pruning never is. Every process computes the whole table."""
     nranks, nrounds = partner.shape
     if not prune:
         return torch.zeros((nranks, nrounds), dtype=torch.bool)
     met = get_metric(metric)
-    summ = [met.summary(x) for x in xs]
-    call = torch.stack([c for c, _ in summ])           # (nranks, d)
-    radall = torch.stack([r for _, r in summ])         # (nranks,)
+    summ = [met.summary(xs[me]) for me in mesh.local_ranks]
+    call = comm.all_gather(mesh, torch.stack([c for c, _ in summ]),
+                           channel="ring_summary")          # (nranks, d)
+    radall = comm.all_gather(mesh, torch.stack([r for _, r in summ]),
+                             channel="ring_summary")        # (nranks,)
     skip = torch.zeros((nranks, nrounds), dtype=torch.bool)
     for me in range(nranks):
         p = torch.as_tensor(partner[me], device=call.device)
@@ -481,15 +472,18 @@ def _round_skip_flags(xs, partner, eps, *, metric, prune):
     return skip
 
 
-def _eval_schedule(xs, nranks, eps, *, metric, prune):
+def _eval_schedule(xs, mesh, eps, *, metric, prune):
     """Which rounds each rank evaluates: (do_eval [me][r] bools for rounds
-    r = 0..nranks // 2, tiles_skipped (nranks,) f32). The boundary round of
-    an even ring is scheduled on the lower rank of each pair only, and the
-    block-summary prune skips rounds whose blocks hold no ε-pair."""
+    r = 0..nranks // 2, tiles_skipped (nranks,) f32), for every rank. The
+    boundary round of an even ring is scheduled on the lower rank of each
+    pair only, and the block-summary prune skips rounds whose blocks hold
+    no ε-pair."""
+    nranks = mesh.size
     rounds = nranks // 2
     rr = np.arange(rounds + 1)
     partner = (np.arange(nranks)[:, None] + rr[None, :]) % nranks
-    skip = _round_skip_flags(xs, partner, eps, metric=metric, prune=prune)
+    skip = _round_skip_flags(xs, partner, eps, mesh=mesh, metric=metric,
+                             prune=prune)
     sched = torch.ones((nranks, rounds + 1), dtype=torch.bool)
     if nranks % 2 == 0 and rounds > 0:
         sched[:, rounds] = torch.from_numpy(
@@ -497,10 +491,28 @@ def _eval_schedule(xs, nranks, eps, *, metric, prune):
     return (sched & ~skip).tolist(), (sched & skip).to(torch.float32).sum(1)
 
 
-def _systolic_local(xs, *, nranks, eps, metric, k_cap, prune, overlap=True):
-    """The per-rank body over all ranks. ``xs[me]`` (n_loc, d) is rank
-    me's block; block-contiguous global ids mean a visiting block is fully
-    described by its first id ``me * n_loc``.
+def _local_list(mesh, make) -> list:
+    """A per-rank list: ``make(me)`` in the local ranks' slots, None in the
+    other processes'."""
+    out = [None] * mesh.size
+    for me in mesh.local_ranks:
+        out[me] = make(me)
+    return out
+
+
+def _gathered(mesh, vals, dtype) -> torch.Tensor:
+    """Every rank's value, from the local ranks' ``vals[me]`` (0-d tensors
+    or numbers) -> (nranks,) ``dtype`` on every process."""
+    local = torch.stack([torch.as_tensor(vals[me], device=mesh.device)
+                         .to(dtype) for me in mesh.local_ranks])
+    return comm.all_gather(mesh, local)
+
+
+def _systolic_local(xs, *, mesh, eps, metric, k_cap, prune, overlap=True):
+    """The per-rank body over the local ranks. ``xs[me]`` (n_loc, d) is
+    rank me's block; block-contiguous global ids mean a visiting block is
+    fully described by its first id ``me * n_loc``, which travels with it
+    as an int32 scalar.
 
     Symmetry halving (paper §IV-C): each (local × visiting) tile emits
     BOTH edge directions — the visiting block carries its own neighbour
@@ -509,21 +521,25 @@ def _systolic_local(xs, *, nranks, eps, metric, k_cap, prune, overlap=True):
     round of an even ring only the lower rank of each pair evaluates.
 
     ``overlap=True`` is the reference's double-buffered schedule: a priming
-    hop before the self tile, then each round issues the hop that feeds
-    round r + 1 before it evaluates round r, and the mirror accumulator
-    rides one hop behind its block. ``overlap=False`` is the strict
-    rotate-then-evaluate schedule. Both give the same graph; they differ in
-    the hops they make (one priming hop), which ``comm_bytes`` counts.
+    hop is issued before the self tile, then each round issues the hop
+    that feeds round r + 1 before it evaluates round r (waited on at the
+    start of round r + 1), and the mirror accumulator rides one hop behind
+    its block. ``overlap=False`` is the strict rotate-then-evaluate
+    schedule. Both give the same graph; they differ in the hops they make
+    (one priming hop), which ``comm_bytes`` counts. A round that no local
+    rank evaluates still makes its hops.
 
-    Returns (nbrs (n, k_cap) int32 SENTINEL-padded, cnt (n,) int32 exact,
-    overflow (nranks,) bool, tiles_skipped (nranks,) f32, dists_evaluated
-    (nranks,) f32, nodes_pruned (nranks,) f32)."""
-    n_loc = xs[0].shape[0]
-    dev = xs[0].device
+    Returns (nbrs (n_local, k_cap) int32 SENTINEL-padded and cnt
+    (n_local,) int32 exact, the local ranks' rows in rank order; overflow
+    (nranks,) bool, tiles_skipped (nranks,) f32, dists_evaluated (nranks,)
+    f32, nodes_pruned (nranks,) f32, every rank's)."""
+    nranks = mesh.size
+    loc = mesh.local_ranks
+    n_loc = xs[loc[0]].shape[0]
+    dev = mesh.device
     perm = [(i, (i - 1) % nranks) for i in range(nranks)]
     rounds = nranks // 2
-    id0 = [me * n_loc for me in range(nranks)]
-    do_eval, tiles_skipped = _eval_schedule(xs, nranks, eps, metric=metric,
+    do_eval, tiles_skipped = _eval_schedule(xs, mesh, eps, metric=metric,
                                             prune=prune)
     # float32 counters (the RunStats normalization): int32 wraps at paper
     # scale, fp32 is exact below 2^24 and approximate beyond
@@ -534,6 +550,9 @@ def _systolic_local(xs, *, nranks, eps, metric, k_cap, prune, overlap=True):
 
     def tile_bits(a, b):
         return nng_tile_bits(a, b, ones, eps, metric=metric)
+
+    id0 = _local_list(mesh, lambda me: torch.tensor(
+        me * n_loc, dtype=torch.int32, device=dev))
 
     def eval_pair(me, y, yid0, nbrs_, cnt_, ynbrs_, ycnt_):
         # forward (visiting points near my rows) then mirror (my points near
@@ -547,12 +566,16 @@ def _systolic_local(xs, *, nranks, eps, metric, k_cap, prune, overlap=True):
         ynbrs_ = _merge_ids(ynbrs_, _bits_to_ids(rb, id0[me], k_cap))
         return nbrs_, cnt_, ynbrs_, ycnt_
 
+    def hop(blocks):
+        return comm.permute(mesh, blocks, perm, channel="ring_points")
+
     nbrs0 = torch.full((n_loc, k_cap), SENTINEL, dtype=torch.int32, device=dev)
     cnt0 = torch.zeros(n_loc, dtype=torch.int32, device=dev)
-    ys, yid = list(xs), list(id0)
+    # each visiting block travels with its first id
+    ys = _local_list(mesh, lambda me: (xs[me], id0[me]))
     if overlap and rounds > 0:
         # prime the pipeline: hop 1 in flight while the self tile runs below
-        ys, yid = _ring_permute(ys, perm), _ring_permute(yid, perm)
+        pend = hop(ys)
 
     # self tile (round 0): clear the diagonal bit (row i, column i) and take
     # it off the row's count — structurally excludes self pairs even when
@@ -560,41 +583,40 @@ def _systolic_local(xs, *, nranks, eps, metric, k_cap, prune, overlap=True):
     rows = torch.arange(n_loc, device=dev)
     wsel = rows // 32
     bit = _BIT.to(dev)[rows % 32]
-    nbrs, cnt = [], []
-    for me in range(nranks):
+    nbrs, cnt = [None] * nranks, [None] * nranks
+    for me in loc:
         c_self, bits0 = tile_bits(xs[me], xs[me])
         diag = bits0[rows, wsel] & bit
         bits0[rows, wsel] ^= diag
-        cnt.append(c_self - (diag != 0).to(torch.int32))
-        nbrs.append(_merge_ids(nbrs0, _bits_to_ids(bits0, id0[me], k_cap)))
+        cnt[me] = c_self - (diag != 0).to(torch.int32)
+        nbrs[me] = _merge_ids(nbrs0, _bits_to_ids(bits0, id0[me], k_cap))
         del bits0
 
     if rounds > 0:
-        ynbrs, ycnt = [nbrs0] * nranks, [cnt0] * nranks
+        ymir = _local_list(mesh, lambda me: (nbrs0, cnt0))
         for r in range(1, rounds + 1):
             if overlap:
-                # hop r + 1 issued before round r evaluates
-                y_next, yid_next = _ring_permute(ys, perm), _ring_permute(yid, perm)
+                # round r's block arrived; hop r + 1 is issued before round
+                # r evaluates
+                ys = pend.wait()
+                pend = hop(ys)
             else:
-                ys, yid = _ring_permute(ys, perm), _ring_permute(yid, perm)
-            ynbrs, ycnt = _ring_permute(ynbrs, perm), _ring_permute(ycnt, perm)
-            for me in range(nranks):
+                ys = hop(ys).wait()
+            ymir = comm.permute(mesh, ymir, perm,
+                                channel="ring_mirror").wait()
+            for me in loc:
                 if do_eval[me][r]:
-                    nbrs[me], cnt[me], ynbrs[me], ycnt[me] = eval_pair(
-                        me, ys[me], yid[me], nbrs[me], cnt[me], ynbrs[me],
-                        ycnt[me])
-            if overlap:
-                ys, yid = y_next, yid_next
-        # each block's mirror accumulator sits `rounds` hops downstream of
-        # its home rank; one permute returns it
-        perm_home = [(i, (i + rounds) % nranks) for i in range(nranks)]
-        ynbrs, ycnt = _ring_permute(ynbrs, perm_home), _ring_permute(ycnt, perm_home)
-        for me in range(nranks):
-            nbrs[me] = _merge_ids(nbrs[me], ynbrs[me])
-            cnt[me] = cnt[me] + ycnt[me]
-    overflow = torch.stack([(c > k_cap).any() for c in cnt])
-    return (torch.cat(nbrs), torch.cat(cnt), overflow, tiles_skipped, dists,
-            torch.zeros(nranks, dtype=torch.float32))
+                    nbrs[me], cnt[me], yn, yc = eval_pair(
+                        me, *ys[me], nbrs[me], cnt[me], *ymir[me])
+                    ymir[me] = (yn, yc)
+        if overlap:
+            pend.wait()                 # the last hop, made as the reference's
+        nbrs, cnt = _return_mirror(nbrs, cnt, ymir, mesh)
+    overflow = _gathered(mesh, [None if c is None else (c > k_cap).any()
+                                for c in cnt], torch.bool)
+    return (torch.cat([nbrs[me] for me in loc]),
+            torch.cat([cnt[me] for me in loc]), overflow, tiles_skipped,
+            dists, torch.zeros(nranks, dtype=torch.float32))
 
 
 def dfs_row_order(forest: DeviceForest, id0: int) -> torch.Tensor:
@@ -607,20 +629,47 @@ def dfs_row_order(forest: DeviceForest, id0: int) -> torch.Tensor:
     return lid[lid != SENTINEL].long() - id0
 
 
-def _dfs_blocks(xs, forests):
-    """Each rank's block and its global ids in its forest's DFS order, and
-    the orders: (rows, ids, orders). The ring carries these rows and ids
-    in place of the caller's, and ``_tree_outputs`` restores the caller's
-    order once at the end."""
-    n_loc = xs[0].shape[0]
-    orders = [dfs_row_order(f, me * n_loc) for me, f in enumerate(forests)]
-    rows = [x[o] for x, o in zip(xs, orders)]
-    ids = [(o + me * n_loc).to(torch.int32) for me, o in enumerate(orders)]
+def _dfs_blocks(xs, forests, mesh):
+    """Each local rank's block and its global ids in its forest's DFS
+    order, and the orders: (rows, ids, orders), per-rank lists. The ring
+    carries these rows and ids in place of the caller's, and
+    ``_tree_outputs`` restores the caller's order once at the end."""
+    n_loc = xs[mesh.local_ranks[0]].shape[0]
+    orders = _local_list(mesh, lambda me: dfs_row_order(forests[me],
+                                                        me * n_loc))
+    rows = _local_list(mesh, lambda me: xs[me][orders[me]])
+    ids = _local_list(mesh, lambda me: (orders[me] + me * n_loc)
+                      .to(torch.int32))
     return rows, ids, orders
 
 
-def _systolic_local_tree(xs, forests, *, nranks, eps, metric, k_cap,
-                         prune):
+_N_TABLES = len(DeviceForest._fields) - 2      # the builder tables
+
+
+class _ForestHop:
+    """A permute of forests in flight: their builder tables travel (the
+    ``ring_forest`` channel, as the reference's do), and a forest that
+    arrives from another process derives its child ranges again."""
+
+    def __init__(self, mesh, forests, perm):
+        self._mesh, self._forests, self._perm = mesh, forests, perm
+        self._pend = comm.permute(
+            mesh, [None if f is None else tuple(f[:_N_TABLES])
+                   for f in forests], perm, channel="ring_forest")
+
+    def wait(self) -> list:
+        moved = self._pend.wait()
+        mesh, out = self._mesh, [None] * self._mesh.size
+        for src, dst in self._perm:
+            if mesh.owner(dst) != mesh.rank:
+                continue
+            out[dst] = (self._forests[src] if mesh.owner(src) == mesh.rank
+                        else DeviceForest.from_tables(dict(zip(
+                            DeviceForest._fields, moved[dst]))))
+        return out
+
+
+def _systolic_local_tree(xs, forests, *, mesh, eps, metric, k_cap, prune):
     """The per-rank body, cover-tree flavour, SERIAL schedule
     (``overlap=False``; ``_systolic_local_tree_split`` is the
     double-buffered production body).
@@ -634,49 +683,55 @@ def _systolic_local_tree(xs, forests, *, nranks, eps, metric, k_cap,
     round evaluates. Each block travels in its forest's DFS order
     (``_dfs_blocks``; the block summaries are taken in the caller's).
     Returns what ``_systolic_local`` returns."""
-    n_loc = xs[0].shape[0]
-    dev = xs[0].device
+    nranks = mesh.size
+    loc = mesh.local_ranks
+    n_loc = xs[loc[0]].shape[0]
+    dev = mesh.device
     perm = [(i, (i - 1) % nranks) for i in range(nranks)]
     rounds = nranks // 2
     qcells = torch.zeros(n_loc, dtype=torch.int32, device=dev)
-    do_eval, tiles_skipped = _eval_schedule(xs, nranks, eps, metric=metric,
+    do_eval, tiles_skipped = _eval_schedule(xs, mesh, eps, metric=metric,
                                             prune=prune)
-    xs, ids, orders = _dfs_blocks(xs, forests)
+    xs, ids, orders = _dfs_blocks(xs, forests, mesh)
 
     def trav(qp, qids, fr):
         return tree_traverse(qp, qids, qcells, fr, eps, k_cap, metric)
 
     # round 0 (self tile): one traversal of my own tree; the global-id test
     # inside tree_traverse excludes self pairs structurally
-    nbrs, cnt, dists, pruned = map(list, zip(*(
-        trav(xs[me], ids[me], forests[me]) for me in range(nranks))))
+    nbrs, cnt, dists, pruned = ([None] * nranks for _ in range(4))
+    for me in loc:
+        nbrs[me], cnt[me], dists[me], pruned[me] = trav(xs[me], ids[me],
+                                                        forests[me])
     if rounds > 0:
         nbrs0 = torch.full((n_loc, k_cap), SENTINEL, dtype=torch.int32,
                            device=dev)
         cnt0 = torch.zeros(n_loc, dtype=torch.int32, device=dev)
-        ys, yids, yforests = list(xs), list(ids), list(forests)
-        ynbrs, ycnt = [nbrs0] * nranks, [cnt0] * nranks
+        ys = _local_list(mesh, lambda me: (xs[me], ids[me]))
+        yforests = list(forests)
+        ymir = _local_list(mesh, lambda me: (nbrs0, cnt0))
         for r in range(1, rounds + 1):
-            ys, yids = _ring_permute(ys, perm), _ring_permute(yids, perm)
-            yforests = _ring_permute(yforests, perm)
-            ynbrs, ycnt = _ring_permute(ynbrs, perm), _ring_permute(ycnt, perm)
-            for me in range(nranks):
+            pts_hop = comm.permute(mesh, ys, perm, channel="ring_points")
+            forest_hop = _ForestHop(mesh, yforests, perm)
+            mir_hop = comm.permute(mesh, ymir, perm, channel="ring_mirror")
+            ys, yforests, ymir = (pts_hop.wait(), forest_hop.wait(),
+                                  mir_hop.wait())
+            for me in loc:
                 if not do_eval[me][r]:
                     continue
                 fn, fc, fd, fp = trav(xs[me], ids[me], yforests[me])
-                rn, rc, rd, rp = trav(ys[me], yids[me], forests[me])
+                rn, rc, rd, rp = trav(*ys[me], forests[me])
                 nbrs[me] = _merge_ids(nbrs[me], fn)
                 cnt[me] = cnt[me] + fc
-                ynbrs[me] = _merge_ids(ynbrs[me], rn)
-                ycnt[me] = ycnt[me] + rc
+                ymir[me] = (_merge_ids(ymir[me][0], rn), ymir[me][1] + rc)
                 dists[me] = dists[me] + fd + rd
                 pruned[me] = pruned[me] + fp + rp
-        nbrs, cnt = _return_mirror(nbrs, cnt, ynbrs, ycnt, nranks)
+        nbrs, cnt = _return_mirror(nbrs, cnt, ymir, mesh)
     return _tree_outputs(nbrs, cnt, orders, k_cap, tiles_skipped, dists,
-                         pruned)
+                         pruned, mesh)
 
 
-def _systolic_local_tree_split(xs, forests, *, nranks, eps, metric, k_cap,
+def _systolic_local_tree_split(xs, forests, *, mesh, eps, metric, k_cap,
                                prune, ring_modes):
     """The per-rank body, tree flavour: the double-buffered ring with the
     SPLIT schedule (``overlap=True``, the production tree body).
@@ -686,107 +741,122 @@ def _systolic_local_tree_split(xs, forests, *, nranks, eps, metric, k_cap,
     a collective step that every rank makes alike:
 
     - ``"forest"``: the visiting block's forest tables jump to their round-r
-      position in ONE permute (a multi-hop shift when the rounds between
-      rotated points only, so skipped rounds never pay forest bytes) and
-      the forward direction traverses them.
+      position in ONE permute (a multi-hop shift, to a rank that need not
+      be a neighbour, when the rounds between rotated points only, so
+      skipped rounds never pay forest bytes) and the forward direction
+      traverses them.
     - ``"points"``: only the raw point block and its ids rotate, and an
       evaluated round runs the dense tile pair (``nng_tile_bits_pair``).
 
     Round r + 1's hops are issued before round r evaluates, as in the tiles
-    flavour. The mirror traversal always queries the LOCAL forest, so only
-    the forward direction needs the rotated tables. The mode moves bytes
-    and work, never edges: tiles and traversal emit the same edge set.
-    Blocks travel in their forests' DFS order, as in the serial body."""
-    n_loc = xs[0].shape[0]
-    dev = xs[0].device
+    flavour, and waited on at the start of round r + 1. The mirror
+    traversal always queries the LOCAL forest, so only the forward
+    direction needs the rotated tables. The mode moves bytes and work,
+    never edges: tiles and traversal emit the same edge set. Blocks travel
+    in their forests' DFS order, as in the serial body."""
+    nranks = mesh.size
+    loc = mesh.local_ranks
+    n_loc = xs[loc[0]].shape[0]
+    dev = mesh.device
     perm = [(i, (i - 1) % nranks) for i in range(nranks)]
     rounds = nranks // 2
     assert len(ring_modes) == rounds, (ring_modes, rounds)
     qcells = torch.zeros(n_loc, dtype=torch.int32, device=dev)
-    do_eval, tiles_skipped = _eval_schedule(xs, nranks, eps, metric=metric,
+    do_eval, tiles_skipped = _eval_schedule(xs, mesh, eps, metric=metric,
                                             prune=prune)
-    xs, ids, orders = _dfs_blocks(xs, forests)
+    xs, ids, orders = _dfs_blocks(xs, forests, mesh)
 
     def trav(qp, qids, fr):
         return tree_traverse(qp, qids, qcells, fr, eps, k_cap, metric)
 
     if rounds > 0:
         # prime round 1's payloads; the round-0 self traversals overlap them
-        ys, yids = _ring_permute(list(xs), perm), _ring_permute(ids, perm)
-        vforests, vpos = list(forests), 0
+        pts_hop = comm.permute(mesh, _local_list(mesh, lambda me: (
+            xs[me], ids[me])), perm, channel="ring_points")
+        vforests, vpos, forest_hop = list(forests), 0, None
         if ring_modes[0] == "forest":
-            vforests, vpos = _ring_permute(vforests, perm), 1
-    nbrs, cnt, dists, pruned = map(list, zip(*(
-        trav(xs[me], ids[me], forests[me]) for me in range(nranks))))
+            forest_hop, vpos = _ForestHop(mesh, vforests, perm), 1
+    nbrs, cnt, dists, pruned = ([None] * nranks for _ in range(4))
+    for me in loc:
+        nbrs[me], cnt[me], dists[me], pruned[me] = trav(xs[me], ids[me],
+                                                        forests[me])
     if rounds > 0:
         nbrs0 = torch.full((n_loc, k_cap), SENTINEL, dtype=torch.int32,
                            device=dev)
         cnt0 = torch.zeros(n_loc, dtype=torch.int32, device=dev)
-        ynbrs, ycnt = [nbrs0] * nranks, [cnt0] * nranks
+        ymir = _local_list(mesh, lambda me: (nbrs0, cnt0))
         for r in range(1, rounds + 1):
-            y_cur, yids_cur, vf_cur = ys, yids, vforests
+            y_cur = pts_hop.wait()
+            if forest_hop is not None:
+                vforests, forest_hop = forest_hop.wait(), None
+            vf_cur = vforests
             if r < rounds:
                 # issue round r + 1's payloads before this round evaluates
-                ys, yids = _ring_permute(ys, perm), _ring_permute(yids, perm)
+                pts_hop = comm.permute(mesh, y_cur, perm,
+                                       channel="ring_points")
                 if ring_modes[r] == "forest":
                     # jump the forest from its last position straight to
                     # round r + 1: one permute, one hop's bytes
                     jump = r + 1 - vpos
-                    vforests = _ring_permute(
-                        vforests, [(i, (i - jump) % nranks)
-                                   for i in range(nranks)])
+                    forest_hop = _ForestHop(mesh, vforests, [
+                        (i, (i - jump) % nranks) for i in range(nranks)])
                     vpos = r + 1
             # the mirror accumulator rides one hop behind the block
-            ynbrs, ycnt = _ring_permute(ynbrs, perm), _ring_permute(ycnt, perm)
-            for me in range(nranks):
+            ymir = comm.permute(mesh, ymir, perm,
+                                channel="ring_mirror").wait()
+            for me in loc:
                 if not do_eval[me][r]:
                     continue
+                yp, yid = y_cur[me]
                 if ring_modes[r - 1] == "forest":
                     fn, fc, fd, fp = trav(xs[me], ids[me], vf_cur[me])
-                    rn, rc, rd, rp = trav(y_cur[me], yids_cur[me],
-                                          forests[me])
+                    rn, rc, rd, rp = trav(yp, yid, forests[me])
                     dists[me] = dists[me] + fd + rd
                     pruned[me] = pruned[me] + fp + rp
                 else:
                     fc, fb, rc, rb = nng_tile_bits_pair(
-                        xs[me], y_cur[me], eps, metric=metric)
-                    fn = _bits_to_gathered_ids(fb, yids_cur[me], k_cap)
+                        xs[me], yp, eps, metric=metric)
+                    fn = _bits_to_gathered_ids(fb, yid, k_cap)
                     del fb
                     rn = _bits_to_gathered_ids(rb, ids[me], k_cap)
                     del rb
                     dists[me] = dists[me] + n_loc * n_loc
                 nbrs[me] = _merge_ids(nbrs[me], fn)
                 cnt[me] = cnt[me] + fc
-                ynbrs[me] = _merge_ids(ynbrs[me], rn)
-                ycnt[me] = ycnt[me] + rc
-        nbrs, cnt = _return_mirror(nbrs, cnt, ynbrs, ycnt, nranks)
+                ymir[me] = (_merge_ids(ymir[me][0], rn), ymir[me][1] + rc)
+        nbrs, cnt = _return_mirror(nbrs, cnt, ymir, mesh)
     return _tree_outputs(nbrs, cnt, orders, k_cap, tiles_skipped, dists,
-                         pruned)
+                         pruned, mesh)
 
 
-def _return_mirror(nbrs, cnt, ynbrs, ycnt, nranks):
-    """Each block's mirror accumulator sits ``nranks // 2`` hops downstream
-    of its home rank: one permute returns it, and it merges in."""
+def _return_mirror(nbrs, cnt, ymir, mesh):
+    """Each block's mirror accumulator (nbrs, cnt) sits ``nranks // 2``
+    hops downstream of its home rank: one permute returns it, and it
+    merges in."""
+    nranks = mesh.size
     rounds = nranks // 2
     perm_home = [(i, (i + rounds) % nranks) for i in range(nranks)]
-    ynbrs, ycnt = _ring_permute(ynbrs, perm_home), _ring_permute(ycnt, perm_home)
-    return ([_merge_ids(a, b) for a, b in zip(nbrs, ynbrs)],
-            [a + b for a, b in zip(cnt, ycnt)])
+    ymir = comm.permute(mesh, ymir, perm_home, channel="ring_mirror").wait()
+    for me in mesh.local_ranks:
+        nbrs[me] = _merge_ids(nbrs[me], ymir[me][0])
+        cnt[me] = cnt[me] + ymir[me][1]
+    return nbrs, cnt
 
 
-def _tree_outputs(nbrs, cnt, orders, k_cap, tiles_skipped, dists, pruned):
-    """The tree bodies' outputs in ``_systolic_local``'s form: each rank's
-    rows back in the caller's order (row i of a block's DFS order is its
-    row ``orders[me][i]``), and the exact int64 counters as the float32
-    the RunStats normalization uses."""
-    dev = nbrs[0].device
-    nbrs = [torch.empty_like(a).index_copy_(0, o, a)
-            for a, o in zip(nbrs, orders)]
-    cnt = [torch.empty_like(a).index_copy_(0, o, a)
-           for a, o in zip(cnt, orders)]
-    overflow = torch.stack([(c > k_cap).any() for c in cnt])
-    counts = [torch.stack([torch.as_tensor(v, dtype=torch.int64, device=dev)
-                           for v in vals]).to(torch.float32)
+def _tree_outputs(nbrs, cnt, orders, k_cap, tiles_skipped, dists, pruned,
+                  mesh):
+    """The tree bodies' outputs in ``_systolic_local``'s form: each local
+    rank's rows back in the caller's order (row i of a block's DFS order
+    is its row ``orders[me][i]``), and every rank's exact int64 counters
+    as the float32 the RunStats normalization uses."""
+    loc = mesh.local_ranks
+    nbrs = [torch.empty_like(nbrs[me]).index_copy_(0, orders[me], nbrs[me])
+            for me in loc]
+    cnt = [torch.empty_like(cnt[me]).index_copy_(0, orders[me], cnt[me])
+           for me in loc]
+    overflow = comm.all_gather(mesh, torch.stack([(c > k_cap).any()
+                                                  for c in cnt]))
+    counts = [_gathered(mesh, vals, torch.int64).to(torch.float32)
               for vals in (dists, pruned)]
     return (torch.cat(nbrs), torch.cat(cnt), overflow, tiles_skipped,
             counts[0], counts[1])
@@ -844,29 +914,60 @@ def plan_ring_schedule(points, nranks: int, eps: float, *,
     return tuple(modes)
 
 
+def local_tables(tables: dict, mesh: RingMesh) -> dict:
+    """The local ranks' rows of rank-stacked tables (a leading axis of
+    every rank, which is sliced, or of the local ranks alone, which is
+    kept)."""
+    loc = mesh.local_ranks
+    lead = tables["cell"].shape[0]
+    if lead == len(loc):
+        return tables
+    if lead != mesh.size:
+        raise ValueError(f"tables of {lead} ranks on a mesh of {mesh.size} "
+                         f"({len(loc)} in this process)")
+    return {k: v[loc.start:loc.stop] for k, v in tables.items()}
+
+
+def _rank_forests(forest, mesh: RingMesh) -> list:
+    """Per-rank list of the local ranks' ``DeviceForest`` from rank-stacked
+    tables (a dict or a ``DeviceForest``, of every rank or of the local
+    ranks)."""
+    if isinstance(forest, DeviceForest):
+        f = DeviceForest(**local_tables(forest._asdict(), mesh))
+    else:
+        f = DeviceForest.from_tables(local_tables(forest, mesh),
+                                     device=mesh.device)
+    return _local_list(mesh, lambda me: f.rank(me - mesh.local_ranks[0]))
+
+
 def systolic_run(points, eps: float, mesh: RingMesh, *, metric="euclidean",
                  k_cap: int = 64, prune: bool = True, overlap: bool = True,
                  traversal: str = "tiles", forest=None,
                  ring_schedule: tuple | None = None):
     """Exact ε-NNG via the sparsity-aware systolic ring over ``mesh``.
 
-    ``points`` (n, d), n a multiple of the ring size (``build_nng`` pads).
-    ``traversal="tiles"`` evaluates each round with the fused bitmask tile;
-    ``traversal="tree"`` traverses per-block cover trees (``forest``: the
-    rank-stacked tables of ``flat_tree.build_block_forests``, as a dict or
-    a ``DeviceForest``). The tree flavour with ``overlap=True`` runs the
-    split schedule ``ring_schedule`` (planned by ``plan_ring_schedule``
-    when None). Returns (nbrs, cnt, overflow, tiles_skipped,
-    dists_evaluated, nodes_pruned) as ``_systolic_local`` describes, on the
-    mesh device; grow ``k_cap`` and re-run if any overflow flag is set."""
+    ``points`` (n, d), the whole input on every process, n a multiple of
+    the ring size (``build_nng`` pads); each process takes its local
+    ranks' blocks. ``traversal="tiles"`` evaluates each round with the
+    fused bitmask tile; ``traversal="tree"`` traverses per-block cover
+    trees (``forest``: the rank-stacked tables of
+    ``flat_tree.build_block_forests``, of every rank or of the local ranks,
+    as a dict or a ``DeviceForest``). The tree flavour with
+    ``overlap=True`` runs the split schedule ``ring_schedule`` (planned by
+    ``plan_ring_schedule`` when None). Returns (nbrs, cnt, overflow,
+    tiles_skipped, dists_evaluated, nodes_pruned) as ``_systolic_local``
+    describes (the local ranks' rows; every rank's flags and counters),
+    on the mesh device; grow ``k_cap`` and re-run if any overflow flag is
+    set."""
     met = get_metric(metric)
     nranks = mesh.size
     n = points.shape[0]
     if n % nranks != 0:
         raise ValueError(f"n={n} is not a multiple of the ring size {nranks}")
     x = met.as_device(points, mesh.device)
-    xs = list(x.contiguous().chunk(nranks))
-    kw = dict(nranks=nranks, eps=float(eps), metric=met, k_cap=int(k_cap),
+    blocks = x.contiguous().chunk(nranks)
+    xs = _local_list(mesh, lambda me: blocks[me])
+    kw = dict(mesh=mesh, eps=float(eps), metric=met, k_cap=int(k_cap),
               prune=prune)
     if traversal == "tiles":
         return _systolic_local(xs, overlap=overlap, **kw)
@@ -874,9 +975,7 @@ def systolic_run(points, eps: float, mesh: RingMesh, *, metric="euclidean",
         raise ValueError(f"unknown traversal {traversal!r}")
     if forest is None:
         raise ValueError("traversal='tree' needs the stacked forest tables")
-    if not isinstance(forest, DeviceForest):
-        forest = DeviceForest.from_tables(forest, device=mesh.device)
-    forests = [forest.rank(r) for r in range(nranks)]
+    forests = _rank_forests(forest, mesh)
     if not overlap:
         return _systolic_local_tree(xs, forests, **kw)
     if ring_schedule is None:
@@ -892,7 +991,7 @@ def systolic_run(points, eps: float, mesh: RingMesh, *, metric="euclidean",
 
 def _delta_local(qp, qids, qbits, forest_r: DeviceForest, *, eps, metric,
                  k_cap):
-    """One rank's delta body: the (replicated) inserted batch traverses
+    """One rank's delta body: the (broadcast) inserted batch traverses
     this rank's forest once. ``qbits`` are all-ones cell words, so every
     tree of every cell is in scope: an inserted point is checked against
     the whole local forest, whichever cell it lands in (the batch is
@@ -907,38 +1006,40 @@ def _delta_local(qp, qids, qbits, forest_r: DeviceForest, *, eps, metric,
 def delta_traverse_run(qp, qids, forest, eps: float, mesh: RingMesh, *,
                        metric="euclidean", k_cap: int = 64):
     """Query ONLY the batch ``qp`` against every rank's forest: the online
-    insert path. Instead of a full ring or landmark schedule, the inserted
-    points go to every rank once (``delta_bcast_bytes`` models that
-    broadcast; there is no collective here) and each rank runs one
-    level-synchronous traversal of its local forest, rank after rank on
-    the mesh's device as ``landmark_run`` loops them. The union of the
-    ranks' hits is the new-edge set (the forests partition the corpus).
+    insert path. Instead of a full ring or landmark schedule, rank 0's
+    batch (points and int32 ids) is broadcast to every process (the
+    ``delta_bcast`` channel; ``delta_bcast_bytes`` is its byte model), and
+    each process runs one level-synchronous traversal of each local rank's
+    forest, rank after rank. The all-ones cell words are as wide as the
+    largest cell id of any rank's forest (one all-reduce). The union of
+    the ranks' hits is the new-edge set (the forests partition the
+    corpus).
 
-    ``forest`` holds the rank-stacked tables (a dict or a
-    ``DeviceForest``). Returns (nbrs (nranks·nq, k_cap) SENTINEL-padded,
-    cnt (nranks·nq,), dists (nranks,) fp32, pruned (nranks,) fp32): row
-    r·nq + i holds rank r's neighbours of query i, so pairing with
-    ``qids`` repeated nranks times recovers directed (src, dst) pairs.
-    Self pairs are excluded by global id inside ``tree_traverse``."""
+    ``forest`` holds the rank-stacked tables (a dict or a ``DeviceForest``,
+    of every rank or of the local ranks). Returns (nbrs (n_local·nq,
+    k_cap) SENTINEL-padded, cnt (n_local·nq,), dists (nranks,) fp32,
+    pruned (nranks,) fp32): row j·nq + i holds the j-th local rank's
+    neighbours of query i, so pairing with ``qids`` repeated once a local
+    rank recovers directed (src, dst) pairs. Self pairs are excluded by
+    global id inside ``tree_traverse``."""
     met = get_metric(metric)
-    nranks = mesh.size
     qp = met.as_device(qp, mesh.device)
     qids = torch.as_tensor(qids, device=mesh.device).to(torch.int32)
-    if not isinstance(forest, DeviceForest):
-        forest = DeviceForest.from_tables(forest, device=mesh.device)
-    if forest.cell.shape[0] != nranks:
-        raise ValueError(f"the forest has {forest.cell.shape[0]} ranks, the "
-                         f"mesh {nranks}")
+    qp, qids = comm.broadcast(mesh, (qp, qids), channel="delta_bcast")
+    forests = _rank_forests(forest, mesh)
     # all-ones cell words, wide enough for every cell id present
-    max_cell = max(int(forest.cell.max()), 0)
+    max_cell = comm.all_max(mesh, max(max(int(forests[me].cell.max())
+                                          for me in mesh.local_ranks), 0))
     qbits = torch.full((qp.shape[0], max_cell // 32 + 1), -1,
                        dtype=torch.int32, device=mesh.device)
-    outs = [_delta_local(qp, qids, qbits, forest.rank(r), eps=float(eps),
-                         metric=met, k_cap=int(k_cap))
-            for r in range(nranks)]
-    nbrs, cnt, dists, pruned = zip(*outs)
-    return (torch.cat(nbrs), torch.cat(cnt), torch.stack(dists),
-            torch.stack(pruned))
+    outs = _local_list(mesh, lambda me: _delta_local(
+        qp, qids, qbits, forests[me], eps=float(eps), metric=met,
+        k_cap=int(k_cap)))
+    loc = mesh.local_ranks
+    return (torch.cat([outs[me][0] for me in loc]),
+            torch.cat([outs[me][1] for me in loc]),
+            _gathered(mesh, [o and o[2] for o in outs], torch.float32),
+            _gathered(mesh, [o and o[3] for o in outs], torch.float32))
 
 
 def delta_bcast_bytes(nranks: int, nq: int, dim: int, itemsize: int) -> int:
@@ -1040,31 +1141,35 @@ def plan_landmark_device(points, centers, f, eps: float, mesh: RingMesh, *,
                          metric="euclidean", k_cap: int = 128,
                          pad: int = 8) -> LandmarkPlan:
     """EXACT landmark capacity planning as one counting pass over the
-    ranks: each rank bincounts its coalesce destinations and its slacked
-    Lemma-1 ghost copies per destination rank (the tests the engine
-    applies), and the maxima over ranks (the reference's ``all_gather``,
-    here a stack over the logical ranks) give capacities that are exact
-    (+``pad`` slop). Only ``k_cap`` stays a guess that the overflow loop
-    may grow."""
+    ranks: each local rank bincounts its coalesce destinations and its
+    slacked Lemma-1 ghost copies per destination rank (the tests the
+    engine applies); an all-gather of the counts (the reference's) gives
+    every process every rank's, and their maxima capacities that are
+    exact (+``pad`` slop), the same ints on every process. Only ``k_cap``
+    stays a guess that the overflow loop may grow."""
     met = get_metric(metric)
     nranks = mesh.size
     x = met.as_device(points, mesh.device)
     assert x.shape[0] % nranks == 0, (x.shape[0], nranks)
     c = met.as_device(centers, mesh.device)
     ft = torch.as_tensor(np.asarray(f), dtype=torch.int64, device=mesh.device)
+    blocks = x.chunk(nranks)
     coal, ghost, gpp = zip(*(
-        _plan_count_local(xr, c, ft, nranks=nranks, two_eps_c=2.0 * eps,
-                          metric=met)
-        for xr in x.chunk(nranks)))
-    coal_all = torch.stack(coal)            # (src, dst) coalesce counts
+        _plan_count_local(blocks[me], c, ft, nranks=nranks,
+                          two_eps_c=2.0 * eps, metric=met)
+        for me in mesh.local_ranks))
+    # (src, dst) coalesce counts, every rank's
+    coal_all = comm.all_gather(mesh, torch.stack(coal))
+    ghost_all = comm.all_gather(mesh, torch.stack(ghost))
+    gpp_all = comm.all_gather(mesh, torch.stack(gpp))
     # total rows any ONE rank receives in coalesce = the compacted block
     # height the ring ghost path rotates (column sums of the src×dst table)
     rank_tot = int(coal_all.sum(0).max())
     return LandmarkPlan(
         m_centers=int(c.shape[0]),
         cap_coal=int(coal_all.max()) + pad,
-        cap_ghost=max(int(torch.stack(ghost).max()), 1) + pad,
-        g_per_pt=max(int(torch.stack(gpp).max()), 1),
+        cap_ghost=max(int(ghost_all.max()), 1) + pad,
+        g_per_pt=max(int(gpp_all.max()), 1),
         k_cap=k_cap,
         cap_rank=rank_tot + pad,
     )
@@ -1095,15 +1200,6 @@ def _pack_by_dest(dest, valid, payload: dict, nranks: int, cap: int):
     return out, dropped
 
 
-def _all_to_all(sends: list) -> list:
-    """The one-device tiled ``all_to_all``: ``sends[s]`` is sender s's
-    (nranks, cap, ...) buffer; rank r receives block r of every sender, in
-    sender order, as one (nranks * cap, ...) buffer."""
-    nranks = len(sends)
-    return [torch.cat([sends[s][r] for s in range(nranks)])
-            for r in range(nranks)]
-
-
 def _cell_sort(key_cell, valid, m, *arrays):
     """Cell-sorted compaction: stable-sort rows so cells are contiguous and
     padding rows (key m) cluster at the end — the layout that makes the
@@ -1113,53 +1209,59 @@ def _cell_sort(key_cell, valid, m, *arrays):
     return tuple(a[order] for a in arrays)
 
 
-def _exchange(sends: list, m: int):
-    """One capacity-padded exchange: every sender's packed (pts, ids, cell)
-    buffers through ``_all_to_all``, then each receiver's rows cell-sorted.
-    Returns per rank (rows, ids, group), group -1 on padding rows."""
-    recv = {k: _all_to_all([s[k] for s in sends]) for k in sends[0]}
-    out = []
-    for pts, ids, cell in zip(recv["pts"], recv["ids"], recv["cell"]):
+def _exchange(sends: list, m: int, mesh: RingMesh, channel: str):
+    """One capacity-padded exchange: every local rank's packed (pts, ids,
+    cell) buffers through the tiled all-to-all, then each receiver's rows
+    cell-sorted. Returns per rank (rows, ids, group), group -1 on padding
+    rows (local ranks only)."""
+    keys = ("pts", "ids", "cell")
+    recv = {k: comm.all_to_all(mesh, [s and s[k] for s in sends],
+                               channel=channel) for k in keys}
+
+    def sort(r):
+        pts, ids, cell = (recv[k][r] for k in keys)
         valid = ids != SENTINEL
         pts, ids, cell, valid = _cell_sort(cell, valid, m, pts, ids, cell,
                                            valid)
-        out.append((pts, ids, torch.where(valid, cell, -1)))
-    return out
+        return pts, ids, torch.where(valid, cell, -1)
+    return _local_list(mesh, sort)
 
 
-def _landmark_exchange(xs, ids, centers, f, *, nranks, two_eps_c, metric,
+def _landmark_exchange(xs, ids, centers, f, *, mesh, two_eps_c, metric,
                        plan, cells=None, ghost_mode="coll"):
-    """Phases 1, 2 and (for ``ghost_mode="coll"``) 4's exchange over all
-    ranks.
+    """Phases 1, 2 and (for ``ghost_mode="coll"``) 4's exchange over the
+    local ranks.
 
     Phase 1: each rank's Voronoi cells — ``cells[r]`` where given (the tree
     flavour passes the host assignment its forests were built from), else
     the argmin of ``metric.cdist`` to the replicated centres. Phase 2: rows
     coalesce onto their cell's rank through the capacity-padded
-    all-to-all. Phase 4 (coll): each point's slacked Lemma-1 ghost cells,
-    at most ``g_per_pt`` of them (the nearest first, a stable sort), travel
-    as ghost copies that carry their TARGET cell; d(p, C) is the fp32 min
-    over ALL centres, so with a given assignment the slack absorbs a
-    near-tie's gap. Returns (per rank (W, Wids, Wgrp, G, Gids, Ggrp), or
-    (W, Wids, Wgrp) for the ring; dropped (nranks,) bool: a coalesce row,
-    a ghost copy or a ghost cell did not fit)."""
+    all-to-all (the ``coalesce`` channel). Phase 4 (coll): each point's
+    slacked Lemma-1 ghost cells, at most ``g_per_pt`` of them (the nearest
+    first, a stable sort), travel as ghost copies that carry their TARGET
+    cell (the ``ghost`` channel); d(p, C) is the fp32 min over ALL
+    centres, so with a given assignment the slack absorbs a near-tie's
+    gap. Returns (per rank (W, Wids, Wgrp, G, Gids, Ggrp), or (W, Wids,
+    Wgrp) for the ring; dropped per rank: a coalesce row, a ghost copy or
+    a ghost cell did not fit)."""
     m = centers.shape[0]
-    dev = xs[0].device
+    nranks = mesh.size
+    dev = mesh.device
     cell_ids = torch.arange(m, device=dev)
-    csend, gsend, dropped = [], [], []
-    for r, (x, xid) in enumerate(zip(xs, ids)):
+    csend, gsend, dropped = ([None] * nranks for _ in range(3))
+    for r in mesh.local_ranks:
+        x, xid = xs[r], ids[r]
         n_loc = x.shape[0]
         dpc = metric.cdist(x, centers)
         cell = (torch.argmin(dpc, dim=1) if cells is None
                 else cells[r].long())
         d_min = dpc.amin(1)
-        send, dropped_c = _pack_by_dest(
+        csend[r], dropped_c = _pack_by_dest(
             f[cell], torch.ones(n_loc, dtype=torch.bool, device=dev),
             {"pts": (x, 0), "ids": (xid, SENTINEL),
              "cell": (cell.to(torch.int32), -1)}, nranks, plan.cap_coal)
-        csend.append(send)
         if ghost_mode == "ring":
-            dropped.append(dropped_c > 0)
+            dropped[r] = dropped_c > 0
             continue
         tru, gbound = _lemma1_ghost_bound(x, centers, dpc, d_min, two_eps_c,
                                           metric)
@@ -1172,18 +1274,17 @@ def _landmark_exchange(xs, ids, centers, f, *, nranks, two_eps_c, metric,
         g_dropped = gmask.sum() - gvalid.sum()
         gp = torch.arange(n_loc, device=dev).repeat_interleave(plan.g_per_pt)
         gc = gcells.reshape(-1)
-        send, dropped_g = _pack_by_dest(
+        gsend[r], dropped_g = _pack_by_dest(
             f[gc], gvalid.reshape(-1),
             {"pts": (x[gp], 0), "ids": (xid[gp], SENTINEL),
              "cell": (gc.to(torch.int32), -1)}, nranks, plan.cap_ghost)
-        gsend.append(send)
-        dropped.append((dropped_c > 0) | (dropped_g > 0) | (g_dropped > 0))
-    W = _exchange(csend, m)
+        dropped[r] = (dropped_c > 0) | (dropped_g > 0) | (g_dropped > 0)
+    W = _exchange(csend, m, mesh, "coalesce")
     del csend
     if ghost_mode == "ring":
-        return W, torch.stack(dropped)
-    G = _exchange(gsend, m)
-    return [w + g for w, g in zip(W, G)], torch.stack(dropped)
+        return W, dropped
+    G = _exchange(gsend, m, mesh, "ghost")
+    return [w and w + g for w, g in zip(W, G)], dropped
 
 
 class _Queries:
@@ -1253,22 +1354,23 @@ def ring_block(W, Wids, Wgrp, centers, *, eps, metric, cap_rank):
         torch.nn.functional.pad(gmask, (0, -m % 32)))
 
 
-def _ghost_ring(bufs, centers, forests, *, nranks, eps, metric, plan,
+def _ghost_ring(bufs, centers, forests, *, mesh, eps, metric, plan,
                 traversal):
-    """The ring ghost phase (``ghost_mode="ring"``) over all ranks: the
-    ε-ghost exchange as a rotation of each rank's COMPACTED coalesce block
-    instead of an all-to-all of ghost copies.
+    """The ring ghost phase (``ghost_mode="ring"``) over the local ranks:
+    the ε-ghost exchange as a rotation of each rank's COMPACTED coalesce
+    block instead of an all-to-all of ghost copies.
 
     Each rank compacts its cell-sorted W to ``plan.cap_rank`` rows (valid
     rows first: the cell sort puts padding last; more valid rows than that
     overflow) and computes the slacked Lemma-1 ghost test ONCE at home as
     packed per-row cell words (``ring_block``), and the (block, ids,
-    words) triple rotates by ``_ring_permute`` with the
-    reference's hop (i -> i - 1): at round r rank me holds rank
-    (me + r) % R's block. The words travel with the block: recomputing
-    them on arrival would let an fp32 argmin near-tie differ between ranks
-    and drop edges. Round r + 1's hop is issued before round r evaluates,
-    in the reference's order (on one device, only an ordering).
+    words) triple rotates by ``comm.permute`` (the ``ghost_ring`` channel)
+    with the reference's hop (i -> i - 1): at round r rank me holds rank
+    (me + r) % R's block. The words travel with the block, also to another
+    process or card: recomputing them on arrival would let an fp32 argmin
+    near-tie differ between ranks and drop edges. Round r + 1's hop is
+    issued before round r evaluates and waited on at the start of round
+    r + 1.
 
     Each round the visiting rows query the LOCAL cells within their ghost
     sets: tiles through ``nng_tile_bits_ghost`` against the rank's W (each
@@ -1279,20 +1381,22 @@ def _ghost_ring(bufs, centers, forests, *, nranks, eps, metric, plan,
     cover every rank pair since Lemma 1 holds in both directions of an
     ε-pair; on an even ring the boundary round's pair {me, me + R/2} is
     evaluated by the lower rank only, and the other rank adds no table.
-    Returns per rank a ``_Queries`` and the overflow flags (nranks,)."""
+    Returns per rank a ``_Queries`` and the overflow flags, local ranks
+    only."""
     B = plan.cap_rank
     k_cap = plan.k_cap
+    nranks = mesh.size
     dev = centers.device
     perm = [(i, (i - 1) % nranks) for i in range(nranks)]
     rounds = nranks // 2
-    blks = [ring_block(W, Wids, Wgrp, centers, eps=eps, metric=metric,
-                       cap_rank=B) for W, Wids, Wgrp in bufs]
-    over = [(Wgrp >= 0).sum() > B for _, _, Wgrp in bufs]
-    outs = [_Queries(dev) for _ in range(nranks)]
+    blks = _local_list(mesh, lambda me: ring_block(
+        *bufs[me], centers, eps=eps, metric=metric, cap_rank=B))
+    over = _local_list(mesh, lambda me: (bufs[me][2] >= 0).sum() > B)
+    outs = _local_list(mesh, lambda me: _Queries(dev))
     for r in range(rounds + 1):
-        if r < rounds:
-            nxt = _ring_permute(blks, perm)     # round r + 1's hop first
-        for me in range(nranks):
+        if r < rounds:                          # round r + 1's hop first
+            nxt = comm.permute(mesh, blks, perm, channel="ghost_ring")
+        for me in mesh.local_ranks:
             if (r == rounds and rounds > 0 and nranks % 2 == 0
                     and not me < (me + rounds) % nranks):
                 continue
@@ -1308,14 +1412,14 @@ def _ghost_ring(bufs, centers, forests, *, nranks, eps, metric, plan,
                     bi, Wids, (B, W.shape[0]), k_cap, metric)
             outs[me].add(*res)
         if r < rounds:
-            blks = nxt
-    return outs, torch.stack(over)
+            blks = nxt.wait()
+    return outs, over
 
 
-def _landmark_local(xs, ids, centers, f, *, nranks, eps, metric, plan,
+def _landmark_local(xs, ids, centers, f, *, mesh, eps, metric, plan,
                     traversal="tiles", ghost_mode="coll", forests=None,
                     cells=None):
-    """The per-rank landmark body over all ranks.
+    """The per-rank landmark body over the local ranks.
 
     The exchange of ``_landmark_exchange``, then per rank the intra-cell
     W x W queries (Phase 3) and the ghost queries (Phase 4): G x W under
@@ -1333,13 +1437,15 @@ def _landmark_local(xs, ids, centers, f, *, nranks, eps, metric, plan,
     tq·tp in float32 on tiles and the traversal's frontier pairs on the
     tree, ``nodes_pruned`` the traversal's. Returns (Wids, nbrs, cnt, Gids,
     gnbrs, gcnt, overflow, tiles_skipped, tiles_scheduled, dists_evaluated,
-    nodes_pruned): the neighbour tables as lists of per-launch parts, rank
-    by rank (never concatenated: on the card the ring's tables alone take
-    tens of GB, and a copy would double them), and (nranks,) counters."""
+    nodes_pruned): the local ranks' neighbour tables as lists of per-launch
+    parts, rank by rank (never concatenated: on the card the ring's tables
+    alone take tens of GB, and a copy would double them), and every rank's
+    (nranks,) flags and counters."""
     bufs, dropped = _landmark_exchange(
-        xs, ids, centers, f, nranks=nranks, two_eps_c=2.0 * eps,
+        xs, ids, centers, f, mesh=mesh, two_eps_c=2.0 * eps,
         metric=metric, plan=plan, cells=cells, ghost_mode=ghost_mode)
     k_cap = plan.k_cap
+    loc = mesh.local_ranks
 
     def cell_queries(r, X, Xids, Xgrp):
         """Rank r's rows X (cells Xgrp) against its own cells."""
@@ -1355,28 +1461,32 @@ def _landmark_local(xs, ids, centers, f, *, nranks, eps, metric, plan,
                 Xids, Wids, (X.shape[0], W.shape[0]), k_cap, metric))
         return q
 
-    wq = [cell_queries(r, *bufs[r][:3]) for r in range(nranks)]
+    wq = _local_list(mesh, lambda r: cell_queries(r, *bufs[r][:3]))
     if ghost_mode == "ring":
-        gq, over = _ghost_ring(bufs, centers, forests, nranks=nranks,
-                               eps=eps, metric=metric, plan=plan,
-                               traversal=traversal)
-        dropped = dropped | over
+        gq, over = _ghost_ring(bufs, centers, forests, mesh=mesh, eps=eps,
+                               metric=metric, plan=plan, traversal=traversal)
+        dropped = [None if d is None else d | o
+                   for d, o in zip(dropped, over)]
     else:
-        gq = []
-        for r in range(nranks):
-            gq.append(cell_queries(r, *bufs[r][3:]))
+        gq = [None] * mesh.size
+        for r in loc:
+            gq[r] = cell_queries(r, *bufs[r][3:])
             bufs[r] = bufs[r][:3]               # free G before the next
     del bufs
-    flags = [drop | any((c > k_cap).any() for c in w.cnt + g.cnt)
-             for w, g, drop in zip(wq, gq, dropped)]
-    counters = [[(w.skip + g.skip).to(torch.float32),
-                 (w.sched + g.sched).to(torch.float32), w.dists + g.dists,
-                 (w.pruned + g.pruned).to(torch.float32)]
-                for w, g in zip(wq, gq)]
-    tables = [[part for q in qs for part in getattr(q, name)]
+    flags = _gathered(mesh, [
+        None if wq[r] is None else
+        dropped[r] | any((c > k_cap).any() for c in wq[r].cnt + gq[r].cnt)
+        for r in range(mesh.size)], torch.bool)
+    counters = [_gathered(mesh, [q and get(q, g) for q, g in zip(wq, gq)],
+                          torch.float32)
+                for get in (lambda w, g: (w.skip + g.skip).to(torch.float32),
+                            lambda w, g: (w.sched + g.sched).to(torch.float32),
+                            lambda w, g: w.dists + g.dists,
+                            lambda w, g: (w.pruned + g.pruned)
+                            .to(torch.float32))]
+    tables = [[part for r in loc for part in getattr(qs[r], name)]
               for qs in (wq, gq) for name in ("ids", "nbrs", "cnt")]
-    return (*tables, torch.stack(flags),
-            *(torch.stack(c) for c in zip(*counters)))
+    return (*tables, flags, *counters)
 
 
 def landmark_run(points, eps: float, centers, f, mesh: RingMesh,
@@ -1385,23 +1495,25 @@ def landmark_run(points, eps: float, centers, f, mesh: RingMesh,
                  ghost_mode: str = "coll"):
     """Distributed landmark ε-NNG (Algorithms 5+6) over ``mesh``.
 
-    ``points`` (n, d), n a multiple of the ring size (``build_nng`` pads);
-    ``centers`` (m, d) the Voronoi sites; ``f`` (m,) the cell -> rank
-    assignment (LPT, planned on the host); ``plan`` the capacities.
-    ``ghost_mode`` is the Phase 4 schedule: ``"coll"`` (capacity-padded
-    all-to-all of ghost copies) or ``"ring"`` (rotation of the compacted
-    coalesce block with the Lemma-1 test as packed cell words; needs
-    ``plan.cap_rank``); ``"auto"`` is resolved upstream
-    (``resolve_ghost_mode``). ``traversal="tree"`` needs ``forest`` (the
-    rank-stacked cell-forest tables of ``flat_tree.build_cell_forests``, a
-    dict or a ``DeviceForest``) and ``cell`` (the (n,) Voronoi assignment
-    they were built from, so Phase 1 cannot differ from the forests' scope
-    on an argmin near-tie). Returns (Wids, nbrs, cnt, Gids, gnbrs, gcnt,
-    overflow, tiles_skipped, tiles_scheduled, dists_evaluated,
-    nodes_pruned) as ``_landmark_local`` describes (the tables as lists of
-    parts), on the mesh device: the union of the (Wids → nbrs) and
-    (Gids → gnbrs) edges is the exact ε-graph when no overflow flag is
-    set."""
+    ``points`` (n, d), the whole input on every process, n a multiple of
+    the ring size (``build_nng`` pads); ``centers`` (m, d) the Voronoi
+    sites; ``f`` (m,) the cell -> rank assignment (LPT, planned on the
+    host); ``plan`` the capacities. ``ghost_mode`` is the Phase 4
+    schedule: ``"coll"`` (capacity-padded all-to-all of ghost copies) or
+    ``"ring"`` (rotation of the compacted coalesce block with the Lemma-1
+    test as packed cell words; needs ``plan.cap_rank``); ``"auto"`` is
+    resolved upstream (``resolve_ghost_mode``). ``traversal="tree"`` needs
+    ``forest`` (the rank-stacked cell-forest tables of
+    ``flat_tree.build_cell_forests``, of every rank or of the local ranks,
+    a dict or a ``DeviceForest``) and ``cell`` (the (n,) Voronoi
+    assignment they were built from, so Phase 1 cannot differ from the
+    forests' scope on an argmin near-tie). Returns (Wids, nbrs, cnt, Gids,
+    gnbrs, gcnt, overflow, tiles_skipped, tiles_scheduled,
+    dists_evaluated, nodes_pruned) as ``_landmark_local`` describes (the
+    local ranks' tables as lists of parts, every rank's flags and
+    counters), on the mesh device: the union over the processes of the
+    (Wids → nbrs) and (Gids → gnbrs) edges is the exact ε-graph when no
+    overflow flag is set."""
     if ghost_mode not in ("coll", "ring"):
         raise ValueError(f"ghost_mode={ghost_mode!r}: 'auto' is resolved "
                          "upstream (resolve_ghost_mode)")
@@ -1416,24 +1528,25 @@ def landmark_run(points, eps: float, centers, f, mesh: RingMesh,
     n = x.shape[0]
     if n % nranks != 0:
         raise ValueError(f"n={n} is not a multiple of the ring size {nranks}")
-    xs = list(x.contiguous().chunk(nranks))
-    ids = list(torch.arange(n, dtype=torch.int32,
-                            device=mesh.device).chunk(nranks))
+    blocks = x.contiguous().chunk(nranks)
+    id_blocks = torch.arange(n, dtype=torch.int32,
+                             device=mesh.device).chunk(nranks)
+    xs = _local_list(mesh, lambda me: blocks[me])
+    ids = _local_list(mesh, lambda me: id_blocks[me])
     forests = cells = None
     if traversal == "tree":
         if forest is None or cell is None:
             raise ValueError("traversal='tree' needs the stacked cell "
                              "forests and the cell assignment they were "
                              "built from")
-        if not isinstance(forest, DeviceForest):
-            forest = DeviceForest.from_tables(forest, device=mesh.device)
-        forests = [forest.rank(r) for r in range(nranks)]
-        cells = list(torch.as_tensor(np.asarray(cell), dtype=torch.int64,
-                                     device=mesh.device).chunk(nranks))
+        forests = _rank_forests(forest, mesh)
+        cell_blocks = torch.as_tensor(np.asarray(cell), dtype=torch.int64,
+                                      device=mesh.device).chunk(nranks)
+        cells = _local_list(mesh, lambda me: cell_blocks[me])
     return _landmark_local(
         xs, ids, met.as_device(centers, mesh.device),
         torch.as_tensor(np.asarray(f), dtype=torch.int64,
                         device=mesh.device),
-        nranks=nranks, eps=float(eps), metric=met, plan=plan,
+        mesh=mesh, eps=float(eps), metric=met, plan=plan,
         traversal=traversal, ghost_mode=ghost_mode, forests=forests,
         cells=cells)

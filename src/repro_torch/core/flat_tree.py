@@ -529,7 +529,7 @@ def flatten_covertree(tree: "CoverTree") -> FlatCoverTree:
 
 def build_block_forests(
     points: np.ndarray, nranks: int, metric: str = "euclidean",
-    leaf_size: int = 10, *, backend: str = "host", device=None,
+    leaf_size: int = 10, *, backend: str = "host", device=None, mesh=None,
 ):
     """Systolic engine: one flat tree per equal contiguous block (rank).
 
@@ -541,13 +541,14 @@ def build_block_forests(
     ``FlatCoverTree`` list; ``backend="device"`` runs the torch builder in
     ``flat_tree_device`` on ``device`` (default: the CUDA card) and returns
     the stacked device-tables dict directly (what ``stack_device_forests``
-    yields from the host list, as tensors).
+    yields from the host list, as tensors; on a ``mesh`` over processes,
+    this process's ranks' rows of it).
     """
     if backend == "device":
         from .flat_tree_device import build_block_forests_device
 
         return build_block_forests_device(points, nranks, metric, leaf_size,
-                                          device=device)
+                                          device=device, mesh=mesh)
     assert backend == "host", backend
     from .covertree import build_covertree
 
@@ -568,7 +569,7 @@ def build_block_forests(
 def build_cell_forests(
     points: np.ndarray, cell: np.ndarray, f: np.ndarray, nranks: int,
     metric: str = "euclidean", leaf_size: int = 10, *, backend: str = "host",
-    device=None,
+    device=None, mesh=None,
 ):
     """Landmark engine: per rank, a forest of per-cell cover trees over the
     cells LPT-assigned to it (``f``: cell -> rank), in ascending cell id.
@@ -580,13 +581,13 @@ def build_cell_forests(
 
     ``backend`` as in ``build_block_forests``: "host" returns the
     ``FlatCoverTree`` list, "device" the stacked device-tables dict as
-    tensors on ``device``.
+    tensors on ``device`` (``mesh`` as in ``build_block_forests``).
     """
     if backend == "device":
         from .flat_tree_device import build_cell_forests_device
 
         return build_cell_forests_device(points, cell, f, nranks, metric,
-                                         leaf_size, device=device)
+                                         leaf_size, device=device, mesh=mesh)
     assert backend == "host", backend
     from .covertree import build_covertree
 

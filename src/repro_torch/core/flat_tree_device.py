@@ -89,7 +89,8 @@ def _take(table, idx):
 
 
 def _build_stacked(pts, cells, gids, tslot, met: Metric, leaf_size: int,
-                   max_levels: int = 8, include_child_ranges: bool = False):
+                   max_levels: int = 8, include_child_ranges: bool = False,
+                   agree=None):
     """All ranks' padded member sets -> their stacked levelized tables.
 
     pts (R, P, d) coordinates (local rows), cells (R, P) int32 per-point
@@ -99,6 +100,13 @@ def _build_stacked(pts, cells, gids, tslot, met: Metric, leaf_size: int,
     leading rank axis. ``include_child_ranges`` also keeps ``child_lo`` /
     ``child_hi`` (the traversal follows parent slots and does not read
     them; the structural parity tests do).
+
+    Each rank's tree is built on its own, so a build of some of the ranks
+    gives their rows of the build of all, once both trim to the same
+    levels and width: ``agree(levels, width)`` returns the ones to trim
+    to (the maxima over the processes that build the other ranks). Levels
+    past a rank's last hold what a finished rank's do in the build of
+    all: no valid slot, every slot's coordinates its first point's.
     """
     R, P = tslot.shape
     dim = pts.shape[2:]
@@ -270,6 +278,12 @@ def _build_stacked(pts, cells, gids, tslot, met: Metric, leaf_size: int,
     used = vn.any(2)
     Lu = max(int(used.sum(1).max()), 1)
     W = _round_up(max(int(vn.sum(2).max()), 1), 32)
+    if agree is not None:
+        Lu, W = agree(Lu, W)
+    for t, fill in ((ptidx_t, -1), (cell_t, PAD), (rad_t, 0), (leaf_t, 0),
+                    (par_t, 0), (leaf_lo_t, 0), (leaf_hi_t, 0), (clo_t, 0),
+                    (chi_t, 0)):
+        t += [torch.full_like(t[-1], fill) for _ in range(Lu - len(t))]
 
     def stack(ts):
         return torch.stack(ts[:Lu], dim=1)[:, :, :W].contiguous()
@@ -297,6 +311,23 @@ def _build_stacked(pts, cells, gids, tslot, met: Metric, leaf_size: int,
 # ---------------------------------------------------------------------------
 # public builder (the backend="device" path of flat_tree.build_block_forests)
 # ---------------------------------------------------------------------------
+
+def _local_build(mesh, nranks: int):
+    """(the rows of the ranks to build, ``agree``) for ``mesh``: every
+    rank, or on a mesh over processes only this process's ranks, trimmed
+    to the levels and width that all processes' builds agree on (one
+    all-reduce), so each process's tables equal its rows of the build of
+    all."""
+    if mesh is None or mesh.world == 1:
+        return slice(None), None
+    if mesh.size != nranks:
+        raise ValueError(f"a forest of {nranks} ranks on a mesh of "
+                         f"{mesh.size}")
+    from .distributed import comm
+    loc = mesh.local_ranks
+    return (slice(loc.start, loc.stop),
+            lambda levels, width: comm.all_max(mesh, levels, width))
+
 
 def estimate_max_levels(points, met, sample: int = 256) -> int:
     """Host-side first size of the level tables.
@@ -329,13 +360,14 @@ def build_block_forests_device(points, nranks: int, metric="euclidean",
                                leaf_size: int = 10,
                                max_levels: int | None = None, *,
                                include_child_ranges: bool = False,
-                               device=None):
+                               device=None, mesh=None):
     """Systolic engine forests on the card: one tree per contiguous block.
 
     Same partitioning contract as ``flat_tree.build_block_forests``;
     returns the stacked device-tables dict (tensors on ``device``, default
     the CUDA card, leading rank axis) that ``stack_device_forests`` would
-    produce from the host path."""
+    produce from the host path. On a ``mesh`` over processes each process
+    builds its own ranks' trees only (its rows of that dict)."""
     met = _as_device_metric(metric)
     if device is None:
         device = points.device if torch.is_tensor(points) else "cuda"
@@ -360,22 +392,25 @@ def build_block_forests_device(points, nranks: int, metric="euclidean",
                                     device=dev).reshape(nranks, n_loc)
     tslotb = torch.full((nranks, P), -1, dtype=torch.int32, device=dev)
     tslotb[:, :n_loc] = 0
-    return _build_stacked(ptsb, cellsb, gidsb, tslotb, met, int(leaf_size),
-                          int(max_levels), include_child_ranges)
+    sel, agree = _local_build(mesh, nranks)
+    return _build_stacked(ptsb[sel], cellsb[sel], gidsb[sel], tslotb[sel],
+                          met, int(leaf_size), int(max_levels),
+                          include_child_ranges, agree)
 
 
 def build_cell_forests_device(points, cell, f, nranks: int,
                               metric="euclidean", leaf_size: int = 10,
                               max_levels: int | None = None, *,
                               include_child_ranges: bool = False,
-                              device=None):
+                              device=None, mesh=None):
     """Landmark engine forests on the card: per rank, one tree per owned
     cell (``f``: cell -> rank), in ascending cell id, its nodes stamped with
     the cell; a rank that owns no points gets the 1-node placeholder tree
     of cell -2 — the forest ``flat_tree.build_cell_forests`` builds on the
     host. ``cell`` (n,) is the Voronoi assignment. The member packing (rank
     major, cell ascending, point ascending) runs on ``device`` too, so no
-    point crosses to the host. Returns the stacked device-tables dict."""
+    point crosses to the host. Returns the stacked device-tables dict (on
+    a ``mesh`` over processes, this process's ranks' rows of it)."""
     met = _as_device_metric(metric)
     if device is None:
         device = points.device if torch.is_tensor(points) else "cuda"
@@ -423,8 +458,10 @@ def build_cell_forests_device(points, cell, f, nranks: int,
     cellsb[empty, 0] = -2
     gidsb[empty, 0] = 0
     tslotb[empty, 0] = 0
-    return _build_stacked(ptsb, cellsb, gidsb, tslotb, met, int(leaf_size),
-                          int(max_levels), include_child_ranges)
+    sel, agree = _local_build(mesh, nranks)
+    return _build_stacked(ptsb[sel], cellsb[sel], gidsb[sel], tslotb[sel],
+                          met, int(leaf_size), int(max_levels),
+                          include_child_ranges, agree)
 
 
 # ---------------------------------------------------------------------------

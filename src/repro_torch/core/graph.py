@@ -71,6 +71,25 @@ class RunStats:
         return self.tiles_skipped / max(self.tiles_scheduled, 1.0)
 
 
+def neighbor_pairs(n: int, tables):
+    """The directed (src, dst) int64 pairs of SENTINEL-padded neighbour
+    tables [(ids (m,), nbrs (m, k)), ...] (numpy or torch), without rows
+    whose id is SENTINEL or >= n (duplicate-padding)."""
+    src_all, dst_all = [], []
+    for ids, nbrs in tables:
+        nbrs = torch.as_tensor(nbrs)
+        ids = torch.as_tensor(ids).to(nbrs.device)
+        valid = (ids != SENTINEL) & (ids < n)
+        ii, kk = torch.nonzero((nbrs != SENTINEL) & valid[:, None],
+                               as_tuple=True)
+        src_all.append(ids[ii].to(torch.int64))
+        dst_all.append(nbrs[ii, kk].to(torch.int64))
+    if not src_all:
+        return (torch.zeros(0, dtype=torch.int64),
+                torch.zeros(0, dtype=torch.int64))
+    return torch.cat(src_all), torch.cat(dst_all)
+
+
 class NNGraph:
     """Symmetric CSR ε-neighbour graph on ``n`` points.
 
@@ -255,20 +274,8 @@ class NNGraph:
         (ids (m,), nbrs (m, k)) SENTINEL-padded per-row neighbour arrays
         (numpy or torch). Rows with id >= n (duplicate-padding) are
         dropped."""
-        src_all, dst_all = [], []
-        for ids, nbrs in tables:
-            nbrs = torch.as_tensor(nbrs)
-            ids = torch.as_tensor(ids).to(nbrs.device)
-            valid = (ids != SENTINEL) & (ids < n)
-            ii, kk = torch.nonzero((nbrs != SENTINEL) & valid[:, None],
-                                   as_tuple=True)
-            src_all.append(ids[ii].to(torch.int64))
-            dst_all.append(nbrs[ii, kk].to(torch.int64))
-        if not src_all:
-            return cls.from_directed_pairs(n, np.zeros(0, np.int64),
-                                           np.zeros(0, np.int64), stats, meta)
-        return cls.from_directed_pairs(n, torch.cat(src_all),
-                                       torch.cat(dst_all), stats, meta)
+        return cls.from_directed_pairs(n, *neighbor_pairs(n, tables), stats,
+                                       meta)
 
     # -- accessors (the merged view) ---------------------------------------
     @property

@@ -7,6 +7,10 @@ build runs at first use, from the sources in this package only, into
 carries a hash of its source, the shared headers (``csrc/*.cuh``) and the
 flags, so an edited source is rebuilt and an unchanged one is reused. All
 sources are compiled at once, one ``nvcc`` process each, started together.
+Processes that start together (one per card, or several on one card)
+build under an exclusive lock on ``BUILD_DIR/lock``: the first builds each
+missing library once, into a temporary name renamed into place, and the
+others wait and load what it built, never a half-written library.
 
 Nothing here runs at import: the CPU tests import every module, and this
 machine may have no ``nvcc``.
@@ -14,6 +18,7 @@ machine may have no ``nvcc``.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -109,6 +114,23 @@ def load() -> None:
         return
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            _build_missing()
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    for name, (symbol, argtypes) in _ENTRY.items():
+        fn = getattr(ctypes.CDLL(str(_target(name))), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _loaded[name] = fn
+    build_seconds = time.perf_counter() - t0
+
+
+def _build_missing() -> None:
+    """Compile every library that is not in ``BUILD_DIR`` yet (the caller
+    holds the build lock)."""
     jobs = {}
     for name in _ENTRY:
         so = _target(name)
@@ -129,12 +151,6 @@ def load() -> None:
             os.replace(tmp, so)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
-    for name, (symbol, argtypes) in _ENTRY.items():
-        fn = getattr(ctypes.CDLL(str(_target(name))), symbol)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _loaded[name] = fn
-    build_seconds = time.perf_counter() - t0
 
 
 def entry(name: str):

@@ -9,9 +9,15 @@ difference from the oracle only on the fp32 boundary (|d - eps| within
 fp32 error), after a build as after the replay: the delta traversal
 evaluates fp32 distances as the batch engines do.
 
-It runs on ``--ranks`` logical ranks of one device (``RingMesh``):
-``--device cuda`` (the default) launches the CUDA kernels and raises
-without a card; ``--device cpu`` runs their plain PyTorch versions.
+It runs on a mesh of ``--ranks`` ranks (``make_nng_mesh``): ``--device
+cuda`` (the default) launches the CUDA kernels and raises without a card;
+``--device cpu`` runs their plain PyTorch versions. Started by torchrun
+(or any launcher that sets ``RANK``, ``WORLD_SIZE`` and ``MASTER_PORT``)
+it runs one process per card, or per CPU process: ``--backend`` nccl (the
+default on the card) or gloo (the default on the CPU, and the way to put
+several processes on one card), ``--ranks`` a multiple of the world
+(default: the world; one rank without a launcher). Every process builds
+the same graph; only rank 0 prints and verifies.
 
 Usage:
   python -m repro_torch.launch.nng_run --n 4096 --dim 8 --eps 1.0 \\
@@ -20,6 +26,9 @@ Usage:
       --algo systolic --metric manhattan --device cpu
   python -m repro_torch.launch.nng_run --n 16384 --dim 128 --eps 2.98 \\
       --ranks 8 --algo systolic --updates 6 --update-batch 256 --verify
+  python -m torch.distributed.run --nproc-per-node 4 \\
+      -m repro_torch.launch.nng_run --points 4096 --dim 8 --ranks 8 \\
+      --algo systolic --device cpu --verify
 
 ``run_systolic`` / ``run_landmark`` are thin adapters over the shared
 ``repro_torch.nng.drive`` loop that return the reference's tuple shapes
@@ -28,6 +37,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import os
 
 import numpy as np
 
@@ -170,11 +180,19 @@ def _verify_boundary(pts, eps, metric, diff, n):
         raise SystemExit(1)
 
 
+def _quiet(*args, **kwargs):
+    pass
+
+
 def main(argv=None):
+    import torch.distributed as dist
+
     from repro_torch.core.metrics import registered_metrics
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--n", type=int, default=4096)
+    # --points: --n under torchrun, whose own parser takes "--n" for an
+    # abbreviation of its options on some Python versions
+    ap.add_argument("--n", "--points", type=int, default=4096)
     ap.add_argument("--dim", type=int, default=8)
     ap.add_argument("--eps", type=float, default=1.0)
     ap.add_argument("--metric", default="euclidean",
@@ -211,20 +229,37 @@ def main(argv=None):
                     help="torch device of the ranks: cuda (the kernels; "
                          "raises without a card) or cpu (their plain "
                          "PyTorch versions)")
-    ap.add_argument("--ranks", type=int, default=1,
-                    help="logical ranks of the ring, all on --device")
+    ap.add_argument("--ranks", type=int, default=None,
+                    help="ranks of the mesh: a multiple of the processes "
+                         "(default: one a process)")
+    ap.add_argument("--backend", default=None, choices=["nccl", "gloo"],
+                    help="torch.distributed backend under a launcher "
+                         "(default: nccl on cuda, gloo on cpu)")
     args = ap.parse_args(argv)
 
     from repro_torch.core.distributed import make_nng_mesh
+    from repro_torch.launch.dist import init
+
+    started = "WORLD_SIZE" in os.environ and not dist.is_initialized()
+    if started:
+        init(args.backend, args.device)
+    try:
+        return _main(args, make_nng_mesh(args.ranks, args.device))
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def _main(args, mesh):
     from repro_torch.data import synthetic_pointset
     from repro_torch.nng import build_nng
 
-    mesh = make_nng_mesh(args.ranks, args.device)
+    say = print if mesh.rank == 0 else _quiet
     partition = "point" if args.algo == "systolic" else "spatial"
     pts = synthetic_pointset(args.n, args.dim, args.metric, seed=args.seed)
-    print(f"n={args.n} dim={args.dim} metric={args.metric} eps={args.eps} "
-          f"ranks={mesh.size} device={mesh.device} partition={partition} "
-          f"traversal={args.traversal}")
+    say(f"n={args.n} dim={args.dim} metric={args.metric} eps={args.eps} "
+        f"ranks={mesh.size} device={mesh.device} partition={partition} "
+        f"traversal={args.traversal} processes={mesh.world}")
 
     if args.updates > 0:
         return _run_updates(args, pts, mesh, partition)
@@ -235,20 +270,20 @@ def main(argv=None):
         k_cap=args.k_cap, prune=not args.no_prune, seed=args.seed,
         ghost_mode=args.ghost_mode)
     if partition == "spatial":
-        print(f"ghost_mode={g.meta['ghost_mode']}"
-              + (" (auto)" if args.ghost_mode == "auto" else ""))
+        say(f"ghost_mode={g.meta['ghost_mode']}"
+            + (" (auto)" if args.ghost_mode == "auto" else ""))
     st = g.stats
-    print(f"tiles skipped={st.tiles_skipped:.0f}/{st.tiles_scheduled:.0f} "
-          f"dists_evaluated={st.dists_evaluated:.0f} "
-          f"nodes_pruned={st.nodes_pruned:.0f} "
-          f"comm_bytes={st.total_comm_bytes:.0f} replans={st.replans}")
-    print(f"{g} in {st.elapsed_s:.2f}s (plan={g.meta['plan']})")
+    say(f"tiles skipped={st.tiles_skipped:.0f}/{st.tiles_scheduled:.0f} "
+        f"dists_evaluated={st.dists_evaluated:.0f} "
+        f"nodes_pruned={st.nodes_pruned:.0f} "
+        f"comm_bytes={st.total_comm_bytes:.0f} replans={st.replans}")
+    say(f"{g} in {st.elapsed_s:.2f}s (plan={g.meta['plan']})")
 
-    if args.verify:
+    if args.verify and mesh.rank == 0:
         from repro_torch.core.brute import brute_force_graph
         gb = brute_force_graph(pts, args.eps, args.metric)
         if g == gb:
-            print(f"verify vs brute force: EXACT MATCH ({gb})")
+            say(f"verify vs brute force: EXACT MATCH ({gb})")
         else:
             # the device evaluates fp32: allow only knife-edge differences
             _verify_boundary(pts, args.eps, args.metric,

@@ -38,6 +38,14 @@ dropped when the CSR is assembled, so exactness holds for ANY metric.
 
 Everything runs on the CUDA card unless the caller passes
 ``device="cpu"`` (or a CPU mesh); without a card the default raises.
+
+The mesh's ranks may span the processes of a ``torch.distributed`` group
+(``make_nng_mesh``: inside one, the default is the world, one rank a
+process). Every process is then handed the whole input, runs its own
+ranks, and returns the same ``NNGraph``: the engines all-gather the
+counters and overflow flags, ``drive`` decides to grow from them and
+reports the slowest process's ``elapsed_s``, and the CSR is assembled on
+every process from every rank's (src, dst) pairs.
 """
 from __future__ import annotations
 
@@ -46,18 +54,20 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.core.distributed import (DeviceForest, LandmarkPlan,
+from repro_torch.core.distributed import (DeviceForest, LandmarkPlan, comm,
                                           delta_bcast_bytes,
                                           delta_traverse_run,
                                           ghost_coll_bytes, ghost_ring_bytes,
-                                          landmark_run, make_nng_mesh,
+                                          landmark_run, local_tables,
+                                          make_nng_mesh,
                                           plan_landmark_device,
                                           plan_ring_schedule,
                                           resolve_ghost_mode, systolic_run)
 from repro_torch.core.flat_tree import (build_block_forests,
                                         build_cell_forests,
                                         stack_device_forests)
-from repro_torch.core.graph import SENTINEL, NNGraph, RunStats
+from repro_torch.core.graph import (SENTINEL, NNGraph, RunStats,
+                                    neighbor_pairs)
 from repro_torch.core.landmark import (ghost_membership, lpt_assignment,
                                        select_centers)
 from repro_torch.core.metrics import (Metric, get_metric,  # noqa: F401 (re-export)
@@ -80,6 +90,7 @@ class Engine:
     overflow predicate, the grow step, and result extraction."""
 
     name: str = "?"
+    mesh = None              # its RingMesh; None: one process
     device: torch.device
 
     def initial_plan(self):
@@ -97,19 +108,22 @@ class Engine:
         raise NotImplementedError
 
     def neighbor_tables(self, out):
-        """[(ids, nbrs), ...] SENTINEL-padded tables for the CSR (tensors
-        on the engine's device)."""
+        """[(ids, nbrs), ...] SENTINEL-padded tables of the local ranks'
+        rows, for the CSR (tensors on the engine's device)."""
         raise NotImplementedError
 
     def run_stats(self, out, plan) -> RunStats:
         raise NotImplementedError
 
 
-def _wait(device: torch.device) -> None:
-    """Wait for the device's queued work (the reference's
-    ``block_until_ready``): CUDA calls return before the card finishes."""
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+def _wait(engine) -> None:
+    """Wait for the engine's device's queued work (the reference's
+    ``block_until_ready``: CUDA calls return before the card finishes),
+    and on a mesh over processes for every process."""
+    if engine.device.type == "cuda":
+        torch.cuda.synchronize(engine.device)
+    if engine.mesh is not None:
+        comm.barrier(engine.mesh)
 
 
 def _timed_forest(engine: Engine, build, backend: str, *args) -> dict:
@@ -117,22 +131,24 @@ def _timed_forest(engine: Engine, build, backend: str, *args) -> dict:
     nranks, metric, ...)`` (``build_block_forests`` or
     ``build_cell_forests``): the torch builder on the mesh's device
     (``backend="device"``) or the float64 numpy oracle (``"host"``), as
-    tensors on that device. The build is timed into ``engine.build_s``."""
+    tensors on that device: the local ranks' rows (the torch builder
+    builds only those; the host one builds every rank's). The build is
+    timed into ``engine.build_s``."""
     t0 = time.perf_counter()
     mesh, met = engine.mesh, engine.metric
     if backend == "device":
         tabs = build(engine.points, *args, mesh.size, met, backend="device",
-                     device=mesh.device)
+                     device=mesh.device, mesh=mesh)
     elif backend == "host":
-        tabs = stack_device_forests(build(engine.points.cpu().numpy(), *args,
-                                          mesh.size, met.host))
+        tabs = local_tables(stack_device_forests(build(
+            engine.points.cpu().numpy(), *args, mesh.size, met.host)), mesh)
     else:
         raise ValueError(f"unknown forest_backend {backend!r} "
                          "(want 'device' or 'host')")
     tabs = {k: (met.as_device(v, mesh.device) if k == "coords"
                 else torch.as_tensor(v, device=mesh.device))
             for k, v in tabs.items()}
-    _wait(engine.device)
+    _wait(engine)
     engine.build_s = time.perf_counter() - t0
     return tabs
 
@@ -142,10 +158,12 @@ def drive(engine: Engine, max_grows: int = 8, *, steady_state: bool = True):
 
     Returns (out, plan, replans, elapsed_s): the first non-overflowing
     outputs, the plan that produced them, how many grows it took, and the
-    wall clock of that final configuration. With ``steady_state`` (the
-    default) the winner runs a second time and THAT wall clock is
-    reported, so ``RunStats.elapsed_s`` never includes first-call costs
-    (the kernels' build, allocator warm-up).
+    wall clock of that final configuration (on a mesh over processes, the
+    slowest process's: every process returns the same). The overflow test
+    reads every rank's flags, so every process grows alike. With
+    ``steady_state`` (the default) the winner runs a second time and THAT
+    wall clock is reported, so ``RunStats.elapsed_s`` never includes
+    first-call costs (the kernels' build, allocator warm-up).
 
     ``steady_state=False`` skips the timing re-run and reports the first
     non-overflowing run's own wall clock: for callers that consume only
@@ -155,15 +173,17 @@ def drive(engine: Engine, max_grows: int = 8, *, steady_state: bool = True):
     for attempt in range(max_grows):
         t0 = time.perf_counter()
         out = engine.run(plan)
-        _wait(engine.device)
+        _wait(engine)
         elapsed = time.perf_counter() - t0
         if not engine.overflowed(out):
             if steady_state:
                 del out      # free the first run's tables before the re-run
                 t0 = time.perf_counter()
                 out = engine.run(plan)
-                _wait(engine.device)
+                _wait(engine)
                 elapsed = time.perf_counter() - t0
+            if engine.mesh is not None:
+                elapsed = comm.all_max(engine.mesh, elapsed)
             return out, plan, attempt, elapsed
         plan = engine.grow(plan, out)
     raise RuntimeError(
@@ -193,8 +213,9 @@ class PointPartitionEngine(Engine):
         self.traversal = traversal
         self.forest_backend = forest_backend
         self.build_s = 0.0
-        if traversal == "tree" and forest is None:
-            forest = _timed_forest(self, build_block_forests, forest_backend)
+        if traversal == "tree":
+            forest = (_timed_forest(self, build_block_forests, forest_backend)
+                      if forest is None else local_tables(forest, mesh))
         self.forest = forest
         # the traversal's tables (with their child ranges) once per engine
         self.device_forest = (None if forest is None else
@@ -222,11 +243,13 @@ class PointPartitionEngine(Engine):
 
     def grow(self, k_cap, out):
         # cnt is exact even on overflow: one grow always suffices
-        return max(2 * k_cap, int(out[1].max()))
+        return max(2 * k_cap, comm.all_max(self.mesh, int(out[1].max())))
 
     def neighbor_tables(self, out):
         nbrs = out[0]
-        return [(torch.arange(len(nbrs), device=nbrs.device), nbrs)]
+        first = self.mesh.local_ranks[0] * (len(self.points) // self.mesh.size)
+        return [(torch.arange(first, first + len(nbrs), device=nbrs.device),
+                 nbrs)]
 
     def _ring_comm_bytes(self, k_cap: int) -> dict:
         """Per-channel ring bytes, summed over ranks for the full run (the
@@ -262,8 +285,10 @@ class PointPartitionEngine(Engine):
         if self.traversal == "tree":
             pt_hop = n_loc * dim * item + n_loc * 4
             bytes_["ring_points"] = float(nranks * rounds * pt_hop)
+            # the tables hold the local ranks', each rank's the same size
             forest_hop = sum(v.numel() * v.element_size()
-                             for v in self.forest.values()) / nranks
+                             for v in self.forest.values()
+                             ) / self.forest["cell"].shape[0]
             if self.overlap:
                 fhops = sum(m == "forest" for m in self.ring_schedule)
             else:
@@ -357,7 +382,8 @@ class SpatialPartitionEngine(Engine):
                                    self.cell, self.f)
         self.forest = (forest if forest is None
                        or isinstance(forest, DeviceForest) else
-                       DeviceForest.from_tables(forest, mesh.device))
+                       DeviceForest.from_tables(local_tables(forest, mesh),
+                                                mesh.device))
 
     def _host_points(self) -> np.ndarray:
         return self.points.cpu().numpy()
@@ -496,7 +522,8 @@ class DeltaEngine(Engine):
         self.eps = float(eps)
         self.k_cap = int(k_cap)
         self.forest = (forest if isinstance(forest, DeviceForest) else
-                       DeviceForest.from_tables(forest, mesh.device))
+                       DeviceForest.from_tables(local_tables(forest, mesh),
+                                                mesh.device))
         qp = self.metric.as_device(batch_points, mesh.device)
         ids = torch.as_tensor(np.asarray(batch_ids, np.int64),
                               device=mesh.device)
@@ -521,13 +548,14 @@ class DeltaEngine(Engine):
 
     def overflowed(self, out):
         # cnt is exact even on overflow (popcount of the full bitmask)
-        return bool((out[1] > out[0].shape[1]).any())
+        return bool(comm.all_max(self.mesh, int(
+            (out[1] > out[0].shape[1]).any())))
 
     def grow(self, k_cap, out):
-        return max(2 * k_cap, int(out[1].max()))
+        return max(2 * k_cap, comm.all_max(self.mesh, int(out[1].max())))
 
     def neighbor_tables(self, out):
-        return [(self.qids.repeat(self.mesh.size), out[0])]
+        return [(self.qids.repeat(len(self.mesh.local_ranks)), out[0])]
 
     def run_stats(self, out, k_cap) -> RunStats:
         # the (nranks,) fp32 counters summed as the reference sums them
@@ -552,7 +580,8 @@ def delta_run(batch_points, batch_ids, forest, eps, mesh, *,
     once — and flattens the rank-stacked neighbour tables to (src, dst)
     directed id pairs (host numpy int64) plus a ``RunStats``. Symmetrize
     downstream (``NNGraph.delta_add_edges`` canonicalizes): a pair inside
-    the batch appears from both endpoints.
+    the batch appears from both endpoints. On a mesh over processes the
+    batch is rank 0's, and every process returns every rank's pairs.
 
     The call runs with IEEE fp32 products (``ieee_fp32``): it sets the
     process-wide float32 matmul precision and TF32 flags and restores
@@ -568,7 +597,8 @@ def delta_run(batch_points, batch_ids, forest, eps, mesh, *,
     [(ids, nbrs)] = engine.neighbor_tables(out)
     ii, kk = torch.nonzero((nbrs != SENTINEL) & (ids != SENTINEL)[:, None],
                            as_tuple=True)
-    return (ids[ii].cpu().numpy(), nbrs[ii, kk].long().cpu().numpy(),
+    return (comm.gather_rows(mesh, ids[ii]).cpu().numpy(),
+            comm.gather_rows(mesh, nbrs[ii, kk].long()).cpu().numpy(),
             stats)
 
 
@@ -599,11 +629,15 @@ def build_nng(
     """Build the exact ε-neighbour graph of ``points`` (numpy or torch,
     (n, d)) under ``metric`` on ``mesh``. Returns a CSR ``NNGraph``.
 
-    ``mesh`` defaults to one rank on ``device``, which defaults to the CUDA
-    card (a ``RuntimeError`` if there is none); pass ``device="cpu"`` for
-    the plain PyTorch versions. ``k_cap`` seeds the neighbour-list capacity
-    (grown automatically on overflow); any ``n`` is accepted (duplicate
-    padding up to the ring size, stripped from the result).
+    ``mesh`` defaults to ``make_nng_mesh()`` on ``device``: inside a
+    ``torch.distributed`` process group the world, one rank a process
+    (every process calls with the same arguments and gets the same
+    graph), else one rank. ``device`` defaults to the CUDA card
+    (``cuda:LOCAL_RANK`` in a group; a ``RuntimeError`` if there is none);
+    pass ``device="cpu"`` for the plain PyTorch versions. ``k_cap`` seeds
+    the neighbour-list capacity (grown automatically on overflow); any
+    ``n`` is accepted (duplicate padding up to the ring size, stripped
+    from the result).
 
     Point partition: ``overlap`` selects the double-buffered ring schedule
     — ``False`` is the strict rotate-then-evaluate schedule, kept for A/B
@@ -638,7 +672,7 @@ def build_nng(
             f"unknown traversal {traversal!r} (want 'tiles' or 'tree')")
     met = get_metric(metric)
     if mesh is None:
-        mesh = make_nng_mesh(1, device)
+        mesh = make_nng_mesh(None, device)
     elif device is not None and torch.device(device) != mesh.device:
         raise ValueError(f"device {device!r} differs from the mesh's "
                          f"{mesh.device}")
@@ -685,5 +719,8 @@ def build_nng(
         meta["m_centers"] = engine.m_centers
         # the RESOLVED mode, never "auto": what the final plan ran
         meta["ghost_mode"] = engine.resolved_ghost_mode(plan)
-    return NNGraph.from_neighbor_tables(
-        n, engine.neighbor_tables(out), stats=stats, meta=meta)
+    # every rank's pairs, on every process
+    src, dst = neighbor_pairs(n, engine.neighbor_tables(out))
+    return NNGraph.from_directed_pairs(n, comm.gather_rows(mesh, src),
+                                       comm.gather_rows(mesh, dst), stats,
+                                       meta)

@@ -65,12 +65,14 @@ class OnlineNNG:
     ``edges_removed`` across operations, and ``last_update_stats`` holds
     the last insert's delta traversal (``RunStats``).
 
-    ``mesh`` defaults to one rank on ``device`` (the CUDA card unless
-    ``device="cpu"``), as ``build_nng``'s does. ``insert_backend``: "host"
-    (float64 top-down descent into the owning forest, then restack) or
-    "device" (batched singleton-root append into the stacked tables on the
-    device). ``compact_ratio`` tunes the auto-compaction policy (``None``
-    disables it).
+    ``mesh`` defaults to ``make_nng_mesh()`` on ``device`` (the CUDA card
+    unless ``device="cpu"``), as ``build_nng``'s does. A mesh over more
+    than one process is not supported yet (``NotImplementedError``): the
+    wrapper keeps every rank's forest in one process. ``insert_backend``:
+    "host" (float64 top-down descent into the owning forest, then
+    restack) or "device" (batched singleton-root append into the stacked
+    tables on the device). ``compact_ratio`` tunes the auto-compaction
+    policy (``None`` disables it).
 
     ``insert`` and ``delete`` run with IEEE fp32 products (``ieee_fp32``,
     as ``build_nng`` does: TF32 would split pairs): the guard sets the
@@ -102,10 +104,16 @@ class OnlineNNG:
         if n < 1:
             raise ValueError("OnlineNNG needs a non-empty initial corpus")
         if mesh is None:
-            mesh = make_nng_mesh(1, device)
+            mesh = make_nng_mesh(None, device)
         elif device is not None and torch.device(device) != mesh.device:
             raise ValueError(f"device {device!r} differs from the mesh's "
                              f"{mesh.device}")
+        if mesh.world > 1:
+            raise NotImplementedError(
+                f"OnlineNNG on a mesh over {mesh.world} processes: its "
+                "per-rank forests live in one process; online maintenance "
+                "over processes (per-process tables for the host and device "
+                "insert backends) is the next slice of the port")
         self.mesh = mesh
         self.nranks = mesh.size
         self.live = np.ones(n, bool)
