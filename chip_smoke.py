@@ -179,7 +179,25 @@ each printed as it runs; any failed check raises and exits non-zero:
      per channel, summing to ``comm_bytes`` a run, and each call's
      ``elapsed_s`` and host-staging seconds printed [13b]; NCCL across
      cards where the machine has two or more, else a line that says it did
-     not run [13c]. The kernels are built before any process starts.
+     not run [13c]; ``OnlineNNG`` on [13b]'s processes and points, 6
+     operations of 1024 points (every third a delete) with the device
+     insert backend and, on a deep copy of its initial state, the host
+     one, after every operation each process's new ids, edge keys, delta
+     log, ``live``, counters, ``comm_bytes`` and table sizes equal to the
+     same schedule on ``RingMesh(8)`` in this process, the bytes the
+     processes moved summing to ``delta_bcast`` a run and their launches
+     of ``tree_frontier``, ``leaf_range_pack`` and ``bits_to_cols`` to the
+     one-process run's, with each operation's update_s, staging seconds
+     and ``delta_bcast`` bytes printed [13d]. The kernels are built before
+     any process starts.
+ 14. the analyzer on the card: ``run_analysis(device="cuda")`` launches
+     each of the 17 kernels at its contract's probe shapes against its
+     plain version (bit for bit on gap-safe inputs; ``pairwise_sqdist``
+     within its summation-order bound), checks each wrapper's threshold,
+     host reads and float64, runs the comm-byte audit's nine
+     configurations on ``RingMesh(8)`` on the card and prints the H100
+     cost model at PERF.md section 6's shapes; any fresh diagnostic fails
+     the run.
 
 Hamming distances are exact integers: no knife. Two fp32 L1 sums in
 different orders are each within d·u·D of the float64 sum D (u = 2^-24),
@@ -219,8 +237,9 @@ SAMPLE_SEED = 1
 KNIFE_REL = 1e-4       # knife edge: 1e-4·eps², or KNIFE_ULPS units of
 KNIFE_ULPS = 20        # 2^-24·(‖x‖² + ‖y‖²), whichever is wider
 U32 = 2.0 ** -24       # fp32 unit roundoff
-DENSE_N = 16384        # [6f]: points of the Gaussian block, all queries
+DENSE_N = 8192         # [6f]: points of the Gaussian block, all queries
 DENSE_N_FULL = 32768   # [6f]: its size before [7] and [8] joined the script
+DENSE_N_BEFORE = 16384  # [6f]: its size before [13d] and [14] joined it
 DENSE_EPS = 13.0       # [6f]: about 19 neighbours a point there
 DENSE_CHUNK = 1024     # [6f]: rows a pass where the pair lists fit
 HAM_CONFIG = "nng-word2bits"  # [7]: 399360 x 800 bits (configs/paper_nng.py)
@@ -244,6 +263,9 @@ DIST_N = 1 << 17       # [13b]: the first rows of [3]'s points (the [12] cut)
 DIST_B = 1024          # [13b]: the delta traversal's batch (the next rows)
 DIST_PROCS = 4         # [13b]: gloo processes on the card, 2 ranks each
 PHASE13_S = 90         # [13]'s time budget on an H100
+ON13_OPS = 6           # [13d]: OnlineNNG operations of DIST_B points (every
+                       # third a delete) on the processes of [13b]
+PHASE13D_14_S = 90     # [13d] and [14] together on an H100
 # [13b]'s calls: label, build_nng's keywords (each at eps = EPS and
 # k_cap = SP_K_CAP, above every degree: no grow, so a call makes two
 # engine runs), then the delta traversal
@@ -313,14 +335,6 @@ PARENT_MS = {"tree_frontier_hamming": "0.624 ms one level; 4.569 ms a warm "
                                       "128x128 blocks",
              "nng_tile_ghost_l1": "56.924 ms (128x128 blocks in the "
                                   "caller's order)"}
-
-# H100 SXM data sheet: fp32 outside the tensor cores, HBM3 bandwidth
-PEAK_FP32 = 67e12
-PEAK_BYTES = 3.35e12
-# CUDA C++ Programming Guide, arithmetic instruction throughput for compute
-# capability 9.0: 32-bit population counts a clock per SM (times the SMs
-# and clocks.max.sm from nvidia-smi gives the card's popcount rate)
-POPC_PER_CLK_SM = 16
 
 
 class SmokeFailure(Exception):
@@ -473,6 +487,105 @@ def dist_process(pts, batch, eps, k_cap, nranks, device=None):
                       str(mesh.device)))
 
 
+def online_records(o, pool, ops, batch, seed):
+    """``ops`` operations on the live graph ``o`` (``OnlineNNG``), every
+    third a delete of ``batch`` random live ids, the others an insert of
+    ``pool``'s next ``batch`` rows -> per operation what every process of
+    a mesh must share with the one-process wrapper (the new ids, edge
+    keys, the delta log, ``live``, counters, ``comm_bytes``, ``meta``, the
+    delta traversal's counters) and, not compared, its costs in this
+    process (update_s, the host staging and the bytes this process's
+    ranks moved, the delta traversal's kernels' launches)."""
+    import hashlib
+
+    import numpy as np
+
+    from repro_torch.kernels.bits_epilogue import (bits_to_cols_cuda,
+                                                   leaf_range_pack_cuda)
+    from repro_torch.kernels.tree_frontier import tree_frontier_cuda
+    kernels = (tree_frontier_cuda, leaf_range_pack_cuda, bits_to_cols_cuda)
+
+    def sha(*arrays):
+        h = hashlib.sha256()
+        for a in arrays:
+            h.update(np.ascontiguousarray(a).tobytes())
+        return h.hexdigest()
+
+    rng = np.random.default_rng(seed)
+    mesh, out, cursor = o.mesh, [], 0
+    for step in range(ops):
+        mesh.stats.reset()
+        for fn in kernels:
+            fn.launches = 0
+        u0 = o.stats.update_s
+        if step % 3 == 2:
+            ids = np.sort(rng.choice(np.flatnonzero(o.live), batch,
+                                     replace=False))
+            o.delete(ids)
+            kind, d = "delete", None
+        else:
+            ids = o.insert(pool[cursor:cursor + batch])
+            cursor += batch
+            kind, d = "insert", o.last_update_stats
+        g, st = o.graph, o.stats
+        out.append({
+            "kind": kind, "ids": sha(ids), "edges": sha(g.edge_key()),
+            "log": sha(g.row_ptr, g.col_ids, g._add_lo, g._add_hi, g._dead),
+            "live": sha(o.live), "num_edges": g.num_edges,
+            "counters": {k: getattr(st, k) for k in (
+                "tiles_scheduled", "tiles_skipped", "dists_evaluated",
+                "nodes_pruned", "edges_added", "edges_removed")},
+            "comm_bytes": dict(st.comm_bytes),
+            "meta": {k: g.meta.get(k) for k in ("online", "compactions")},
+            "delta": None if d is None else {
+                "dists_evaluated": d.dists_evaluated,
+                "nodes_pruned": d.nodes_pruned, "replans": d.replans,
+                "comm_bytes": dict(d.comm_bytes)},
+            "tables": {k: tuple(v.shape[1:]) for k, v in o._stacked.items()},
+            # costs in this process, not compared
+            "update_s": st.update_s - u0,
+            "elapsed_s": None if d is None else d.elapsed_s,
+            "staging_s": mesh.stats.staging_s,
+            "moved": dict(mesh.stats.moved),
+            "launches": {fn.__name__[:-5]: fn.launches for fn in kernels}})
+    return out
+
+
+ONLINE_SHARED = ("kind", "ids", "edges", "log", "live", "num_edges",
+                 "counters", "comm_bytes", "meta", "delta", "tables")
+
+
+def online_both(mesh, pts, pool, eps, k_cap, ops, batch, seed):
+    """[13d]'s schedule on ``mesh``: ``OnlineNNG(pts)`` with the device
+    insert backend, and on a deep copy of that initial state (one forest
+    build serves both, as in [12b]) with the host one -> {"init_s",
+    "device": records, "host": records}."""
+    import copy
+
+    from repro_torch.stream import OnlineNNG
+    t0 = time.perf_counter()
+    o = OnlineNNG(pts, eps, mesh=mesh, k_cap=k_cap, insert_backend="device",
+                  seed=seed)
+    init_s = time.perf_counter() - t0
+    h = copy.deepcopy(o, {id(o.metric): o.metric, id(mesh): mesh})
+    h.insert_backend = "host"
+    h.graph.meta["online"]["insert_backend"] = "host"
+    return {"init_s": init_s,
+            "device": online_records(o, pool, ops, batch, seed),
+            "host": online_records(h, pool, ops, batch, seed)}
+
+
+def online_process(pts, pool, eps, k_cap, nranks, ops, batch, seed,
+                   device=None):
+    """A [13d] process's side: ``online_both`` on the group's mesh of
+    ``nranks`` ranks (on ``cuda:LOCAL_RANK`` unless ``device``)."""
+    from repro_torch.core.distributed import make_nng_mesh
+    mesh = make_nng_mesh(nranks, device)
+    return dict(online_both(mesh, pts, pool, eps, k_cap, ops, batch, seed),
+                mesh=(mesh.size, mesh.world, mesh.rank, mesh.backend,
+                      str(mesh.device)))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -539,6 +652,13 @@ def main() -> int:
         tree_frontier_l1_ref, tree_frontier_ref)
     from repro_torch.nng import (PointPartitionEngine,
                                  SpatialPartitionEngine, build_nng)
+    # the H100 cost model (the bounds printed beside every kernel's time):
+    # fp32 outside the tensor cores and HBM3 bandwidth from the SXM data
+    # sheet; popcounts a clock per SM (the card's rate is that times the
+    # SMs and clocks.max.sm from nvidia-smi, below)
+    from repro_torch.analysis import kernel_cost as kcost
+    from repro_torch.analysis.kernel_cost import (PEAK_BYTES, PEAK_FP32,
+                                                  POPC_PER_CLK_SM)
 
     cfg = NNG_CONFIGS[CONFIG]
     check(cfg.metric == "euclidean", f"{CONFIG} is not euclidean")
@@ -915,21 +1035,20 @@ def main() -> int:
               "one_live_tile: the plan of one tile's words is not one tile")
         return one
 
-    def level_bound(rows, nodes, pairs, feat, pair_ops, rate):
-        """A frontier launch's least time in ms, and its two terms:
-        ``pair_ops`` operations for each active pair's distance against
-        ``rate``, and q, c (``feat`` 4-byte values a row), rad, leaf and the
-        active words read once and the emit and expand words written once
-        against PEAK_BYTES."""
-        words = -(-nodes // 32)
-        nbytes = 4 * (rows * feat + nodes * feat + 2 * nodes
-                      + 3 * rows * words)
-        ops = pair_ops * pairs
-        return (max(ops / rate, nbytes / PEAK_BYTES) * 1e3, ops, nbytes)
+    def level_bound(kernel, rows, nodes, pairs, feat, rate):
+        """Frontier ``kernel``'s launch's least time in ms and its two
+        terms (``kernel_cost.frontier_cost``): each active pair's distance
+        (``rate``: the Hamming one's popcounts a second), and q, c (``feat``
+        4-byte values a row), rad, leaf and the active words read once and
+        the emit and expand words written once."""
+        c_ = kcost.kernel_cost(kernel, rows=rows, nodes=nodes, d=feat,
+                               pairs=pairs, popc_rate=rate)
+        return c_.bound_ms, c_.ops, int(c_.nbytes)
 
     def front_bound(rows, nodes, pairs):
         """tree_frontier's bound: 2·d fp32 flops a pair at PEAK_FP32."""
-        return level_bound(rows, nodes, pairs, DIM, 2 * DIM, PEAK_FP32)
+        return level_bound("tree_frontier", rows, nodes, pairs, DIM,
+                           PEAK_FP32)
 
     # -- 1. the card and the build -------------------------------------------
     print(f"[1] card: {smi}")
@@ -1204,14 +1323,12 @@ def main() -> int:
         full = cum[:, -1] < k_path
         first = (cum < k_path).sum(1) + 1
         words_read += int(torch.where(full, w, first).sum())
-    b2c_bytes = 4 * words_read + 4 * n_loc * k_path
-    b2c_bound = b2c_bytes / PEAK_BYTES * 1e3
+    b2c_c = kcost.bits_to_cols_cost(n_loc, w, k_path, words_read=words_read)
+    b2c_bytes, b2c_bound = int(b2c_c.nbytes), b2c_c.bound_ms
 
-    tile_flops = (2 * n_loc * n_loc * DIM + 2 * 2 * n_loc * DIM
-                  + 3 * n_loc * n_loc)
-    tile_bytes = 4 * 2 * n_loc * DIM + 4 * n_loc * 2 + 4 * n_loc * w
-    tile_bound_ops = tile_flops / PEAK_FP32 * 1e3
-    tile_bound_bytes = tile_bytes / PEAK_BYTES * 1e3
+    tile_c = kcost.tile_cost("euclidean", n_loc, n_loc, DIM)
+    tile_flops, tile_bytes = tile_c.ops, int(tile_c.nbytes)
+    tile_bound_ops, tile_bound_bytes = tile_c.ops_ms, tile_c.bytes_ms
     # the chain anchor on the same tile: the same operations, the (q, p)
     # fp32 d² out
     chain_b_bytes = (4 * 2 * n_loc * DIM + 4 * n_loc * n_loc) / PEAK_BYTES * 1e3
@@ -1524,9 +1641,8 @@ def main() -> int:
     front_lib_ms = cuda_ms(torch, lambda: torch.mm(q, c.T), 3)
     dl, li, qi = (t.to(dev) for t in pack_in)
     pack_ms = cuda_ms(torch, lambda: leaf_range_pack_cuda(dl, li, qi), 10)
-    pack_bytes = 4 * (dl.shape[0] * NL + NL + 2 * dl.shape[0]
-                      + dl.shape[0] * NL // 32)
-    pack_bound_ms = pack_bytes / PEAK_BYTES * 1e3
+    pack_c = kcost.leaf_range_pack_cost(dl.shape[0], NL)
+    pack_bytes, pack_bound_ms = int(pack_c.nbytes), pack_c.bound_ms
 
     def pack_plain():
         for r0 in range(0, dl.shape[0], 1024):
@@ -1586,9 +1702,11 @@ def main() -> int:
     g_br = branches(g_first, GF)
     g_pairs = max(a for a, _, _ in g_br)
     g_rows = g_first[0][0].shape[0]
-    print(f"[6f] depth cut: {DENSE_N} Gaussian points, not {DENSE_N_FULL}, "
-          f"to keep the whole script near 600 s (its builder's time grows "
-          f"with the square of the points)")
+    print(f"[6f] depth cut: {DENSE_N} Gaussian points, not {DENSE_N_FULL} "
+          f"(nor {DENSE_N_BEFORE}, the size before [13d] and [14] joined the "
+          f"script), to keep the whole script under 900 s of the 1200 a run "
+          f"may take (the forest build's time grows with the square of the "
+          f"points)")
     print(f"[6f] Gaussian block ({DENSE_N}x{DIM}, seed {SEED}), eps "
           f"{DENSE_EPS}: forest built in {g_build_s:.3f} s, L "
           f"{GF.radius.shape[0]}, N {GF.radius.shape[1]}; {DENSE_N} "
@@ -1675,7 +1793,7 @@ def main() -> int:
                nng_tile_ghost_hamming_cuda, nng_tile_ghost_l1_cuda)
     clk_mhz = float(nvidia_smi("clocks.max.sm", "csv,noheader,nounits"))
     popc_rate = POPC_PER_CLK_SM * n_sm * clk_mhz * 1e6
-    l1_rate = PEAK_FP32 / 2     # fp32 instructions a second (FMA = 2 flops)
+    l1_rate = kcost.L1_RATE     # fp32 instructions a second (FMA = 2 flops)
 
     def l1_d64(a, b):
         """Row-aligned float64 L1 distances."""
@@ -1886,8 +2004,8 @@ def main() -> int:
         ms = cuda_ms(torch, lambda: kern(q, c, rad, leaf, act, eps), 10)
         split = host_device_ms(torch, lambda: kern(q, c, rad, leaf, act,
                                                    eps))
-        bound, ops, nbytes = level_bound(q.shape[0], c.shape[0], pairs, feat,
-                                         pair_ops, rate)
+        bound, ops, nbytes = level_bound(kern.__name__[:-5], q.shape[0],
+                                         c.shape[0], pairs, feat, rate)
         by = "operations" if ops / rate >= nbytes / PEAK_BYTES else "bytes"
 
         def run_plain():
@@ -1895,8 +2013,8 @@ def main() -> int:
                 plain(q[r0:r0 + 1024], c, rad, leaf, act[r0:r0 + 1024], eps)
         plain_ms = events_ms(torch, run_plain)[1]
         lib_ms = library_rows(library, prep(q), prep(c))
-        trav = [level_bound(r_, n_, int(pr), feat, pair_ops, rate)
-                for r_, n_, pr, *_ in lin]
+        trav = [level_bound(kern.__name__[:-5], r_, n_, int(pr), feat,
+                            rate) for r_, n_, pr, *_ in lin]
         trav_ms = sum(e0.elapsed_time(e1) for *_, e0, e1 in lin)
         print(f"{label} level {lv} ({q.shape[0]}x{c.shape[0]}x{feat}, rows "
               f"in their forest's DFS order: {pairs} active pairs in "
@@ -2043,10 +2161,10 @@ def main() -> int:
     hnw = -(-hn_loc // 32)
     ham_ms = cuda_ms(torch, lambda: nng_tile_hamming_cuda(hx, hy, hones,
                                                           HAM_EPS), 5)
-    ham_pops = hn_loc * hn_loc * HW
-    ham_b_ops = ham_pops / popc_rate * 1e3
-    ham_bytes = 4 * (2 * hn_loc * HW + 2 * hn_loc + hn_loc * hnw)
-    ham_b_bytes = ham_bytes / PEAK_BYTES * 1e3
+    ham_c = kcost.tile_cost("hamming", hn_loc, hn_loc, HW,
+                            popc_rate=popc_rate)
+    ham_pops, ham_bytes = ham_c.ops, int(ham_c.nbytes)
+    ham_b_ops, ham_b_bytes = ham_c.ops_ms, ham_c.bytes_ms
     ub = U[:hn_loc]
     vb = U[hn_loc:2 * hn_loc]
     ham_lib_ms = library_rows(lambda a, b: torch.cdist(a, b, p=0), ub, vb)
@@ -2202,10 +2320,9 @@ def main() -> int:
 
     # -- 8d. times at the path's shapes ---------------------------------------
     l1_ms = cuda_ms(torch, lambda: nng_tile_l1_cuda(lx, ly, lones, EPS8), 3)
-    l1_ops = 2 * n8 * n8 * DIM
-    l1_b_ops = l1_ops / l1_rate * 1e3
-    l1_bytes = 4 * (2 * n8 * DIM + 2 * n8 + n8 * (n8 // 32))
-    l1_b_bytes = l1_bytes / PEAK_BYTES * 1e3
+    l1_c = kcost.tile_cost("manhattan", n8, n8, DIM)
+    l1_ops, l1_bytes = l1_c.ops, int(l1_c.nbytes)
+    l1_b_ops, l1_b_bytes = l1_c.ops_ms, l1_c.bytes_ms
     torch.cuda.empty_cache()
     l1_lib_ms = library_rows(lambda a, b: torch.cdist(a, b, p=1), lx, ly)
     torch.cuda.empty_cache()
@@ -2405,8 +2522,7 @@ def main() -> int:
             check(int(grouped_tile_plan(xg, yg)[1][0]) == blocks,
                   f"{label}: grouped_tile_plan's count is not the live "
                   f"tiles'")
-        nbytes = 4 * ((q_ + p_) * feat + 2 * (q_ + p_) + q_
-                      + q_ * -(-p_ // 32))
+        nbytes = int(kcost.grouped_cost(metric, q_, p_, feat).nbytes)
         return fused_times(label, ms, x, y, feat, need, "same-cell", pairs,
                            blocks, nbytes, pair_ops, rate, library, plain_ms,
                            prep, tile=tile)
@@ -2828,8 +2944,8 @@ def main() -> int:
         ms = cuda_ms(torch, lambda: kern(x, y, gb, yg, eps), 5)
         ordered = metric != "hamming"      # the ghost order's live tiles
         pairs, blocks, need = ghost_live(gb, yg, ordered=ordered)
-        nbytes = 4 * ((q_ + p_) * feat + q_ * gb.shape[1] + p_ + q_
-                      + q_ * -(-p_ // 32))
+        nbytes = int(kcost.ghost_cost(metric, q_, p_, feat,
+                                      gb.shape[1]).nbytes)
         out = fused_times(label, ms, x, y, feat, need, "ghost-cell", pairs,
                           blocks, nbytes, pair_ops, rate, library, plain_ms,
                           prep, tile=PIPE_TILE if ordered else (128, 128))
@@ -3497,16 +3613,16 @@ def main() -> int:
     # -- 11d. times at full width --------------------------------------------
     q_, p_, d_ = sx.shape[0], ey.shape[0], DIM
     sq_ms = cuda_ms(torch, lambda: pairwise_sqdist_cuda(sx, ey), 5)
-    sq_ops = 2 * q_ * p_ * d_ + 2 * (q_ + p_) * d_ + 3 * q_ * p_
-    sq_bytes = 4 * (q_ + p_) * d_ + 4 * q_ * p_
-    sq_b_ops, sq_b_bytes = sq_ops / PEAK_FP32 * 1e3, sq_bytes / PEAK_BYTES * 1e3
+    sq_c = kcost.pairwise_cost("euclidean", q_, p_, d_)
+    sq_ops, sq_bytes = sq_c.ops, int(sq_c.nbytes)
+    sq_b_ops, sq_b_bytes = sq_c.ops_ms, sq_c.bytes_ms
     sq_lib_ms = cuda_ms(torch, lambda: torch.mm(sx, ey.T), 5)
     torch.cuda.empty_cache()
     hq, hp = hx8.shape[0], HX.shape[0]
     hw_ms = cuda_ms(torch, lambda: pairwise_hamming_cuda(hx8, HX), 3)
-    hw_pops = hq * hp * HW
-    hw_bytes = 4 * (hq + hp) * HW + 4 * hq * hp
-    hw_b_ops, hw_b_bytes = hw_pops / popc_rate * 1e3, hw_bytes / PEAK_BYTES * 1e3
+    hw_c = kcost.pairwise_cost("hamming", hq, hp, HW, popc_rate=popc_rate)
+    hw_pops, hw_bytes = hw_c.ops, int(hw_c.nbytes)
+    hw_b_ops, hw_b_bytes = hw_c.ops_ms, hw_c.bytes_ms
     torch.cuda.empty_cache()
     ubits = unpack_words(HX).float()
     hw_lib_ms = library_rows(lambda a, b: torch.cdist(a, b, p=0),
@@ -3518,9 +3634,9 @@ def main() -> int:
     ec_ms = cuda_ms(torch, lambda: eps_count_cuda(ex, ey, EPS), 5)
     ec_tile_ms = min(ec_tile_ms, cuda_ms(
         torch, lambda: nng_tile_cuda(ex, ey, ones11, EPS), 3))
-    ec_ops = 2 * n_loc * n_loc * d_ + 2 * 2 * n_loc * d_ + 3 * n_loc * n_loc
-    ec_bytes = 4 * 2 * n_loc * d_ + 4 * n_loc
-    ec_b_ops, ec_b_bytes = ec_ops / PEAK_FP32 * 1e3, ec_bytes / PEAK_BYTES * 1e3
+    ec_c = kcost.eps_count_cost(n_loc, n_loc, d_)
+    ec_ops, ec_bytes = ec_c.ops, int(ec_c.nbytes)
+    ec_b_ops, ec_b_bytes = ec_c.ops_ms, ec_c.bytes_ms
     print(f"[11d] pairwise_sqdist ({q_}x{p_}x{d_}): {sq_ms:.3f} ms median; "
           f"bound {max(sq_b_ops, sq_b_bytes):.3f} ms (operations: "
           f"{sq_ops:.4g} fp32 flops = {sq_b_ops:.3f} ms; bytes {sq_bytes} = "
@@ -3991,6 +4107,139 @@ def main() -> int:
                   f"{want['elapsed_s']:.3f}")
         del kids, want13
     print(f"[13] {time.perf_counter() - t13:.1f} s (budget {PHASE13_S} s); "
+          f"script wall {time.perf_counter() - t_start:.1f} s")
+
+    # -- 13d. OnlineNNG over the processes of [13b] ----------------------------
+    # the processes run while this process runs the same schedule on
+    # RingMesh(8): the host forests (float64, one rank after another here)
+    # take most of either side's time, and the two overlap on the host's
+    # cores; the times each side prints include that sharing
+    import threading
+    t13d = time.perf_counter()
+    pool13 = pts[DIST_N:DIST_N + ON13_OPS * DIST_B]
+    spawned13d = {}
+
+    def run_kids():
+        try:
+            spawned13d["kids"] = spawn(
+                online_process, DIST_PROCS, backend="gloo", device="cuda",
+                args=(pts13, pool13, EPS, SP_K_CAP, NRANKS, ON13_OPS, DIST_B,
+                      SEED), timeout=600)
+        except Exception as e:  # noqa: BLE001 — raised below
+            spawned13d["error"] = e
+        spawned13d["s"] = time.perf_counter() - t13d
+
+    kid_thread = threading.Thread(target=run_kids)
+    kid_thread.start()
+    want13d = online_both(RingMesh(NRANKS, dev), pts13, pool13, EPS,
+                          SP_K_CAP, ON13_OPS, DIST_B, SEED)
+    want_s = time.perf_counter() - t13d
+    kid_thread.join()
+    if "error" in spawned13d:
+        raise spawned13d["error"]
+    kids = spawned13d["kids"]
+    for r, kid in enumerate(kids):
+        check(kid["mesh"] == (NRANKS, DIST_PROCS, r, "gloo", "cuda:0"),
+              f"[13d] process {r}'s mesh {kid['mesh']}")
+    print(f"[13d] OnlineNNG on {DIST_PROCS} gloo processes x "
+          f"{NRANKS // DIST_PROCS} ranks on {dev}, n={DIST_N}, eps={EPS}, "
+          f"k_cap={SP_K_CAP}, {ON13_OPS} operations of {DIST_B} points "
+          f"(every third a delete), insert backends device and host (a deep "
+          f"copy of the device one's initial state): the processes took "
+          f"{spawned13d['s']:.1f} s from start to exit (OnlineNNG(...) "
+          f"{max(k_['init_s'] for k_ in kids):.1f} s in the slowest), the "
+          f"same schedule on RingMesh({NRANKS}) in this process at the same "
+          f"time {want_s:.1f} s (OnlineNNG(...) {want13d['init_s']:.1f} s)")
+    for backend in ("device", "host"):
+        for i, want in enumerate(want13d[backend]):
+            for r, kid in enumerate(kids):
+                got = kid[backend][i]
+                differ = [(k, got[k], want[k]) for k in ONLINE_SHARED
+                          if got[k] != want[k]]
+                check(not differ, f"[13d] {backend} [{i}] {want['kind']}: "
+                                  f"process {r} differs from "
+                                  f"RingMesh({NRANKS}): {differ}")
+            moved, launches13d = {}, {}
+            for kid in kids:
+                for k, v in kid[backend][i]["moved"].items():
+                    moved[k] = moved.get(k, 0) + v
+                for k, v in kid[backend][i]["launches"].items():
+                    launches13d[k] = launches13d.get(k, 0) + v
+            d = want["delta"]
+            model = ({} if d is None else {
+                k: v * (d["replans"] + 1)
+                for k, v in d["comm_bytes"].items() if v})
+            check(moved == model and want["moved"] == model,
+                  f"[13d] {backend} [{i}]: bytes moved {moved} (processes), "
+                  f"{want['moved']} (RingMesh) against the model {model}")
+            check(launches13d == want["launches"],
+                  f"[13d] {backend} [{i}]: launches {launches13d} in the "
+                  f"processes, {want['launches']} in RingMesh({NRANKS})")
+            if d is not None:
+                check(min(launches13d.values()) > 0,
+                      f"[13d] {backend} [{i}]: a kernel of the delta path "
+                      f"did not run: {launches13d}")
+            ups = [k_[backend][i]["update_s"] for k_ in kids]
+            stg = [k_[backend][i]["staging_s"] for k_ in kids]
+            print(f"[13d] {backend} [{i}] {want['kind']}: "
+                  f"{want['num_edges']} edges, delta log, ids, live, "
+                  f"counters and comm_bytes equal on every process; "
+                  f"update_s {max(ups):.4f} (the slowest process) against "
+                  f"RingMesh's {want['update_s']:.4f}"
+                  + ("" if d is None else
+                     f"; delta elapsed_s "
+                     f"{max(k_[backend][i]['elapsed_s'] for k_ in kids):.4f}"
+                     f" against {want['elapsed_s']:.4f}, dists_evaluated "
+                     f"{d['dists_evaluated']:.0f}, delta_bcast "
+                     f"{d['comm_bytes']['delta_bcast']:.0f} bytes a run "
+                     f"({moved.get('delta_bcast', 0)} moved)")
+                  + f"; host staging {', '.join(f'{x:.4f}' for x in stg)} s "
+                  f"by process; launches {json.dumps(launches13d)}")
+    del kids, want13d
+    torch.cuda.empty_cache()
+    t13d_s = time.perf_counter() - t13d
+    print(f"[13d] {t13d_s:.1f} s; script wall "
+          f"{time.perf_counter() - t_start:.1f} s")
+
+    # -- 14. the analyzer on the card ------------------------------------------
+    from repro_torch.analysis.report import run_analysis
+    t14 = time.perf_counter()
+    ALL_KERNELS = KERNELS + (pairwise_sqdist_cuda, pairwise_hamming_cuda,
+                             eps_count_cuda)
+    for fn in ALL_KERNELS:
+        fn.launches = 0
+    report14 = run_analysis(device="cuda")
+    launches14 = {fn.__name__[:-5]: fn.launches for fn in ALL_KERNELS}
+    print(f"[14] run_analysis(device='cuda') {time.perf_counter() - t14:.1f} "
+          f"s: {len(report14['contracts']['checked'])} kernel contracts "
+          f"(each kernel launched at its probe shapes against its oracle, "
+          f"its wrapper's threshold, host reads and float64 checked), "
+          f"{len(report14['traffic'])} audit configurations on "
+          f"RingMesh({NRANKS}, 'cuda'); {len(report14['diagnostics'])} "
+          f"diagnostic(s), {len(report14['fresh'])} fresh, "
+          f"{len(report14['baselined'])} baselined; launches "
+          f"{json.dumps(launches14)}")
+    for d in report14["diagnostics"]:
+        print(f"[14]   {d['code']} [{d['subject']}] {d['message']}")
+    check(report14["ok"], f"[14] fresh diagnostics: {report14['fresh']}")
+    check(len(report14["contracts"]["checked"]) == 17
+          and all(v > 0 for v in launches14.values()),
+          f"[14] a kernel did not launch: {launches14}")
+    for subject, row in report14["traffic"].items():
+        print(f"[14] audit {subject}: {row['runs']} engine runs, moved "
+              f"{json.dumps(row['moved'])}, comm_bytes "
+              f"{json.dumps(row['comm_bytes'])}")
+    print("[14] the H100 cost model at PERF.md section 6's shapes (every "
+          "pair and word counted where the work depends on the data):")
+    for row in report14["kernel_costs"]:
+        print(f"[14]   #{row['row']} {row['kernel']} {row['shape']}: bound "
+              f"{row['bound_ms']:.3f} ms ({row['bound_by']}; operations "
+              f"{row['ops']:.4g} = {row['ops_ms']:.3f} ms, bytes "
+              f"{row['nbytes']:.4g} = {row['bytes_ms']:.3f} ms)")
+    del report14
+    torch.cuda.empty_cache()
+    t14_s = time.perf_counter() - t14
+    print(f"[13d]+[14] {t13d_s + t14_s:.1f} s (budget {PHASE13D_14_S} s); "
           f"script wall {time.perf_counter() - t_start:.1f} s")
 
     record = {"kernels": [

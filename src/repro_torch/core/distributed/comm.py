@@ -41,6 +41,10 @@ import torch
 import torch.distributed as dist
 
 
+# the channel of flags, sizes and counters: exchanged, never modelled
+CONTROL = "control"
+
+
 @dataclass
 class ExchangeStats:
     """What this process's exchanges moved and cost, per channel:
@@ -49,9 +53,13 @@ class ExchangeStats:
     permute's payload a pair, an all-gather's rows once, an all-to-all's
     send buffers, a broadcast once a receiving rank); ``sent``, the bytes
     that left the process; ``seconds``, the host seconds spent issuing and
-    waiting (with NCCL a wait only orders the streams). Exchanges without
-    a channel (flags, sizes, clocks) count as "control", never as moved.
-    ``staging_s``: gloo's host copies of CUDA payloads."""
+    waiting (with NCCL a wait only orders the streams). Flags, sizes,
+    counters and clocks travel on the ``CONTROL`` channel (and
+    ``all_max`` and ``gather_rows`` take none), which counts in ``sent``
+    and ``seconds`` but never as moved; a payload moved under no channel
+    counts under the key None, which no ``RunStats.comm_bytes`` formula
+    has (the analyzer's RA201). ``staging_s``: gloo's host copies of CUDA
+    payloads."""
 
     moved: dict = field(default_factory=dict)
     sent: dict = field(default_factory=dict)
@@ -60,9 +68,9 @@ class ExchangeStats:
 
     def add(self, channel, moved: int = 0, sent: int = 0,
             seconds: float = 0.0) -> None:
-        if channel is not None and moved:
+        if moved and channel != CONTROL:
             self.moved[channel] = self.moved.get(channel, 0) + moved
-        key = channel or "control"
+        key = channel or CONTROL
         if sent or seconds:
             self.sent[key] = self.sent.get(key, 0) + sent
             self.seconds[key] = self.seconds.get(key, 0.0) + seconds

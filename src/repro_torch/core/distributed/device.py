@@ -221,12 +221,14 @@ def _words_from_pairs(rows, cols, keep, m: int, nw: int):
 
 def _child_ranges(cell, parent):
     """Per level l < L - 1 of one rank's (L, N) cell and parent tables, the
-    slot range [lo, hi) of each node's valid children in level l + 1: the
-    builders emit a level's slots in parent order, so a node's valid
-    children (the valid slots whose parent it is) lie in one range. Online
-    deletes may leave invalid slots (cell PAD) inside it, so users of the
-    ranges test validity; a node without valid children gets [0, 0).
-    Raises on a forest whose valid slots are out of parent order.
+    slot range [lo, hi) from each node's first valid child to its last in
+    level l + 1; a node without valid children gets [0, 0). The forest
+    builds emit a level's slots in parent order, so there a range holds the
+    node's children alone, and invalid slots (cell PAD) that online
+    deletes leave. Host inserts (``FlatCoverTree.insert_host``) keep the
+    reference's superset ranges and may put a child after another
+    parent's children, so a range may also span other nodes' children:
+    users of the ranges test validity and the parent slot.
     -> (lo, hi) (L, N) int32."""
     L, N = cell.shape
     lo = torch.zeros((L, N), dtype=torch.int32, device=cell.device)
@@ -234,9 +236,6 @@ def _child_ranges(cell, parent):
     for lvl in range(1, L):
         slots = (cell[lvl] >= 0).nonzero()[:, 0]
         par = parent[lvl][slots].long()
-        if bool((par[1:] < par[:-1]).any()):
-            raise ValueError(f"forest level {lvl}: valid slots are not in "
-                             "parent order")
         first = torch.full((N,), N, dtype=torch.long, device=cell.device)
         last = torch.full((N,), -1, dtype=torch.long, device=cell.device)
         first.scatter_reduce_(0, par, slots, reduce="amin")
@@ -248,10 +247,11 @@ def _child_ranges(cell, parent):
 
 
 def _child_pairs(prev, lo_tab, hi_tab, limit: int):
-    """The (row, child slot) pairs under every expanded (row, node) pair of
-    ``prev`` (packed expand words; node v's children are the slots
-    [lo_tab[v], hi_tab[v])) and the count of expanded pairs, or None when
-    either list could hold more than ``limit`` pairs."""
+    """The (row, slot) pairs under every expanded (row, node) pair of
+    ``prev`` (packed expand words; node v's children lie in the slots
+    [lo_tab[v], hi_tab[v])), the expanded node of each pair (a slot is
+    v's child iff its parent slot is v) and the count of expanded pairs,
+    or None when either list could hold more than ``limit`` pairs."""
     pairs = _set_bits(prev, limit)
     if pairs is None:
         return None
@@ -265,7 +265,8 @@ def _child_pairs(prev, lo_tab, hi_tab, limit: int):
     start = torch.cumsum(n_ch, 0) - n_ch
     node = (lo - start).repeat_interleave(n_ch, output_size=total) \
         + torch.arange(total, device=prev.device)
-    return rows, node, er.numel()
+    return rows, node, ep.repeat_interleave(n_ch, output_size=total), \
+        er.numel()
 
 
 def tree_traverse(qp, qids, qcells, forest: DeviceForest, eps, k_cap: int,
@@ -390,9 +391,10 @@ def tree_traverse(qp, qids, qcells, forest: DeviceForest, eps, k_cap: int,
                 if pairs is None:
                     outs += _popcount(prev)
                 else:
-                    rows, node, n_exp = pairs
+                    rows, node, par, n_exp = pairs
                     outs += n_exp
-                    keep = valid[lvl][node] & pair_scope(lvl, rows, node)
+                    keep = (valid[lvl][node] & (parent[lvl][node] == par)
+                            & pair_scope(lvl, rows, node))
                     acts += keep.sum()
                     act = _words_from_pairs(rows, node, keep, m, nw)
             if act is None:
@@ -505,7 +507,7 @@ def _gathered(mesh, vals, dtype) -> torch.Tensor:
     or numbers) -> (nranks,) ``dtype`` on every process."""
     local = torch.stack([torch.as_tensor(vals[me], device=mesh.device)
                          .to(dtype) for me in mesh.local_ranks])
-    return comm.all_gather(mesh, local)
+    return comm.all_gather(mesh, local, channel=comm.CONTROL)
 
 
 def _systolic_local(xs, *, mesh, eps, metric, k_cap, prune, overlap=True):
@@ -855,7 +857,8 @@ def _tree_outputs(nbrs, cnt, orders, k_cap, tiles_skipped, dists, pruned,
     cnt = [torch.empty_like(cnt[me]).index_copy_(0, orders[me], cnt[me])
            for me in loc]
     overflow = comm.all_gather(mesh, torch.stack([(c > k_cap).any()
-                                                  for c in cnt]))
+                                                  for c in cnt]),
+                               channel=comm.CONTROL)
     counts = [_gathered(mesh, vals, torch.int64).to(torch.float32)
               for vals in (dists, pruned)]
     return (torch.cat(nbrs), torch.cat(cnt), overflow, tiles_skipped,
@@ -1159,9 +1162,10 @@ def plan_landmark_device(points, centers, f, eps: float, mesh: RingMesh, *,
                           two_eps_c=2.0 * eps, metric=met)
         for me in mesh.local_ranks))
     # (src, dst) coalesce counts, every rank's
-    coal_all = comm.all_gather(mesh, torch.stack(coal))
-    ghost_all = comm.all_gather(mesh, torch.stack(ghost))
-    gpp_all = comm.all_gather(mesh, torch.stack(gpp))
+    coal_all = comm.all_gather(mesh, torch.stack(coal), channel=comm.CONTROL)
+    ghost_all = comm.all_gather(mesh, torch.stack(ghost),
+                                channel=comm.CONTROL)
+    gpp_all = comm.all_gather(mesh, torch.stack(gpp), channel=comm.CONTROL)
     # total rows any ONE rank receives in coalesce = the compacted block
     # height the ring ghost path rotates (column sums of the src×dst table)
     rank_tot = int(coal_all.sum(0).max())

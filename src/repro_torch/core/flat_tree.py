@@ -581,7 +581,11 @@ def build_cell_forests(
 
     ``backend`` as in ``build_block_forests``: "host" returns the
     ``FlatCoverTree`` list, "device" the stacked device-tables dict as
-    tensors on ``device`` (``mesh`` as in ``build_block_forests``).
+    tensors on ``device``. On a ``mesh`` over processes each process
+    builds its own ranks' forests only: the host list holds
+    ``mesh.local_ranks``' forests, in rank order (``stack_device_forests``
+    with the same ``mesh`` stacks them to this process's rows of the
+    stack of all), and the device dict this process's rows.
     """
     if backend == "device":
         from .flat_tree_device import build_cell_forests_device
@@ -590,11 +594,12 @@ def build_cell_forests(
                                          leaf_size, device=device, mesh=mesh)
     assert backend == "host", backend
     from .covertree import build_covertree
+    from .flat_tree_device import _local_build
 
     f = np.asarray(f)
     cell = np.asarray(cell)
     out = []
-    for r in range(nranks):
+    for r in range(nranks)[_local_build(mesh, nranks)[0]]:
         trees, tcells, tgids = [], [], []
         for ci in np.flatnonzero(f == r):
             members = np.flatnonzero(cell == ci)
@@ -612,14 +617,23 @@ def build_cell_forests(
     return out
 
 
-def stack_device_forests(forests: Sequence[FlatCoverTree]) -> dict[str, np.ndarray]:
+def stack_device_forests(forests: Sequence[FlatCoverTree], mesh=None
+                         ) -> dict[str, np.ndarray]:
     """Pad per-rank device tables to common (L, N, n_leaf) and stack to a
     leading rank axis — rank r's forest is entry r of every table.
+
+    On a ``mesh`` over processes ``forests`` are this process's ranks'
+    (``mesh.local_ranks``) and the common sizes are the largest of every
+    process's (one all-reduce), so the stack is this process's rows of the
+    stack of every rank's forests, bit for bit.
     """
     tabs = [f.to_device_tables() for f in forests]
     L = max(t["radius"].shape[0] for t in tabs)
     N = max(t["radius"].shape[1] for t in tabs)
     nl = max(t["leaf_ids"].shape[0] for t in tabs)
+    if mesh is not None and mesh.world > 1:
+        from .distributed import comm
+        L, N, nl = comm.all_max(mesh, L, N, nl)
 
     def pad(a, shape, fill):
         out = np.full(shape, fill, a.dtype)

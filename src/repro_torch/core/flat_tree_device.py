@@ -516,7 +516,7 @@ def _insert_roots(tabs: dict, newp, newg, newc, newr):
 
 
 def insert_stacked_device(tabs: dict, new_points, new_gids, new_ranks,
-                          new_cells=None) -> dict:
+                          new_cells=None, *, mesh=None) -> dict:
     """Batched incremental insert into stacked forest tables, as torch ops
     on the tables' device.
 
@@ -527,7 +527,14 @@ def insert_stacked_device(tabs: dict, new_points, new_gids, new_ranks,
     (``FlatCoverTree.insert_host``) is the structure-preserving variant.
     When a rank's padded width or leaf table overflows, both double
     (``_grow_stacked``) and the insert retries. Returns new tables; the
-    input tables are left as they were."""
+    input tables are left as they were.
+
+    On a ``mesh`` over processes ``tabs`` hold this process's ranks' rows
+    (``mesh.local_ranks``) and every process passes the whole batch with
+    its global ranks: each appends the points of its own ranks, and the
+    tables grow on every process whenever they must on any (one
+    all-reduce a try), so each process's tables stay its rows of the
+    one-process stack."""
     dev = torch.as_tensor(tabs["cell"]).device
     tabs = {k: torch.as_tensor(v, device=dev) for k, v in tabs.items()}
     # uint32 word rows (numpy tables of the Hamming metric) are scattered
@@ -544,9 +551,19 @@ def insert_stacked_device(tabs: dict, new_points, new_gids, new_ranks,
     newr = torch.as_tensor(np.asarray(new_ranks, np.int64), device=dev)
     newc = (torch.zeros_like(newg) if new_cells is None else
             torch.as_tensor(np.asarray(new_cells, np.int64), device=dev))
+    spread = mesh is not None and mesh.world > 1
+    if spread:
+        from .distributed import comm
+        loc = mesh.local_ranks
+        mine = (newr >= loc.start) & (newr < loc.stop)
+        newp, newg, newc = newp[mine], newg[mine], newc[mine]
+        newr = newr[mine] - loc.start
     while True:
         out = _insert_roots(tabs, newp, newg, newc, newr)
-        if out is not None:
+        full = out is None
+        if spread:
+            full = bool(comm.all_max(mesh, int(full)))
+        if not full:
             if words:
                 out["coords"] = out["coords"].view(torch.uint32)
             return out

@@ -29,6 +29,9 @@ Usage:
   python -m torch.distributed.run --nproc-per-node 4 \\
       -m repro_torch.launch.nng_run --points 4096 --dim 8 --ranks 8 \\
       --algo systolic --device cpu --verify
+  python -m torch.distributed.run --nproc-per-node 4 \\
+      -m repro_torch.launch.nng_run --points 4096 --dim 8 --ranks 8 \\
+      --algo landmark --updates 6 --update-batch 64 --device cpu --verify
 
 ``run_systolic`` / ``run_landmark`` are thin adapters over the shared
 ``repro_torch.nng.drive`` loop that return the reference's tuple shapes
@@ -99,10 +102,13 @@ def edges_from_neighbor_lists(ids, nbrs):
     return ids[ii], nbrs[ii, kk]
 
 
-def _run_updates(args, pts, mesh, partition):
+def _run_updates(args, pts, mesh, partition, say=print):
     """``--updates`` replay: build on a prefix, stream the reserved points
     in as insert batches interleaved with random deletes, report update
-    throughput and delta-log state, optionally verify the final view."""
+    throughput and delta-log state (through ``say``), optionally verify
+    the final view. On a mesh over processes every process replays the
+    same operations (``OnlineNNG`` over processes) and rank 0 alone
+    verifies."""
     from repro_torch.stream import OnlineNNG
 
     rng = np.random.default_rng(args.seed)
@@ -112,8 +118,8 @@ def _run_updates(args, pts, mesh, partition):
     o = OnlineNNG(pts[:n0], args.eps, metric=args.metric,
                   partition=partition, mesh=mesh, k_cap=args.k_cap,
                   seed=args.seed)
-    print(f"online: built on {n0}, replaying {args.updates} updates "
-          f"(batch {b})")
+    say(f"online: built on {n0}, replaying {args.updates} updates "
+        f"(batch {b})")
     cursor = n0
     for step in range(args.updates):
         if step % 3 == 2 and o.num_live > b:     # every third op: delete
@@ -128,15 +134,15 @@ def _run_updates(args, pts, mesh, partition):
         else:
             break
         st = o.last_update_stats
-        print(f"  [{step}] {kind}: live={o.num_live} "
-              f"delta_edges={o.graph.delta_edges} "
-              f"dists={0 if st is None else st.dists_evaluated:.0f}")
+        say(f"  [{step}] {kind}: live={o.num_live} "
+            f"delta_edges={o.graph.delta_edges} "
+            f"dists={0 if st is None else st.dists_evaluated:.0f}")
     g = o.graph
-    print(f"{g} after updates: update_s={g.stats.update_s:.2f}s "
-          f"edges_added={g.stats.edges_added:.0f} "
-          f"edges_removed={g.stats.edges_removed:.0f} "
-          f"compactions={g.meta.get('compactions', 0)}")
-    if args.verify:
+    say(f"{g} after updates: update_s={g.stats.update_s:.2f}s "
+        f"edges_added={g.stats.edges_added:.0f} "
+        f"edges_removed={g.stats.edges_removed:.0f} "
+        f"compactions={g.meta.get('compactions', 0)}")
+    if args.verify and mesh.rank == 0:
         from repro_torch.core.brute import brute_force_graph
         live = np.flatnonzero(o.live)
         gb = brute_force_graph(o.points[live], args.eps, args.metric)
@@ -262,7 +268,7 @@ def _main(args, mesh):
         f"traversal={args.traversal} processes={mesh.world}")
 
     if args.updates > 0:
-        return _run_updates(args, pts, mesh, partition)
+        return _run_updates(args, pts, mesh, partition, say)
 
     g = build_nng(
         pts, args.eps, metric=args.metric, partition=partition,

@@ -66,9 +66,15 @@ class OnlineNNG:
     the last insert's delta traversal (``RunStats``).
 
     ``mesh`` defaults to ``make_nng_mesh()`` on ``device`` (the CUDA card
-    unless ``device="cpu"``), as ``build_nng``'s does. A mesh over more
-    than one process is not supported yet (``NotImplementedError``): the
-    wrapper keeps every rank's forest in one process. ``insert_backend``:
+    unless ``device="cpu"``), as ``build_nng``'s does. On a mesh over the
+    processes of a ``torch.distributed`` group every process calls
+    ``OnlineNNG(...)``, ``insert`` and ``delete`` with the same arguments,
+    as every process calls ``build_nng`` with the same points; each keeps
+    only its own ranks' (``mesh.local_ranks``) forests and tables, and the
+    rest of the state (the graph and its delta log, the new ids, ``live``,
+    ``stats`` and ``meta["online"]``) is the same on every process and
+    equals the one-process wrapper's on a mesh of as many ranks.
+    ``insert_backend``:
     "host" (float64 top-down descent into the owning forest, then
     restack) or "device" (batched singleton-root append into the stacked
     tables on the device). ``compact_ratio`` tunes the auto-compaction
@@ -108,12 +114,6 @@ class OnlineNNG:
         elif device is not None and torch.device(device) != mesh.device:
             raise ValueError(f"device {device!r} differs from the mesh's "
                              f"{mesh.device}")
-        if mesh.world > 1:
-            raise NotImplementedError(
-                f"OnlineNNG on a mesh over {mesh.world} processes: its "
-                "per-rank forests live in one process; online maintenance "
-                "over processes (per-process tables for the host and device "
-                "insert backends) is the next slice of the port")
         self.mesh = mesh
         self.nranks = mesh.size
         self.live = np.ones(n, bool)
@@ -138,7 +138,11 @@ class OnlineNNG:
         blocks instead of duplicate padding, so every leaf gid is unique
         and tombstones cannot half-delete a point. Spatial partition: the
         landmark cell forests (fixed centres; a new point joins the
-        nearest centre's cell, so the Voronoi scoping stays consistent)."""
+        nearest centre's cell, so the Voronoi scoping stays consistent).
+        Every process computes the same partition (the blocks, or the
+        centres, cells and LPT assignment from ``seed``) and builds its
+        own ranks' forests: ``self.forests[i]`` is rank
+        ``mesh.local_ranks[i]``'s."""
         n = len(self.points)
         met = self.metric.host
         if self.partition == "spatial":
@@ -152,12 +156,13 @@ class OnlineNNG:
                 self.nranks), np.int32)
             self.forests = build_cell_forests(
                 self.points, self.cell, self.f, self.nranks, met,
-                self.leaf_size)
+                self.leaf_size, mesh=self.mesh)
             return
         self.centers = self.cell = self.f = None
         blocks = np.array_split(np.arange(n, dtype=np.int64), self.nranks)
         self.forests = []
-        for blk in blocks:
+        for r in self.mesh.local_ranks:
+            blk = blocks[r]
             if len(blk) == 0:   # more ranks than points: placeholder tree
                 tree = build_covertree(self.points[:1], met, self.leaf_size)
                 self.forests.append(flatten_forest(
@@ -169,16 +174,19 @@ class OnlineNNG:
                 [tree], cells=[0], gids=[blk], points=self.points))
 
     def _restack(self):
-        """All ranks' host forests, stacked and copied to the mesh's device
-        (the reference's design: every host insert or delete restacks)."""
+        """This process's ranks' host forests, stacked (to the sizes every
+        process's agree on) and copied to the mesh's device (the
+        reference's design: every host insert or delete restacks)."""
         dev = self.mesh.device
         self._stacked = {
             k: (self.metric.as_device(v, dev) if k == "coords"
                 else torch.as_tensor(v, device=dev))
-            for k, v in stack_device_forests(self.forests).items()}
+            for k, v in stack_device_forests(self.forests,
+                                             self.mesh).items()}
 
     def _assign(self, new_points, b: int):
-        """(ranks, cells) of a new batch under the current partition."""
+        """(ranks, cells) of a new batch under the current partition (the
+        same on every process)."""
         if self.partition == "spatial":
             met = self.metric.host
             cells = np.argmin(
@@ -204,15 +212,16 @@ class OnlineNNG:
         ranks, cells = self._assign(new_points, b)
         if self.insert_backend == "device":
             self._stacked = insert_stacked_device(
-                self._stacked, new_points, gids, ranks, cells)
+                self._stacked, new_points, gids, ranks, cells,
+                mesh=self.mesh)
         else:
-            for r in range(self.nranks):
+            for r, forest in zip(self.mesh.local_ranks, self.forests):
                 mine = ranks == r
                 if mine.any():
-                    self.forests[r].insert_host(
-                        gids[mine], cells=cells[mine], points=self.points)
+                    forest.insert_host(gids[mine], cells=cells[mine],
+                                       points=self.points)
                 else:
-                    self.forests[r].points = self.points
+                    forest.points = self.points
             self._restack()
         src, dst, stats = delta_run(
             new_points, gids, self._stacked, self.eps, self.mesh,

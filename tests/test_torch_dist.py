@@ -12,7 +12,11 @@ moves rank to rank, counted per channel on every process, must sum to
 ``comm_bytes`` per engine run. The logical ring is held to the reference
 by the other port tests; here the process ring at 6 ranks is held to the
 reference's 6-device run as well (one JAX subprocess; this file imports
-no JAX).
+no JAX). ``OnlineNNG`` over the processes of worlds 3, 8 and 2 x 4 (host
+and device insert backends, point and spatial partitions, L2 and Hamming)
+must equal the one-process wrapper after its build and after every
+operation, and the CLI's ``--updates`` replay under the 2 x 4 spawn the
+one-process replay.
 
 The eps of the float cases comes from the reference's test helpers in
 that subprocess: ``landmark_safe_eps`` at 6 ranks for the tiles and the
@@ -37,8 +41,9 @@ WORLDS = {"w3": (3, 3), "w5": (5, 5), "w6": (6, 6), "w8": (8, 8),
 BASE = ["tiles", "tiles-serial", "tiles-grow", "default"]
 FULL = BASE + ["tree-split", "tree-serial", "coll", "ring", "spatial-tree",
                "l1", "hamming", "delta", "forests"]
-CASES = {"w3": BASE + ["online"], "w5": FULL, "w6": BASE + ["coll"],
-         "w8": FULL, "2x4": FULL + ["cli"]}
+ONLINE = list(cases.ONLINE)
+CASES = {"w3": BASE + ONLINE, "w5": FULL, "w6": BASE + ["coll"],
+         "w8": FULL + ONLINE, "2x4": FULL + ONLINE + ["cli"]}
 PAIRS = [(w, c) for w, cs in CASES.items() for c in cs if c != "cli"]
 
 REF6 = """
@@ -81,8 +86,8 @@ def ref6():
 def case_eps(ref, nranks, name):
     if name.startswith("tree"):
         return ref["eps_tree"][nranks]
-    return {"l1": ref["eps_l1"], "hamming": ref["eps_hamming"]}.get(
-        name, ref["eps"])
+    return {"l1": ref["eps_l1"], "hamming": ref["eps_hamming"],
+            "online-hamming": ref["eps_hamming"]}.get(name, ref["eps"])
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -131,6 +136,34 @@ def assert_same(got, want):
             assert got[k] == want[k], k
 
 
+def assert_online(got, want):
+    """``OnlineNNG`` over processes against the one-process wrapper: after
+    the build and after every operation, every process's edge keys, delta
+    log, new ids, ``live``, counters, ``comm_bytes``, ``meta`` and table
+    sizes equal its; the bytes the processes' ranks moved in each step sum
+    to the one-process mesh's, which are the insert's ``delta_bcast``
+    bytes once an engine run (the build's are checked by the build cases)."""
+    kinds = [s["kind"] for s in want["steps"]]
+    assert kinds == ["build", "insert", "insert", "delete", "insert",
+                     "insert", "delete"]
+    for g in got:
+        for i, (a, b) in enumerate(zip(g["steps"], want["steps"])):
+            assert a == b, (i, {k: (a[k], b[k]) for k in a if a[k] != b[k]})
+        assert len(g["steps"]) == len(want["steps"])
+    for i, (kind, step) in enumerate(zip(kinds, want["steps"])):
+        total = {}
+        for g in got:
+            for k, v in g["moved"][i].items():
+                total[k] = total.get(k, 0) + v
+        assert total == want["moved"][i], (i, total, want["moved"][i])
+        if kind == "delete":
+            assert total == {}
+        elif kind == "insert":
+            d = step["delta"]
+            assert total == {k: v * (d["replans"] + 1)
+                             for k, v in d["comm_bytes"].items()}
+
+
 def runs_of(result):
     """Engine runs of a build: the first, the grows, the steady re-run."""
     return result["counters"]["replans"] + 2
@@ -147,8 +180,8 @@ def test_process_mesh_equals_logical_ring(ref6, world, name):
         per = nranks // procs
         assert loc == tuple(range(rank * per, (rank + 1) * per))
     got = [o["cases"][name] for o in outs]
-    if name == "online":
-        assert all("next slice" in g["raised"] for g in got)
+    if name in cases.ONLINE:
+        assert_online(got, logical(ref6, nranks, name))
         return
     if name == "forests":
         for g in got:
@@ -181,6 +214,15 @@ def test_cli_under_spawn_verifies(ref6):
     processes, exact against brute force (rank 0 verifies)."""
     got = [o["cases"]["cli"] for o in launch(ref6, "2x4")]
     assert got[0] == got[1]
+    # the --updates replay over the processes equals the one-process one
+    from repro_torch.launch.nng_run import main
+    g = main(["--n", "256", "--dim", "6", "--eps", "1.5", "--device", "cpu",
+              "--ranks", "8", "--verify", "--algo", "landmark", "--updates",
+              "3", "--update-batch", "24"])
+    import hashlib
+    assert got[0]["updates"]["edge_sha"] == hashlib.sha256(
+        g.edge_key().tobytes()).hexdigest()
+    assert got[0]["updates"]["comm_bytes"] == g.stats.comm_bytes
     from repro_torch.core.brute import brute_force_graph
     import hashlib
     gb = brute_force_graph(cases.synthetic_pointset(256, 6, seed=0), 1.5)

@@ -53,6 +53,24 @@ def test_port_runs_with_jax_blocked():
     assert r.stdout.startswith("ok")
 
 
+def test_analyzer_cli_runs_with_jax_blocked(tmp_path):
+    """``python -m repro_torch.analysis --check --device cpu`` (without the
+    audit, which ``tests/test_torch_analysis.py`` runs) with ``jax`` and
+    ``repro`` unimportable: the analyzer is the port's own."""
+    code = (
+        "import sys, runpy\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "sys.argv = ['repro_torch.analysis', '--check', '--device', 'cpu',\n"
+        f"            '--no-traffic', '--out', {str(tmp_path / 'r.json')!r}]\n"
+        "runpy.run_module('repro_torch.analysis', run_name='__main__')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", code], env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "0 fresh" in r.stderr
+
+
 def test_default_device_without_cuda_raises():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default runs on it")

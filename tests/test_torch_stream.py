@@ -547,3 +547,61 @@ def test_online_nng_single_rank_delete_all_but_one():
     assert "compactions" not in o.graph.meta
     with pytest.raises(ValueError, match="insert_backend"):
         OnlineNNG(pts, eps, insert_backend="gpu", device="cpu")
+
+
+def test_host_inserts_out_of_parent_order(monkeypatch):
+    """Host inserts keep the reference's superset child ranges, so a new
+    child can land after another node's children (``nng_run --algo
+    landmark --updates 3`` on 8 ranks does so at its second insert): the
+    traversal's child ranges then span other nodes' children, and its
+    levels walked from pair lists and densely still give the same pairs
+    and counters, and the merged view the float64 brute force."""
+    from repro_torch.core.distributed import DeviceForest
+    from repro_torch.core.distributed import device as tdev
+    pts = synthetic_pointset(256, 6, seed=0)
+    o = OnlineNNG(pts[:184], 1.5, partition="spatial", k_cap=256,
+                  mesh=make_nng_mesh(8, "cpu"))
+    for lo in (184, 208):
+        o.insert(pts[lo:lo + 24])
+    brute_check(o, 1.5, "after the inserts")
+    cell, parent = o._stacked["cell"], o._stacked["parent"]
+    unordered = 0
+    for r in range(8):
+        for lvl in range(1, cell.shape[1]):
+            par = parent[r, lvl][cell[r, lvl] >= 0]
+            unordered += int((par[1:] < par[:-1]).any())
+    assert unordered > 0, "no level out of parent order"
+    forest = DeviceForest.from_tables(o._stacked)
+    out = {}
+    for name, div in (("pairs", 1), ("dense", 1 << 40)):
+        monkeypatch.setattr(tdev, "SPARSE_DIV", div)
+        src, dst, st = delta_run(pts[232:256], np.arange(232, 256), forest,
+                                 1.5, o.mesh, k_cap=256)
+        out[name] = (sorted(zip(src.tolist(), dst.tolist())),
+                     st.dists_evaluated, st.nodes_pruned)
+    assert out["pairs"] == out["dense"]
+    assert len(out["pairs"][0]) > 0
+
+
+@pytest.mark.parametrize("metric,partition", [("euclidean", "spatial"),
+                                              ("hamming", "point")])
+def test_delta_counters_independent_of_padded_width(metric, partition):
+    """The delta traversal's pairs and counters do not depend on how wide
+    the stacked tables are padded (the device insert backend doubles them
+    on overflow, on every process when any process overflows)."""
+    pts = synthetic_pointset(200, 6, metric, seed=3)
+    eps = safe_eps(pts, metric)
+    o = OnlineNNG(pts[:180], eps, metric=metric, partition=partition,
+                  insert_backend="device", k_cap=512,
+                  mesh=make_nng_mesh(3, "cpu"))
+    o.insert(pts[180:190])
+    wide = _grow_stacked(_grow_stacked(o._stacked))
+    assert wide["cell"].shape[2] == 4 * o._stacked["cell"].shape[2]
+    outs = [delta_run(pts[190:200], np.arange(190, 200), t, eps, o.mesh,
+                      metric=metric, k_cap=512)
+            for t in (o._stacked, wide)]
+    (s0, d0, st0), (s1, d1, st1) = outs
+    assert np.array_equal(s0, s1) and np.array_equal(d0, d1)
+    assert (st0.dists_evaluated, st0.nodes_pruned) == \
+        (st1.dists_evaluated, st1.nodes_pruned)
+    assert st0.dists_evaluated > 0

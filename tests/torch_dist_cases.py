@@ -57,13 +57,14 @@ def count_bytes():
     moves included, as ``RunStats.comm_bytes`` models them: a permute's
     payload per (src, dst) pair, an all-gather's rows once, an all-to-all's
     send buffers, a broadcast once per receiving rank. Counts this
-    process's ranks' sends."""
+    process's ranks' sends; the flags and counters of the control channel
+    are not modelled, and a move under no channel counts under None."""
     tally = {}
     orig = {k: getattr(comm, k) for k in ("permute", "all_gather",
                                           "all_to_all", "broadcast")}
 
     def add(channel, nbytes):
-        if channel is not None:
+        if channel != comm.CONTROL:
             tally[channel] = tally.get(channel, 0) + nbytes
 
     def permute(mesh, blocks, perm, *, channel=None):
@@ -169,22 +170,90 @@ def _forests(mesh, eps):
 
 def _cli(mesh, eps):
     from repro_torch.launch.nng_run import main
-    g = main(["--n", "256", "--dim", "6", "--eps", "1.5", "--algo",
-              "systolic", "--device", "cpu", "--ranks", str(mesh.size),
-              "--verify"])
-    return {"edge_sha": hashlib.sha256(g.edge_key().tobytes()).hexdigest(),
-            "counters": {k: getattr(g.stats, k) for k in (
-                "tiles_skipped", "dists_evaluated")},
-            "comm_bytes": g.stats.comm_bytes}
+
+    def run(*extra):
+        g = main(["--n", "256", "--dim", "6", "--eps", "1.5", "--device",
+                  "cpu", "--ranks", str(mesh.size), "--verify", *extra])
+        return {"edge_sha": hashlib.sha256(
+                    g.edge_key().tobytes()).hexdigest(),
+                "counters": {k: getattr(g.stats, k) for k in (
+                    "tiles_skipped", "dists_evaluated")},
+                "comm_bytes": g.stats.comm_bytes}
+    return dict(run("--algo", "systolic"),
+                updates=run("--algo", "landmark", "--updates", "3",
+                            "--update-batch", "24"))
 
 
-def _online(mesh, eps):
+ON_N0 = 180                 # the online cases' initial corpus
+ON_B = 5                    # points an insert or delete
+ON_OPS = 6                  # operations, every third a delete
+# online case -> (insert backend, partition, metric)
+ONLINE = {"online": ("host", "point", "euclidean"),
+          "online-spatial": ("device", "spatial", "euclidean"),
+          "online-hamming": ("device", "point", "hamming")}
+
+
+def _sha(*arrays) -> str:
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+def _online(mesh, eps, name):
+    """``OnlineNNG`` on the first ON_N0 points, then ON_OPS operations of
+    ON_B points (inserts of the next points, every third operation a
+    delete of random live ids): after the build and after every
+    operation, the state every process must share (edge keys, the delta
+    log, the new ids, ``live``, counters, ``comm_bytes``, ``meta``), and
+    the bytes this process's ranks moved per channel in that step."""
     from repro_torch.stream import OnlineNNG
-    try:
-        OnlineNNG(points(), eps, mesh=mesh)
-    except NotImplementedError as e:
-        return {"raised": str(e)}
-    return {"raised": None}
+    backend, partition, metric = ONLINE[name]
+    pts = points(metric)
+    rng = np.random.default_rng(7)
+    mesh.stats.reset()
+    o = OnlineNNG(pts[:ON_N0], eps, metric=metric, partition=partition,
+                  mesh=mesh, k_cap=K_CAP, insert_backend=backend,
+                  device="cpu")
+    steps, moved, cursor = [], [], ON_N0
+
+    def record(kind, ids):
+        g, st = o.graph, o.stats
+        delta = o.last_update_stats if kind == "insert" else None
+        steps.append({
+            "kind": kind, "ids": ids.tolist(),
+            "edges": _sha(g.edge_key()),
+            "log": _sha(g.row_ptr, g.col_ids, g._add_lo, g._add_hi,
+                        g._dead),
+            "live": _sha(o.live), "num_live": o.num_live,
+            "counters": {k: getattr(st, k) for k in (
+                "tiles_scheduled", "tiles_skipped", "dists_evaluated",
+                "nodes_pruned", "replans", "edges_added", "edges_removed")},
+            "comm_bytes": dict(st.comm_bytes),
+            "delta": None if delta is None else {
+                "dists_evaluated": delta.dists_evaluated,
+                "nodes_pruned": delta.nodes_pruned,
+                "replans": delta.replans,
+                "comm_bytes": dict(delta.comm_bytes)},
+            "meta": {k: v for k, v in g.meta.items()},
+            # a rank's table sizes (the leading axis holds the local ranks)
+            "tables": {k: tuple(v.shape[1:])
+                       for k, v in o._stacked.items()}})
+        moved.append(dict(mesh.stats.moved))
+        mesh.stats.reset()
+
+    record("build", np.zeros(0, np.int64))
+    for step in range(ON_OPS):
+        if step % 3 == 2:
+            ids = np.sort(rng.choice(np.flatnonzero(o.live), ON_B,
+                                     replace=False))
+            o.delete(ids)
+            record("delete", ids)
+        else:
+            ids = o.insert(pts[cursor:cursor + ON_B])
+            cursor += ON_B
+            record("insert", ids)
+    return {"steps": steps, "moved": moved}
 
 
 def run_case(mesh, name, eps):
@@ -208,8 +277,10 @@ def run_case(mesh, name, eps):
         with count_bytes() as tally:
             g = build_nng(points(), eps, device="cpu", k_cap=K_CAP)
         return _graph_result(g, tally)
-    return {"delta": _delta, "forests": _forests, "cli": _cli,
-            "online": _online}[name](mesh, eps)
+    if name in ONLINE:
+        return _online(mesh, eps, name)
+    return {"delta": _delta, "forests": _forests, "cli": _cli}[name](mesh,
+                                                                      eps)
 
 
 def run_cases(nranks, cases):
