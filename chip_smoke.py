@@ -198,6 +198,19 @@ each printed as it runs; any failed check raises and exits non-zero:
      configurations on ``RingMesh(8)`` on the card and prints the H100
      cost model at PERF.md section 6's shapes; any fresh diagnostic fails
      the run.
+ 15. the paper-table modules beside the engines on the card: the
+     reference bench's shapes at full width, ``synthetic_pointset(8192,
+     128)`` at an eps of mean degree 50-100 (of the widest float64 gaps
+     between pair d², the one the fewest pairs' fp32 d² on the card
+     straddle; those pairs checked on the knife) and 4096 x 25 Hamming
+     words at the integer eps nearest degree 70: ``snn_graph`` (L2),
+     ``systolic_ring_host`` and ``landmark_host`` (collective ghosts with
+     random centres, the ring with greedy ones) on 8 simulated ranks, the
+     host graphs equal to each other and to the card's ``build_nng`` with
+     ``partition="point"`` and ``"spatial"`` (L2: but for exactly the
+     pairs across eps); each host call's seconds (this machine's CPU),
+     phase times and ``makespan_s``, the host ring bytes beside the card's
+     ``comm_bytes``, and ``build_nng``'s speed-up over ``snn_graph``.
 
 Hamming distances are exact integers: no knife. Two fp32 L1 sums in
 different orders are each within d·u·D of the float64 sum D (u = 2^-24),
@@ -276,6 +289,12 @@ DIST_CASES = (("point tiles", {}),
               ("spatial ring", {"partition": "spatial",
                                 "ghost_mode": "ring"}))
 TABLE_BUDGET = 32 << 30  # [9e], [10c]: all ranks' id tables on the card
+P15_N = 8192           # [15]: the reference paper-table bench's sift-like
+P15_DIM = 128          # shape (benchmarks/tables.py:56; 8000 there), seed 0
+P15_DEG = (50, 100)    # [15]: the L2 eps's mean degree lies here (paper: 70)
+P15_HAM_N = 4096       # [15]: its word2bits-like shape, 4096 x 25 words
+P15_HAM_W = 25
+PHASE15_S = 60         # [15]'s time budget on an H100
 # [10b]: tiles_scheduled, tiles_skipped, dists_evaluated of the ring call as
 # the tree before the ghost kernel's row order (commit 5e86e38) printed
 # them; the counters come from the reference's block schedule, which no
@@ -4241,6 +4260,157 @@ def main() -> int:
     t14_s = time.perf_counter() - t14
     print(f"[13d]+[14] {t13d_s + t14_s:.1f} s (budget {PHASE13D_14_S} s); "
           f"script wall {time.perf_counter() - t_start:.1f} s")
+
+    # -- 15. the paper-table modules beside the engines on the card ----------
+    from repro_torch.core.host_algos import landmark_host, systolic_ring_host
+    from repro_torch.core.snn import snn_graph
+    t15 = time.perf_counter()
+    print(f"[15] host times below are this machine's CPU "
+          f"({os.cpu_count()} cores, numpy float64); card times are the "
+          f"card's ({smi})")
+    # L2 eps: of the 256 widest gaps between consecutive float64 pair d² at
+    # a mean degree in P15_DEG, the one that the fewest pairs straddle with
+    # their fp32 d² on the card (the L2 cores' d², bit for bit
+    # pairwise_sqdist's): those pairs, and only those, may differ between
+    # the host's float64 graphs and the card's
+    pts15 = synthetic_pointset(P15_N, P15_DIM, seed=SEED)
+    x15 = torch.as_tensor(pts15, device=dev)
+    x64 = x15.double()
+    nrm64 = (x64 * x64).sum(1)
+    D64 = nrm64[:, None] + nrm64[None, :] - 2.0 * (x64 @ x64.T)
+    D32 = tk.pairwise_sqdist(x15, x15)
+    upper = torch.ones(P15_N, P15_N, dtype=torch.bool, device=dev).triu(1)
+    v64, order15 = torch.sort(D64[upper])
+    v32 = D32[upper][order15]
+    knife15 = KNIFE_ULPS * U32 * 2 * float(nrm64.mean())
+    del x64, nrm64, order15
+    lo15, hi15 = (deg * P15_N // 2 for deg in P15_DEG)
+    gaps15 = v64[lo15 + 1:hi15 + 1] - v64[lo15:hi15]
+    best15 = None
+    for k in torch.topk(gaps15, 256).indices.tolist():
+        e = float(torch.sqrt((v64[lo15 + k] + v64[lo15 + k + 1]) / 2))
+        split = int(((v64 <= e * e) != (v32 <= eps2_f32(e))).sum())
+        if best15 is None or split < best15[0]:
+            best15 = (split, e, float(gaps15[k]))
+        if split == 0:
+            break
+    split15, eps15, gap15 = best15
+    e15 = int((v64 <= eps15 * eps15).sum())
+    si15, sj15 = (((D64 <= eps15 * eps15) != (D32 <= eps2_f32(eps15)))
+                  & upper).nonzero(as_tuple=True)
+    print(f"[15] L2 points synthetic_pointset({P15_N}, {P15_DIM}, "
+          f"seed={SEED}); eps {eps15!r} in a float64 gap of d² width "
+          f"{gap15:.6g} ({gap15 / eps15 ** 2:.3g} of eps²; the knife "
+          f"{KNIFE_ULPS} fp32 units of ‖x‖²+‖y‖² is "
+          f"{knife15:.3g} at the mean ‖x‖²); "
+          f"{split15} pairs' fp32 d² on the card across it; {e15} edges, "
+          f"mean degree {2 * e15 / P15_N:.4f}")
+    knife_check("[15] the pairs across eps", x15, x15, si15, sj15,
+                eps2_f32(eps15))
+    key15 = torch.sort(si15 * P15_N + sj15).values
+    del D64, D32, upper, v64, v32, gaps15, si15, sj15
+    # Hamming eps: the integer whose mean degree lies nearest the paper's 70
+    ham15 = synthetic_pointset(P15_HAM_N, P15_HAM_W, "hamming", seed=SEED)
+    hw15 = torch.as_tensor(ham15.view(np.int32), device=dev)
+    hd = tk.pairwise_hamming(hw15, hw15)
+    hd = hd[torch.ones_like(hd, dtype=torch.bool).triu(1)].long()
+    hdeg = 2.0 * torch.bincount(hd).cumsum(0).double().cpu() / P15_HAM_N
+    heps15 = int((hdeg - 70.0).abs().argmin())
+    print(f"[15] Hamming points synthetic_pointset({P15_HAM_N}, {P15_HAM_W}, "
+          f"'hamming', seed={SEED}); eps {heps15}, mean degree "
+          f"{float(hdeg[heps15]):.4f} (degrees by eps from 40: "
+          f"{[round(float(v), 2) for v in hdeg[40:48]]})")
+    del hd, hw15, hdeg
+
+    def card_call(label, pts_, eps_, **kw):
+        for fn in KERNELS:
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g_ = build_nng(pts_, eps_, mesh=mesh, **kw)
+        torch.cuda.synchronize()
+        wall_ = time.perf_counter() - t0
+        launched = {fn.__name__[:-5]: fn.launches for fn in KERNELS
+                    if fn.launches}
+        print(f"[15] card {label}: build_nng {json.dumps(kw)} on "
+              f"{mesh.size} ranks: call wall {wall_:.3f} s, elapsed_s "
+              f"{g_.stats.elapsed_s:.3f} s, {g_.num_edges} edges; "
+              f"comm_bytes {json.dumps(g_.stats.comm_bytes)}; launches "
+              f"{json.dumps(launched)}")
+        return g_, wall_, launched
+
+    def phases(st):
+        return (f"partition_s {st.partition_s:.3f} tree_s {st.tree_s:.3f} "
+                f"ghost_s {st.ghost_s:.3f} total_s {st.total_s:.3f} "
+                f"makespan_s {st.makespan_s:.3f}; tiles "
+                f"{st.tiles_scheduled:.0f} scheduled {st.tiles_skipped:.0f} "
+                f"skipped, dists_evaluated {st.dists_evaluated:.6g}, "
+                f"nodes_pruned {st.nodes_pruned:.6g}; comm_bytes "
+                f"{json.dumps(st.comm_bytes)}")
+
+    for metric, pts_, eps_, tile_k, grp_k in (
+            ("euclidean", pts15, eps15, "nng_tile", "nng_tile_grouped"),
+            ("hamming", ham15, heps15, "nng_tile_hamming",
+             "nng_tile_grouped_hamming")):
+        point15, wall_p, l_p = card_call(f"{metric} point", pts_, eps_,
+                                         metric=metric)
+        spatial15, wall_s, l_s = card_call(f"{metric} spatial", pts_, eps_,
+                                           metric=metric,
+                                           partition="spatial")
+        check(l_p.get(tile_k, 0) > 0 and l_s.get(grp_k, 0) > 0,
+              f"[15] {metric}: a kernel of the path never launched: "
+              f"{l_p} {l_s}")
+        check(point15 == spatial15, f"[15] {metric}: the card's point and "
+                                    f"spatial graphs differ")
+        host15 = None
+        calls = [("systolic_ring_host", lambda: systolic_ring_host(
+                     pts_, eps_, NRANKS, metric=metric)),
+                 ("landmark_host coll random", lambda: landmark_host(
+                     pts_, eps_, NRANKS, ghost_mode="coll", metric=metric)),
+                 ("landmark_host ring greedy", lambda: landmark_host(
+                     pts_, eps_, NRANKS, ghost_mode="ring", metric=metric,
+                     center_strategy="greedy"))]
+        if metric == "euclidean":
+            calls.insert(0, ("snn_graph", lambda: (snn_graph(pts_, eps_),
+                                                   None)))
+        for label, fn in calls:
+            t0 = time.perf_counter()
+            hg, hst = fn()
+            secs = time.perf_counter() - t0
+            line = f"[15] host {metric} {label}: {secs:.3f} s"
+            if hst is not None:
+                line += f"; {phases(hst)}"
+            print(line)
+            if label == "snn_graph":
+                el_p = point15.stats.elapsed_s
+                el_s = spatial15.stats.elapsed_s
+                print(f"[15] build_nng over snn_graph: point "
+                      f"{secs / wall_p:.2f}x, spatial {secs / wall_s:.2f}x "
+                      f"(call walls; over elapsed_s {secs / el_p:.2f}x, "
+                      f"{secs / el_s:.2f}x)")
+            if label == "systolic_ring_host":
+                print(f"[15] {metric} ring bytes: host "
+                      f"{hst.comm_bytes['ring']} (the blocks' rotation), "
+                      f"the card's point call "
+                      f"{json.dumps(point15.stats.comm_bytes)}")
+            if host15 is None:
+                host15 = hg
+                i, j, (n_c, n_h) = edge_diff(point15, hg, len(pts_))
+                print(f"[15] {metric}: the card's graph {point15.num_edges} "
+                      f"edges, the host's {hg.num_edges}: {n_c} only on the "
+                      f"card, {n_h} only on the host")
+                want = key15 if metric == "euclidean" else key15[:0]
+                check(torch.equal(torch.sort(i * len(pts_) + j).values,
+                                  want),
+                      f"[15] {metric}: the host and card graphs differ "
+                      f"elsewhere than at the pairs across eps")
+            check(hg == host15, f"[15] {metric} {label}: the host graph "
+                                f"differs from the first host call's")
+        del point15, spatial15, host15
+    torch.cuda.empty_cache()
+    t15_s = time.perf_counter() - t15
+    print(f"[15] {t15_s:.1f} s (budget {PHASE15_S} s); script wall "
+          f"{time.perf_counter() - t_start:.1f} s")
 
     record = {"kernels": [
         {"name": "nng_tile", "route": "cuda",

@@ -36,16 +36,9 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
 
-    import torch
-
     from .diagnostics import Diagnostic, write_baseline
     from .report import run_analysis
 
-    if args.device == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available: the analyzer runs "
-                           "the kernels on the card by default; pass "
-                           "--device cpu to check the oracles and wrappers "
-                           "without one")
     report = run_analysis(audit=not args.no_traffic,
                           costs=not args.no_costs, nranks=args.nranks,
                           device=args.device, baseline_path=args.baseline)

@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from .diagnostics import Diagnostic
-from .lints import lint_f64, lint_host_sync, lint_threshold
+from .lints import analysis_device, lint_f64, lint_host_sync, lint_threshold
 
 __all__ = ["KernelContract", "check_contract", "check_all",
            "compare_outputs", "default_contracts", "PROBE"]
@@ -92,11 +92,11 @@ def _policy(c: KernelContract, outs: tuple, who: str) -> list[Diagnostic]:
         if not isinstance(t, torch.Tensor) or t.dtype != want]
 
 
-def check_contract(c: KernelContract, device="cpu") -> list[Diagnostic]:
+def check_contract(c: KernelContract, device="cuda") -> list[Diagnostic]:
     """The contract's diagnostics on ``device``: "cpu" checks the oracle
     (and the wrapper on the fake card), "cuda" also launches the kernel
     and holds its outputs to the oracle's."""
-    device = torch.device(device)
+    device = analysis_device(device)
     diags: list[Diagnostic] = []
     for value, multiple, label in c.shape_invariants:
         if int(value) % int(multiple) != 0:
@@ -170,7 +170,8 @@ def compare_outputs(c, args, got, want) -> list[Diagnostic]:
 
 
 def check_all(contracts: Sequence[KernelContract] | None = None,
-              device="cpu") -> tuple[list[Diagnostic], list[KernelContract]]:
+              device="cuda") -> tuple[list[Diagnostic], list[KernelContract]]:
+    device = analysis_device(device)
     cs = list(contracts) if contracts is not None else default_contracts()
     diags: list[Diagnostic] = []
     for c in cs:

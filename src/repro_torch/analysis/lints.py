@@ -27,9 +27,22 @@ from torch.utils._pytree import tree_flatten
 
 from .diagnostics import Diagnostic
 
-__all__ = ["fake_card", "entry_calls", "OpRecorder", "record_ops",
-           "lint_threshold", "lint_host_sync", "lint_f64",
+__all__ = ["analysis_device", "fake_card", "entry_calls", "OpRecorder",
+           "record_ops", "lint_threshold", "lint_host_sync", "lint_f64",
            "lint_int_reductions", "same_c_value"]
+
+
+def analysis_device(device) -> torch.device:
+    """Where the analyzer runs: ``"cuda"`` (every entry point's default)
+    raises without a card, as the engines' defaults do; ``"cpu"`` checks
+    the oracles, and the wrappers on the fake card."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available: the analyzer runs "
+                           "the kernels on the card by default; pass "
+                           "device='cpu' (--device cpu) to check the "
+                           "oracles and wrappers without one")
+    return device
 
 # the wrapper modules whose persistent kernels read the SM count
 _SM_MODULES = ("repro_torch.kernels.nng_tile", "repro_torch.kernels.eps_count",
@@ -258,11 +271,12 @@ def lint_host_sync(c) -> list[Diagnostic]:
         f"before its launch")]
 
 
-def lint_f64(c, device="cpu") -> list[Diagnostic]:
+def lint_f64(c, device="cuda") -> list[Diagnostic]:
     """RA104 — no float64 tensor while the contract's CUDA wrapper
     prepares its operands (on the fake card) or while its oracle runs on
     ``device``: the kernels' programs are fp32 (float64 belongs to the host
     oracles of the tests)."""
+    device = analysis_device(device)
     hits = []
     if c.kernel is not None:
         args = c.probe(torch.device("cpu"))
@@ -270,7 +284,7 @@ def lint_f64(c, device="cpu") -> list[Diagnostic]:
             _, rec = record_ops(c.kernel, *args)
         hits += [f"wrapper: {op}" for op in rec.f64]
     if c.oracle is not None:
-        args = c.probe(torch.device(device))
+        args = c.probe(device)
         try:
             _, rec = record_ops(c.oracle, *args)
         except Exception:       # noqa: BLE001 — RA001 reports it

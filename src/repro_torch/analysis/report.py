@@ -14,6 +14,7 @@ from .cache_key import cached_modules, lint_cache_keys
 from .contracts import check_all
 from .diagnostics import Diagnostic, load_baseline, split_baselined
 from .kernel_cost import kernel_costs
+from .lints import analysis_device
 from .modgraph import lint_dead_modules
 
 __all__ = ["run_analysis", "SRC_ROOT"]
@@ -22,9 +23,12 @@ SRC_ROOT = Path(__file__).resolve().parents[1]          # src/repro_torch
 
 
 def run_analysis(*, audit: bool = True, costs: bool = True,
-                 nranks: int = 8, device="cpu", baseline_path=None) -> dict:
-    """Every pass on ``device`` ("cuda": the kernels launch against their
-    oracles and the audit's engines run on the card) -> the report."""
+                 nranks: int = 8, device="cuda", baseline_path=None) -> dict:
+    """Every pass on ``device`` ("cuda", the default: the kernels launch
+    against their oracles and the audit's engines run on the card, and
+    without a card it raises; "cpu": the oracles, and the wrappers on the
+    fake card) -> the report."""
+    device = analysis_device(device)
     diags: list[Diagnostic] = []
     contract_diags, contracts = check_all(device=device)
     diags += contract_diags

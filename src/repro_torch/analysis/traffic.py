@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from .diagnostics import Diagnostic
-from .lints import OpRecorder, lint_int_reductions
+from .lints import OpRecorder, analysis_device, lint_int_reductions
 
 __all__ = ["SYSTOLIC_CONFIGS", "LANDMARK_CONFIGS", "AUDIT_SHAPE",
            "audit_points", "audit_config", "audit_all", "classify_moves",
@@ -159,7 +159,7 @@ def _engine_runs(mesh, runs: list, recorder: OpRecorder):
             cls.run = orig
 
 
-def audit_config(cfg: dict, *, nranks: int = 8, device="cpu",
+def audit_config(cfg: dict, *, nranks: int = 8, device="cuda",
                  shape: dict | None = None, seed: int = 0):
     """One configuration -> (diagnostics, its table row): ``build_nng`` on
     ``RingMesh(nranks, device)`` at the audit shape; the row holds the
@@ -169,7 +169,7 @@ def audit_config(cfg: dict, *, nranks: int = 8, device="cpu",
     from repro_torch.nng import build_nng
     sh = dict(AUDIT_SHAPE, **(shape or {}))
     subject = subject_of(cfg)
-    mesh = RingMesh(nranks, torch.device(device))
+    mesh = RingMesh(nranks, analysis_device(device))
     pts = audit_points(sh["n"], sh["dim"], nranks, seed)
     runs: list = []
     rec = OpRecorder()
@@ -194,8 +194,9 @@ def audit_config(cfg: dict, *, nranks: int = 8, device="cpu",
     return diags, row
 
 
-def audit_all(nranks: int = 8, device="cpu"):
+def audit_all(nranks: int = 8, device="cuda"):
     """The nine configurations -> (diagnostics, {subject: row})."""
+    device = analysis_device(device)
     diags, table = [], {}
     for cfg in SYSTOLIC_CONFIGS + LANDMARK_CONFIGS:
         d, row = audit_config(cfg, nranks=nranks, device=device)

@@ -6,13 +6,15 @@ from . import comm
 from .comm import RingMesh, make_nng_mesh
 from .device import (DeviceForest, LandmarkPlan, delta_bcast_bytes,
                      delta_traverse_run, dfs_row_order, ghost_coll_bytes,
-                     ghost_ring_bytes, landmark_run, local_tables,
-                     plan_landmark_device, plan_ring_schedule,
-                     resolve_ghost_mode, systolic_run, tree_traverse)
+                     ghost_ring_bytes, landmark_nng, landmark_run,
+                     local_tables, plan_landmark, plan_landmark_device,
+                     plan_ring_schedule, resolve_ghost_mode, systolic_nng,
+                     systolic_run, tile_cdist, tree_traverse)
 
 __all__ = ["DeviceForest", "LandmarkPlan", "RingMesh", "comm",
            "delta_bcast_bytes", "delta_traverse_run", "dfs_row_order",
-           "ghost_coll_bytes", "ghost_ring_bytes", "landmark_run",
-           "local_tables", "make_nng_mesh", "plan_landmark_device",
-           "plan_ring_schedule", "resolve_ghost_mode", "systolic_run",
-           "tree_traverse"]
+           "ghost_coll_bytes", "ghost_ring_bytes", "landmark_nng",
+           "landmark_run", "local_tables", "make_nng_mesh", "plan_landmark",
+           "plan_landmark_device", "plan_ring_schedule",
+           "resolve_ghost_mode", "systolic_nng", "systolic_run",
+           "tile_cdist", "tree_traverse"]

@@ -60,6 +60,7 @@ local ranks' neighbour rows and every rank's counters and overflow flags
 """
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -83,6 +84,13 @@ from repro_torch.kernels.ops import (nng_tile_bits, nng_tile_bits_ghost,
                                      nng_tile_bits_grouped,
                                      nng_tile_bits_pair, nng_tile_geometry,
                                      tree_frontier_step)
+
+
+def tile_cdist(x, y, metric):
+    """Comparable distances between tiles — the registered metric's device
+    ``cdist`` (sq-L2 fp32 for euclidean, counts for hamming, |diff| sums
+    for manhattan, whatever a user metric declares)."""
+    return get_metric(metric).cdist(x, y)
 
 
 def _merge_ids(buf, new_ids):
@@ -988,6 +996,18 @@ def systolic_run(points, eps: float, mesh: RingMesh, *, metric="euclidean",
                                       ring_modes=tuple(ring_schedule), **kw)
 
 
+def systolic_nng(points, eps, mesh, **kw):
+    """Deprecated alias of ``systolic_run`` (the tuple API). Use
+    ``repro_torch.nng.build_nng(points, eps, partition="point", ...)``
+    instead — same engine, CSR ``NNGraph`` result, the shared re-plan
+    loop (``drive``)."""
+    warnings.warn(
+        "systolic_nng is deprecated; use repro_torch.nng.build_nng(..., "
+        "partition='point') or repro_torch.core.distributed.systolic_run",
+        DeprecationWarning, stacklevel=2)
+    return systolic_run(points, eps, mesh, **kw)
+
+
 # ---------------------------------------------------------------------------
 # delta traversal — the online-maintenance entry point (repro_torch.stream)
 # ---------------------------------------------------------------------------
@@ -1100,6 +1120,23 @@ def resolve_ghost_mode(ghost_mode: str, plan: LandmarkPlan, dim: int,
                             plan.m_centers)
     coll = ghost_coll_bytes(nranks, plan.cap_ghost, dim, itemsize)
     return "ring" if ring < coll else "coll"
+
+
+def plan_landmark(n: int, nranks: int, *, m_centers: int | None = None,
+                  avg_degree_hint: float = 64.0,
+                  skew: float = 2.0) -> LandmarkPlan:
+    """Heuristic capacity planning from workload stats (no ``cap_rank``:
+    a collective-exchange plan). ``plan_landmark_device`` counts the
+    exact capacities instead."""
+    m = m_centers or max(2 * nranks, 32)
+    per_pair = int(np.ceil(n / nranks / nranks))
+    return LandmarkPlan(
+        m_centers=m,
+        cap_coal=int(per_pair * skew) + 8,
+        cap_ghost=int(per_pair * skew) + 8,
+        g_per_pt=8,
+        k_cap=int(avg_degree_hint * skew),
+    )
 
 
 def _lemma1_ghost_bound(x, centers, dpc, d_min, two_eps_c, metric):
@@ -1554,3 +1591,15 @@ def landmark_run(points, eps: float, centers, f, mesh: RingMesh,
         mesh=mesh, eps=float(eps), metric=met, plan=plan,
         traversal=traversal, ghost_mode=ghost_mode, forests=forests,
         cells=cells)
+
+
+def landmark_nng(points, eps, centers, f, mesh, plan, **kw):
+    """Deprecated alias of ``landmark_run`` (the tuple API). Use
+    ``repro_torch.nng.build_nng(points, eps, partition="spatial", ...)``
+    instead — same engine, CSR ``NNGraph`` result, the shared re-plan
+    loop (``drive``)."""
+    warnings.warn(
+        "landmark_nng is deprecated; use repro_torch.nng.build_nng(..., "
+        "partition='spatial') or repro_torch.core.distributed.landmark_run",
+        DeprecationWarning, stacklevel=2)
+    return landmark_run(points, eps, centers, f, mesh, plan, **kw)

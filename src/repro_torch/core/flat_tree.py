@@ -65,6 +65,11 @@ class TraversalStats:
     nodes_pruned: int = 0       # frontier pairs discarded after one distance
     levels: int = 0             # deepest level the frontier reached
 
+    def add(self, other: "TraversalStats") -> None:
+        self.dists_evaluated += other.dists_evaluated
+        self.nodes_pruned += other.nodes_pruned
+        self.levels = max(self.levels, other.levels)
+
 
 @dataclass
 class FlatCoverTree:

@@ -1,3 +1,3 @@
-from .pointsets import blocked_clusters, synthetic_pointset
+from .pointsets import blocked_clusters, load_pointset, synthetic_pointset
 
-__all__ = ["blocked_clusters", "synthetic_pointset"]
+__all__ = ["blocked_clusters", "load_pointset", "synthetic_pointset"]

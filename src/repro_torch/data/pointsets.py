@@ -1,9 +1,13 @@
-"""Point-cloud sources for the ε-NNG engine (numpy, made from a seed).
+"""Point-cloud sources for the ε-NNG engine (numpy).
 
-Synthetic stand-ins matched to the paper's Table I regime: clustered
-clouds of low intrinsic dimension, and one tight cluster per index block.
+Real datasets (``.fvecs``, as SIFT ships, or ``.npy``) are read when their
+file exists; otherwise synthetic stand-ins matched to the paper's Table I
+regime, made from a seed: clustered clouds of low intrinsic dimension, and
+one tight cluster per index block.
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -55,3 +59,23 @@ def blocked_clusters(n: int, dim: int, nblocks: int, *, spread: float = 0.05,
     pts = (np.repeat(ctrs, reps, axis=0)
            + rng.normal(size=(nblocks * reps, dim)) * spread)
     return pts.astype(np.float32)
+
+
+def _read_fvecs(path: str) -> np.ndarray:
+    """An ``.fvecs`` file: each row an int32 dimension d, then d float32."""
+    raw = np.fromfile(path, dtype=np.int32)
+    d = raw[0]
+    return raw.reshape(-1, d + 1)[:, 1:].view(np.float32)
+
+
+def load_pointset(name: str, n: int, dim: int, metric: str,
+                  data_dir: str = "data"):
+    """The first ``n`` rows of ``data_dir/name.fvecs`` or ``name.npy`` if
+    either exists, else ``synthetic_pointset(n, dim, metric)`` seeded from
+    ``hash(name)``: deterministic within one process (Python randomises
+    ``str`` hashes per process unless ``PYTHONHASHSEED`` is set)."""
+    for ext, reader in ((".fvecs", _read_fvecs), (".npy", np.load)):
+        path = os.path.join(data_dir, name + ext)
+        if os.path.exists(path):
+            return np.ascontiguousarray(reader(path)[:n])
+    return synthetic_pointset(n, dim, metric, seed=abs(hash(name)) % 2**31)

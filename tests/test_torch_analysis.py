@@ -215,10 +215,29 @@ def test_ra103_host_read_flagged(read):
 
 def test_ra104_f64_flagged():
     oracle = lambda x: (x.double().sum(1).to(torch.int32),)  # noqa: E731
-    assert _codes(lint_f64(_toy_contract(oracle=oracle))) == ["RA104"]
+    assert _codes(lint_f64(_toy_contract(oracle=oracle), "cpu")) == ["RA104"]
     kernel = lambda x: (x.to(torch.float64).sum(1).int(),)  # noqa: E731
-    assert _codes(lint_f64(_toy_contract(kernel=kernel))) == ["RA104"]
-    assert lint_f64(_toy_contract()) == []
+    assert _codes(lint_f64(_toy_contract(kernel=kernel), "cpu")) == ["RA104"]
+    assert lint_f64(_toy_contract(), "cpu") == []
+
+
+@pytest.mark.parametrize("entry", ["run_analysis", "check_all",
+                                   "check_contract", "lint_f64",
+                                   "audit_config", "audit_all"])
+def test_default_device_is_the_card(entry):
+    """Every Python entry point of the analyzer defaults to the card, as
+    the CLI and the engines do: without one it raises before any pass."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default runs on it")
+    from repro_torch.analysis.report import run_analysis
+    calls = {"run_analysis": run_analysis, "check_all": check_all,
+             "check_contract": lambda: check_contract(_toy_contract()),
+             "lint_f64": lambda: lint_f64(_toy_contract()),
+             "audit_config": lambda: traffic.audit_config(
+                 traffic.SYSTOLIC_CONFIGS[0]),
+             "audit_all": traffic.audit_all}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calls[entry]()
 
 
 # ---------------------------------------------------------------------------
@@ -226,13 +245,13 @@ def test_ra104_f64_flagged():
 # ---------------------------------------------------------------------------
 
 def test_ra004_missing_oracle():
-    diags = check_contract(_toy_contract(oracle=None))
+    diags = check_contract(_toy_contract(oracle=None), "cpu")
     assert _codes(diags) == ["RA004"]
 
 
 def test_ra003_padding_invariant_violation():
     diags = check_contract(
-        _toy_contract(shape_invariants=((130, 32, "tp % 32"),)))
+        _toy_contract(shape_invariants=((130, 32, "tp % 32"),)), "cpu")
     assert _codes(diags) == ["RA003"]
     assert "tp % 32" in diags[0].message
 
@@ -240,7 +259,7 @@ def test_ra003_padding_invariant_violation():
 def test_ra001_oracle_raises():
     def oracle(x):
         raise ValueError("no such shape")
-    diags = check_contract(_toy_contract(oracle=oracle))
+    diags = check_contract(_toy_contract(oracle=oracle), "cpu")
     assert _codes(diags) == ["RA001"]
 
 
@@ -257,7 +276,7 @@ def test_ra002_kernel_oracle_mismatch():
 
 
 def test_ra002_dtype_policy():
-    diags = check_contract(_toy_contract(out_dtypes=(torch.int64,)))
+    diags = check_contract(_toy_contract(out_dtypes=(torch.int64,)), "cpu")
     assert _codes(diags) == ["RA002"]
 
 
@@ -371,7 +390,8 @@ def test_ra201_move_without_channel_injected(monkeypatch):
             comm.all_gather(mesh, torch.zeros((len(mesh.local_ranks), 3)))
         return orig(mesh, blocks, perm, channel=channel)
     monkeypatch.setattr(comm, "permute", permute)
-    diags, _ = traffic.audit_config(traffic.SYSTOLIC_CONFIGS[0])
+    diags, _ = traffic.audit_config(traffic.SYSTOLIC_CONFIGS[0],
+                                   device="cpu")
     assert _codes(diags) == ["RA201"]
     assert "no channel" in diags[0].message
 
@@ -387,7 +407,8 @@ def test_ra202_formula_drift_injected(monkeypatch):
         out["ring_points"] *= 2
         return out
     monkeypatch.setattr(PointPartitionEngine, "_ring_comm_bytes", drifted)
-    diags, row = traffic.audit_config(traffic.SYSTOLIC_CONFIGS[1])
+    diags, row = traffic.audit_config(traffic.SYSTOLIC_CONFIGS[1],
+                                     device="cpu")
     assert set(_codes(diags)) == {"RA202"}
     assert len(diags) == row["runs"]
     assert "ring_points" in diags[0].message
