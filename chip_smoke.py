@@ -211,6 +211,17 @@ each printed as it runs; any failed check raises and exits non-zero:
      pairs across eps); each host call's seconds (this machine's CPU),
      phase times and ``makespan_s``, the host ring bytes beside the card's
      ``comm_bytes``, and ``build_nng``'s speed-up over ``snn_graph``.
+ 16. the production dry run (``repro_torch.launch.dryrun``): the model's
+     table of every ``NNG_CONFIGS`` cell on the 256- and 512-rank
+     layouts (roofline terms, bottleneck and per-rank memory, no device);
+     then each cell's systolic and landmark engine, as ``build_nng``
+     runs them from the whole input on every process (``engine_step``),
+     at the 256-rank layout's points a rank on 8 gloo processes sharing
+     this card, one rank each (``measure_many``), each process's peak
+     device memory against the model evaluated at those 8 ranks
+     (measured <= model <= MEM_SLACK x measured), the kernels each
+     process launched equal to the model's count; and one ``nng_tile`` launch at each L2 cell's points a
+     rank, timed, at or above 0.95 x the model's bound for that tile.
 
 Hamming distances are exact integers: no knife. Two fp32 L1 sums in
 different orders are each within d·u·D of the float64 sum D (u = 2^-24),
@@ -295,6 +306,9 @@ P15_DEG = (50, 100)    # [15]: the L2 eps's mean degree lies here (paper: 70)
 P15_HAM_N = 4096       # [15]: its word2bits-like shape, 4096 x 25 words
 P15_HAM_W = 25
 PHASE15_S = 60         # [15]'s time budget on an H100
+PHASE16_S = 45         # [16]'s time budget on an H100
+MEM_SLACK = 1.25       # [16]: the model's per-rank bytes within this of the
+#                        card's (and never below them)
 # [10b]: tiles_scheduled, tiles_skipped, dists_evaluated of the ring call as
 # the tree before the ghost kernel's row order (commit 5e86e38) printed
 # them; the counters come from the reference's block schedule, which no
@@ -4410,6 +4424,86 @@ def main() -> int:
     torch.cuda.empty_cache()
     t15_s = time.perf_counter() - t15
     print(f"[15] {t15_s:.1f} s (budget {PHASE15_S} s); script wall "
+          f"{time.perf_counter() - t_start:.1f} s")
+
+    # -- 16. the production dry run ------------------------------------------
+    import tempfile
+
+    from repro_torch.launch.dryrun import (ALGOS, LAYOUTS, MEASURE_EPS,
+                                           cell_n, measure_many, run_nng_cell)
+    from repro_torch.roofline.report import nng_table
+    t16 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out16:
+        cells16 = [run_nng_cell(c, m, out16) for c in NNG_CONFIGS
+                   for m in LAYOUTS]
+    check(all(c["status"] == "OK" for c in cells16),
+          f"[16] a dry-run cell failed: {[c.get('error') for c in cells16]}")
+    print(f"[16] the dry run's model ({len(cells16)} cells, no device; "
+          f"compute at fp32 67 TFLOP/s and popcounts at "
+          f"{kcost.POPC_RATE:.4g}/s, HBM at 3.35 TB/s, the ring at NVLink's "
+          f"450 GB/s a direction within a node and the network's 50 GB/s "
+          f"between nodes):")
+    print(nng_table(cells16))
+    for c in cells16:
+        for algo in ALGOS:
+            mem = c[algo]["memory"]
+            print(f"[16] {c['arch']} {c['mesh']} ({c['chips']} ranks, n "
+                  f"{c['n']}) {algo}: a rank's argument "
+                  f"{mem['argument_size_bytes']} output "
+                  f"{mem['output_size_bytes']} temp {mem['temp_size_bytes']} "
+                  f"B (peak phase {mem['peak_phase']}); collective bytes "
+                  f"{json.dumps(c[algo]['roofline']['coll_bytes'])}; "
+                  f"launches {json.dumps(c[algo]['launches'])}")
+    jobs16 = [(c, "pod1", a) for c in NNG_CONFIGS for a in ALGOS]
+    meas16 = measure_many(jobs16)
+    for r in meas16:
+        ratio = r["model_bytes"] / r["measured_bytes"]
+        print(f"[16] {r['name']} {r['algo']} at pod1's {r['n_loc']} points "
+              f"a rank, {r['ranks']} gloo processes on this card: eps "
+              f"{r['eps']} (mean degree {r['mean_degree']:.4f}, max "
+              f"{r['max_cnt']}, overflow {r['overflow']}); peak device "
+              f"memory measured {r['measured_bytes']} B (per process "
+              f"{r['peak_bytes']}), modelled {r['model_bytes']} B "
+              f"(argument {r['model']['argument_size_bytes']}, output "
+              f"{r['model']['output_size_bytes']}, temp "
+              f"{r['model']['temp_size_bytes']}; peak phase "
+              f"{r['model']['peak_phase']}): model / measured "
+              f"{ratio:.4f}; launches {json.dumps(r['launches'])} against "
+              f"the model's {json.dumps(r['model_launches'])}; "
+              f"{r['seconds']:.2f} s")
+        check(r["measured_bytes"] <= r["model_bytes"]
+              <= MEM_SLACK * r["measured_bytes"],
+              f"[16] {r['name']} {r['algo']}: modelled {r['model_bytes']} B "
+              f"against {r['measured_bytes']} B measured (want measured <= "
+              f"model <= {MEM_SLACK} x measured)")
+        check(r["launches"] == r["model_launches"],
+              f"[16] {r['name']} {r['algo']}: launches {r['launches']} "
+              f"against the model's {r['model_launches']}")
+    print(f"[16] the {len(meas16)} runs took {meas16[0]['spawn_wall_s']:.1f} s "
+          f"(the processes' start included); MEASURE_EPS {MEASURE_EPS}")
+    for c16 in NNG_CONFIGS.values():
+        if c16.metric != "euclidean":
+            continue
+        n16 = cell_n(c16.name, LAYOUTS["pod1"].ranks) // LAYOUTS["pod1"].ranks
+        x16 = torch.as_tensor(synthetic_pointset(n16, c16.dim, seed=SEED),
+                              device=dev)
+        ones16 = torch.ones(n16, dtype=torch.int32, device=dev)
+        ms16 = cuda_ms(torch, lambda: nng_tile_cuda(x16, x16, ones16,
+                                                    MEASURE_EPS[c16.name]),
+                       5)
+        b16 = kcost.tile_cost("euclidean", n16, n16, c16.dim)
+        print(f"[16] nng_tile at {c16.name}'s {n16} points a rank "
+              f"({n16}x{n16}x{c16.dim}): {ms16:.4f} ms median of 5; the "
+              f"model's bound {b16.bound_ms:.4f} ms ({b16.bound_by}: "
+              f"compute {b16.ops_ms:.4f} ms, bytes {b16.bytes_ms:.4f} ms), "
+              f"{b16.bound_ms / ms16:.3f} of it")
+        check(ms16 >= 0.95 * b16.bound_ms,
+              f"[16] nng_tile ran in {ms16} ms, below 0.95 x its bound "
+              f"{b16.bound_ms} ms: the cost model undercounts")
+        del x16, ones16
+    torch.cuda.empty_cache()
+    t16_s = time.perf_counter() - t16
+    print(f"[16] {t16_s:.1f} s (budget {PHASE16_S} s); script wall "
           f"{time.perf_counter() - t_start:.1f} s")
 
     record = {"kernels": [

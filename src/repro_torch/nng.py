@@ -195,6 +195,73 @@ def drive(engine: Engine, max_grows: int = 8, *, steady_state: bool = True):
 # point partitioning (systolic ring, Algorithm 4)
 # ---------------------------------------------------------------------------
 
+def ring_comm_bytes(n: int, dim: int, itemsize: int, nranks: int,
+                    k_cap: int, *, prune: bool, overlap: bool,
+                    traversal: str = "tiles") -> dict:
+    """Per-channel bytes of the point ring (Algorithm 4), summed over
+    ranks for one run, from shapes alone (the reference's formulas; hop
+    counts follow ``_systolic_local`` and, for ``traversal="tree"``, the
+    tree flavours):
+
+    - ``ring_mirror``: the visiting block's neighbour accumulator
+      ((n_loc, k_cap) int32 ids + (n_loc,) counts) — ``rounds`` in-loop
+      hops plus the final shift-``rounds`` return home;
+    - ``ring_summary`` (``prune`` only): the one-shot block-summary
+      all-gather — each rank contributes its (dim,) center plus the scalar
+      radius;
+    - ``ring_points``: the visiting block each hop — its point rows plus
+      the int32 ``id0`` scalar. The double-buffered schedule
+      (``overlap``) pays one extra priming hop. The tree flavour's block
+      carries its (n_loc,) id vector instead of ``id0`` and makes exactly
+      ``rounds`` hops on either schedule.
+
+    ``n`` is the padded point count (a multiple of ``nranks``). The tree
+    flavour's ``ring_forest`` needs the built forest: the engine adds it."""
+    if n % nranks:
+        raise ValueError(f"n={n} is not a multiple of the ring size "
+                         f"{nranks}")
+    rounds = nranks // 2
+    if rounds == 0:
+        return {"ring_points": 0.0, "ring_mirror": 0.0}
+    n_loc = n // nranks
+    mirror_hop = n_loc * k_cap * 4 + n_loc * 4
+    out = {"ring_mirror": float(nranks * (rounds + 1) * mirror_hop)}
+    if prune:
+        out["ring_summary"] = float(nranks * (dim * itemsize + 4))
+    if traversal == "tree":
+        hops, id_bytes = rounds, n_loc * 4
+    else:
+        hops, id_bytes = (rounds + 1 if overlap else rounds), 4
+    out["ring_points"] = float(nranks * hops
+                               * (n_loc * dim * itemsize + id_bytes))
+    return out
+
+
+def landmark_comm_bytes(n: int, dim: int, itemsize: int, nranks: int,
+                        plan: LandmarkPlan, ghost_mode: str) -> dict:
+    """Per-channel bytes of the landmark engine's exchanges (Algorithms
+    5+6), summed over ranks for one run, from shapes and the plan alone.
+    ``coalesce`` moves three (nranks, cap_coal, …) all-to-all operands per
+    rank — point rows, global ids, cell assignments. The ghost channel
+    follows ``ghost_mode`` as ``resolve_ghost_mode`` resolves it: ``ghost``
+    (the capacity-padded all-to-all of ghost copies, ``ghost_coll_bytes``)
+    or ``ghost_ring`` (the rotation of the compacted blocks,
+    ``ghost_ring_bytes``). ``n`` is the padded point count (a multiple of
+    ``nranks``)."""
+    if n % nranks:
+        raise ValueError(f"n={n} is not a multiple of the ring size "
+                         f"{nranks}")
+    row_bytes = itemsize * dim + 4 + 4   # pts + id + cell
+    out = {"coalesce": float(nranks * nranks * plan.cap_coal * row_bytes)}
+    if resolve_ghost_mode(ghost_mode, plan, dim, itemsize, nranks) == "ring":
+        out["ghost_ring"] = float(ghost_ring_bytes(
+            nranks, plan.cap_rank, dim, itemsize, plan.m_centers))
+    else:
+        out["ghost"] = float(ghost_coll_bytes(nranks, plan.cap_ghost, dim,
+                                              itemsize))
+    return out
+
+
 class PointPartitionEngine(Engine):
     name = "point"
 
@@ -252,52 +319,29 @@ class PointPartitionEngine(Engine):
                  nbrs)]
 
     def _ring_comm_bytes(self, k_cap: int) -> dict:
-        """Per-channel ring bytes, summed over ranks for the full run (the
-        reference's formulas; hop counts follow the ring bodies):
-
-        - ``ring_points``: the visiting block each hop — point rows plus
-          the block-id payload (one int32 ``id0`` scalar on the tiles
-          flavour, the (n_loc,) id vector on the tree flavour). Double
-          buffering pays one extra priming hop on the tiles flavour; the
-          tree flavours make exactly ``rounds`` point hops.
-        - ``ring_forest`` (tree only): the levelized forest tables — every
-          hop on the serial schedule, one jump per "forest" round on the
-          split schedule (a jump costs one hop's bytes however far it
-          goes).
-        - ``ring_mirror``: the visiting block's neighbour accumulator
-          ((n_loc, k_cap) ids + (n_loc,) counts) — ``rounds`` in-loop hops
-          plus the final shift-``rounds`` return home.
-        - ``ring_summary`` (prune only): the one-shot block-summary
-          all-gather — each rank contributes its (dim,) center plus the
-          scalar radius.
-        """
+        """Per-channel ring bytes of this engine's run: ``ring_comm_bytes``
+        of its shapes, and for the tree flavour ``ring_forest``, the
+        levelized forest tables: every hop on the serial schedule, one jump
+        per "forest" round on the split schedule (a jump costs one hop's
+        bytes however far it goes)."""
         nranks = self.mesh.size
-        rounds = nranks // 2
-        if rounds == 0:
-            return {"ring_points": 0.0, "ring_mirror": 0.0}
         n, dim = self.points.shape
-        n_loc = n // nranks
-        item = self.points.element_size()
-        mirror_hop = n_loc * k_cap * 4 + n_loc * 4
-        bytes_ = {"ring_mirror": float(nranks * (rounds + 1) * mirror_hop)}
-        if self.prune:
-            bytes_["ring_summary"] = float(nranks * (dim * item + 4))
-        if self.traversal == "tree":
-            pt_hop = n_loc * dim * item + n_loc * 4
-            bytes_["ring_points"] = float(nranks * rounds * pt_hop)
-            # the tables hold the local ranks', each rank's the same size
-            forest_hop = sum(v.numel() * v.element_size()
-                             for v in self.forest.values()
-                             ) / self.forest["cell"].shape[0]
-            if self.overlap:
-                fhops = sum(m == "forest" for m in self.ring_schedule)
-            else:
-                fhops = rounds
-            bytes_["ring_forest"] = float(nranks * fhops * forest_hop)
+        bytes_ = ring_comm_bytes(n, dim, self.points.element_size(), nranks,
+                                 k_cap, prune=self.prune,
+                                 overlap=self.overlap,
+                                 traversal=self.traversal)
+        rounds = nranks // 2
+        if self.traversal != "tree" or rounds == 0:
+            return bytes_
+        # the tables hold the local ranks', each rank's the same size
+        forest_hop = sum(v.numel() * v.element_size()
+                         for v in self.forest.values()
+                         ) / self.forest["cell"].shape[0]
+        if self.overlap:
+            fhops = sum(m == "forest" for m in self.ring_schedule)
         else:
-            pt_hop = n_loc * dim * item + 4
-            hops = rounds + 1 if self.overlap else rounds
-            bytes_["ring_points"] = float(nranks * hops * pt_hop)
+            fhops = rounds
+        bytes_["ring_forest"] = float(nranks * fhops * forest_hop)
         return bytes_
 
     def run_stats(self, out, k_cap) -> RunStats:
@@ -461,25 +505,11 @@ class SpatialPartitionEngine(Engine):
         return [*zip(out[0], out[1]), *zip(out[3], out[4])]
 
     def _landmark_comm_bytes(self, plan: LandmarkPlan) -> dict:
-        """Per-channel exchange bytes. ``coalesce`` moves three
-        (nranks, cap, …) all-to-all operands per rank — point rows, global
-        ids, cell assignments. The ghost channel follows the resolved mode:
-        ``ghost`` (capacity-padded all-to-all of ghost copies) or
-        ``ghost_ring`` — both from the formulas in ``device.py`` that
-        ``resolve_ghost_mode`` compares."""
-        nranks = self.mesh.size
-        dim = self.points.shape[1]
-        item = self.points.element_size()
-        row_bytes = item * dim + 4 + 4   # pts + id + cell
-        lw = nranks * plan.cap_coal
-        out = {"coalesce": float(nranks * lw * row_bytes)}
-        if self.resolved_ghost_mode(plan) == "ring":
-            out["ghost_ring"] = float(ghost_ring_bytes(
-                nranks, plan.cap_rank, dim, item, plan.m_centers))
-        else:
-            out["ghost"] = float(ghost_coll_bytes(
-                nranks, plan.cap_ghost, dim, item))
-        return out
+        """Per-channel exchange bytes: ``landmark_comm_bytes`` of this
+        engine's shapes and ghost mode."""
+        n, dim = self.points.shape
+        return landmark_comm_bytes(n, dim, self.points.element_size(),
+                                   self.mesh.size, plan, self.ghost_mode)
 
     def run_stats(self, out, plan: LandmarkPlan) -> RunStats:
         # the (nranks,) fp32 counters summed as the reference sums them

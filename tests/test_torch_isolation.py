@@ -1,6 +1,7 @@
 """The port stands alone: no JAX and nothing of the reference package, and
 no silent fall back to the CPU when the card is missing."""
 import ast
+import json
 import os
 import shutil
 import subprocess
@@ -69,6 +70,38 @@ def test_analyzer_cli_runs_with_jax_blocked(tmp_path):
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
     assert "0 fresh" in r.stderr
+
+
+def test_dryrun_cli_runs_with_jax_blocked(tmp_path):
+    """``python -m repro_torch.launch.dryrun`` and the report with ``jax``
+    and ``repro`` unimportable: six cells written, each OK with both
+    engines, and the table's twelve rows; no tensor reaches a device."""
+    out = tmp_path / "dryrun"
+    code = (
+        "import sys, runpy\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        f"sys.argv = ['dryrun', '--out', {str(out)!r}]\n"
+        "try:\n"
+        "    runpy.run_module('repro_torch.launch.dryrun', "
+        "run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert not e.code, e.code\n"
+        "import torch\n"
+        "assert not torch.cuda.is_initialized()\n"
+        f"sys.argv = ['report', '--out-dir', {str(out)!r}]\n"
+        "runpy.run_module('repro_torch.roofline.report', "
+        "run_name='__main__')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", code], env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    cells = [json.loads(p.read_text()) for p in sorted(out.glob("*.json"))]
+    assert len(cells) == 6
+    assert all(c["status"] == "OK" and "systolic" in c and "landmark" in c
+               for c in cells)
+    table = r.stdout.split("## NNG workloads")[-1]
+    assert table.count("| nng-") == 12, r.stdout
 
 
 def test_default_device_without_cuda_raises():
